@@ -1,0 +1,63 @@
+"""Attention dispatch: the one site every model's attention goes through.
+
+Port of ``consolver_tpu/kernels/attention.py``.  Layout: q ``[B, Sq, H, D]``,
+k/v ``[B, Sk, H, D]`` -> out ``[B, Sq, H, D]``.
+
+  =========================  ======  =============================
+  call                       device  goes to
+  =========================  ======  =============================
+  unmasked, non-causal       CUDA    the hand-written flash kernel
+  unmasked, non-causal       CPU     its plain version
+  causal or masked           any     :func:`xla_attention`
+  =========================  ======  =============================
+
+A CUDA call the kernel cannot take (head dim > 512, a dtype other than
+bf16/f16/f32) raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from consolver_torch.kernels.flash_attention import flash_attention
+
+
+def xla_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    is_causal: bool = False,
+) -> torch.Tensor:
+    """Plain attention with the JAX package's XLA semantics: f32 logits and
+    softmax, probabilities cast to the input dtype, then ``p @ v``.
+
+    ``mask`` is boolean, broadcastable to ``[B, H, Sq, Sk]``, True = keep.
+    """
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    keep = None
+    if mask is not None:
+        keep = mask.to(torch.bool)
+    if is_causal:
+        sq, sk = q.shape[1], k.shape[1]
+        causal = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril()
+        keep = causal if keep is None else keep & causal
+    if keep is not None:
+        logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(k.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    is_causal: bool = False,
+) -> torch.Tensor:
+    if mask is None and not is_causal:
+        return flash_attention(q, k, v)
+    return xla_attention(q, k, v, mask=mask, is_causal=is_causal)

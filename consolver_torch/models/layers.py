@@ -1,0 +1,273 @@
+"""Shared neural blocks of the diffusion models (float path).
+
+Port of ``consolver_tpu/models/layers.py``.  The blocks run NCHW inside;
+the models' public calls are NHWC like the JAX package's.  Module attribute
+names follow the diffusers checkpoint keys (``to_out.0``, ``ff.net.0.proj``,
+``transformer_blocks.0``), so the JAX converters read their state dicts.
+
+Numerics kept from the JAX package:
+  * matmuls and convs run in the weights' dtype (the compute dtype);
+  * GroupNorm runs in f32, eps 1e-5 in ``ResnetBlock2D`` and 1e-6 in
+    ``Transformer2D`` / ``VaeAttention``; LayerNorm runs in f32, eps 1e-5;
+  * GEGLU uses the tanh-approximated GELU (flax ``nn.gelu``'s default);
+  * ``Downsample2D`` pads (0, 1) then runs a VALID stride-2 conv;
+  * attention tokens are row-major over (h, w).
+
+Every attention goes through :func:`consolver_torch.kernels.attention.attention`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from consolver_torch.kernels.attention import attention as attention_op
+
+
+def group_norm_f32(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+    """GroupNorm computed in f32 (returns f32)."""
+    return F.group_norm(
+        x.float(), norm.num_groups, norm.weight.float(), norm.bias.float(), norm.eps
+    )
+
+
+def layer_norm_f32(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm computed in f32 (returns f32)."""
+    return F.layer_norm(
+        x.float(), norm.normalized_shape, norm.weight.float(), norm.bias.float(), norm.eps
+    )
+
+
+def conv_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A conv run in f32 whatever its weights' dtype (the models' ``conv_out``)."""
+    return F.conv2d(
+        x.float(), conv.weight.float(), conv.bias.float(), conv.stride, conv.padding
+    )
+
+
+def nchw_to_tokens(x: torch.Tensor) -> torch.Tensor:
+    """``[B, C, H, W]`` -> ``[B, H*W, C]``, row-major over (h, w)."""
+    b, c, h, w = x.shape
+    return x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+
+
+def tokens_to_nchw(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    b, _, c = x.shape
+    return x.reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+
+def timestep_embedding(
+    timesteps: torch.Tensor,
+    dim: int,
+    flip_sin_to_cos: bool = True,
+    downscale_freq_shift: float = 0.0,
+    max_period: float = 10000.0,
+) -> torch.Tensor:
+    """Sinusoidal timestep embeddings (diffusers ``get_timestep_embedding``)."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32, device=timesteps.device)
+    exponent = exponent / (half - downscale_freq_shift)
+    emb = torch.exp(exponent)[None, :] * timesteps.float()[:, None]
+    sin, cos = torch.sin(emb), torch.cos(emb)
+    if flip_sin_to_cos:
+        return torch.cat([cos, sin], dim=-1)
+    return torch.cat([sin, cos], dim=-1)
+
+
+class TimestepEmbedding(nn.Module):
+    """2-layer SiLU MLP lifting the sinusoidal embedding."""
+
+    def __init__(self, in_dim: int, embed_dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, embed_dim)
+        self.linear_2 = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.silu(self.linear_1(t_emb)))
+
+
+class ResnetBlock2D(nn.Module):
+    """GN-SiLU-Conv x2 residual block with additive time conditioning (NCHW)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        groups: int = 32,
+        temb_channels: Optional[int] = None,
+    ):
+        super().__init__()
+        self.norm1 = nn.GroupNorm(groups, in_channels, eps=1e-5)
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = (
+            nn.Linear(temb_channels, out_channels) if temb_channels is not None else None
+        )
+        self.norm2 = nn.GroupNorm(groups, out_channels, eps=1e-5)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (
+            nn.Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
+        )
+
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dtype = self.conv1.weight.dtype
+        h = self.conv1(F.silu(group_norm_f32(self.norm1, x)).to(dtype))
+        if temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(F.silu(group_norm_f32(self.norm2, h)).to(dtype))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x.to(dtype))
+        return x + h
+
+
+class Attention(nn.Module):
+    """Multi-head attention with optional cross-attention context
+    (``[B, S, C]`` tokens); heads split as ``reshape(b, s, H, D)``."""
+
+    def __init__(
+        self,
+        query_dim: int,
+        num_heads: int,
+        head_dim: int,
+        cross_dim: Optional[int] = None,
+        out_bias: bool = True,
+    ):
+        super().__init__()
+        inner = num_heads * head_dim
+        self.num_heads = num_heads
+        self.head_dim = head_dim
+        kv_dim = cross_dim if cross_dim is not None else query_dim
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(kv_dim, inner, bias=False)
+        self.to_v = nn.Linear(kv_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, inner, bias=out_bias)])
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        context = x if context is None else context
+        b, sq = x.shape[:2]
+        sk = context.shape[1]
+        q = self.to_q(x).reshape(b, sq, self.num_heads, self.head_dim)
+        k = self.to_k(context).reshape(b, sk, self.num_heads, self.head_dim)
+        v = self.to_v(context).reshape(b, sk, self.num_heads, self.head_dim)
+        out = attention_op(q, k, v).reshape(b, sq, self.num_heads * self.head_dim)
+        return self.to_out[0](out)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.proj = nn.Linear(dim_in, dim_out * 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate, approximate="tanh")
+
+
+class FeedForward(nn.Module):
+    """``net.0`` GEGLU, ``net.1`` the (inference-time) dropout, ``net.2`` out."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.net:
+            x = layer(x)
+        return x
+
+
+class BasicTransformerBlock(nn.Module):
+    """LN -> self-attn -> LN -> cross-attn -> LN -> GEGLU FF, all residual."""
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int, cross_dim: int):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, num_heads, head_dim)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn2 = Attention(dim, num_heads, head_dim, cross_dim=cross_dim)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        dtype = self.attn1.to_q.weight.dtype
+        x = x + self.attn1(layer_norm_f32(self.norm1, x).to(dtype))
+        x = x + self.attn2(layer_norm_f32(self.norm2, x).to(dtype), context)
+        return x + self.ff(layer_norm_f32(self.norm3, x).to(dtype))
+
+
+class Transformer2D(nn.Module):
+    """Spatial transformer: GN -> 1x1 conv in -> transformer blocks -> 1x1 out
+    (NCHW in and out; SD-1.5's conv projections)."""
+
+    def __init__(
+        self,
+        channels: int,
+        num_heads: int,
+        head_dim: int,
+        cross_dim: int,
+        depth: int = 1,
+        groups: int = 32,
+    ):
+        super().__init__()
+        self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
+        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(channels, num_heads, head_dim, cross_dim) for _ in range(depth)]
+        )
+        self.proj_out = nn.Conv2d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        _, _, h, w = x.shape
+        residual = x
+        y = self.proj_in(group_norm_f32(self.norm, x).to(self.proj_in.weight.dtype))
+        y = nchw_to_tokens(y)
+        for block in self.transformer_blocks:
+            y = block(y, context)
+        return self.proj_out(tokens_to_nchw(y, h, w)) + residual
+
+
+class Downsample2D(nn.Module):
+    """Stride-2 conv after the asymmetric (0, 1) padding diffusers uses."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, stride=2, padding=0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class Upsample2D(nn.Module):
+    """Nearest-neighbour 2x upsample + conv."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class VaeAttention(nn.Module):
+    """Single-head self-attention block of the VAE mid blocks (NCHW)."""
+
+    def __init__(self, channels: int, groups: int = 32):
+        super().__init__()
+        self.group_norm = nn.GroupNorm(groups, channels, eps=1e-6)
+        self.to_q = nn.Linear(channels, channels)
+        self.to_k = nn.Linear(channels, channels)
+        self.to_v = nn.Linear(channels, channels)
+        self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        residual = x
+        t = nchw_to_tokens(group_norm_f32(self.group_norm, x)).to(self.to_q.weight.dtype)
+        q = self.to_q(t).reshape(b, h * w, 1, c)
+        k = self.to_k(t).reshape(b, h * w, 1, c)
+        v = self.to_v(t).reshape(b, h * w, 1, c)
+        out = self.to_out[0](attention_op(q, k, v).reshape(b, h * w, c))
+        return tokens_to_nchw(out, h, w) + residual

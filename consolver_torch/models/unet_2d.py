@@ -1,0 +1,217 @@
+"""SD-1.5-class conditional UNet (float path).
+
+Port of ``consolver_tpu/models/unet_2d.py``.  The public call takes NHWC
+latents, ``[B]`` integer timesteps and a ``[B, S, cross_dim]`` context and
+returns NHWC epsilon; inside, the conv stacks run NCHW.  Attribute names
+follow the diffusers ``UNet2DConditionModel`` keys
+(``down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_out.0``), so
+``consolver_tpu.models.convert.convert_unet`` reads the state dict as is.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from consolver_torch.device import resolve_device
+from consolver_torch.models.layers import (
+    Downsample2D,
+    ResnetBlock2D,
+    TimestepEmbedding,
+    Transformer2D,
+    Upsample2D,
+    conv_f32,
+    group_norm_f32,
+    timestep_embedding,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    # True => the block at this position has cross-attention transformers.
+    cross_attn_blocks: Tuple[bool, ...] = (True, True, True, False)
+    attention_head_dim: int = 8  # number of heads (diffusers SD-1.5 semantics)
+    cross_attention_dim: int = 768
+    norm_num_groups: int = 32
+    transformer_depth: int = 1
+    flip_sin_to_cos: bool = True
+    freq_shift: float = 0.0
+    # W8A8 int8 projections: not ported yet (ROADMAP Queue A.11).
+    quant_int8: bool = False
+
+    @classmethod
+    def sd15(cls) -> "UNetConfig":
+        return cls()
+
+    @classmethod
+    def tiny(cls) -> "UNetConfig":
+        """Small fixture config for tests."""
+        return cls(
+            block_out_channels=(32, 64),
+            layers_per_block=1,
+            cross_attn_blocks=(True, False),
+            attention_head_dim=2,
+            cross_attention_dim=32,
+            norm_num_groups=8,
+        )
+
+
+def _transformer(cfg: UNetConfig, channels: int) -> Transformer2D:
+    heads = cfg.attention_head_dim
+    return Transformer2D(
+        channels, heads, channels // heads, cfg.cross_attention_dim,
+        depth=cfg.transformer_depth, groups=cfg.norm_num_groups,
+    )
+
+
+class CrossAttnDownBlock(nn.Module):
+    def __init__(self, cfg: UNetConfig, in_channels: int, out_channels: int,
+                 has_attn: bool, add_downsample: bool, temb_channels: int):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(in_channels if i == 0 else out_channels, out_channels,
+                          cfg.norm_num_groups, temb_channels)
+            for i in range(cfg.layers_per_block)
+        ])
+        self.attentions = (
+            nn.ModuleList([_transformer(cfg, out_channels) for _ in range(cfg.layers_per_block)])
+            if has_attn else None
+        )
+        self.downsamplers = (
+            nn.ModuleList([Downsample2D(out_channels, out_channels)]) if add_downsample else None
+        )
+
+    def forward(self, x, temb, context):
+        skips = []
+        for i, resnet in enumerate(self.resnets):
+            x = resnet(x, temb)
+            if self.attentions is not None:
+                x = self.attentions[i](x, context)
+            skips.append(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x)
+            skips.append(x)
+        return x, skips
+
+
+class CrossAttnUpBlock(nn.Module):
+    def __init__(self, cfg: UNetConfig, in_channels: List[int], out_channels: int,
+                 has_attn: bool, add_upsample: bool, temb_channels: int):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(c, out_channels, cfg.norm_num_groups, temb_channels)
+            for c in in_channels
+        ])
+        self.attentions = (
+            nn.ModuleList([_transformer(cfg, out_channels) for _ in in_channels])
+            if has_attn else None
+        )
+        self.upsamplers = (
+            nn.ModuleList([Upsample2D(out_channels, out_channels)]) if add_upsample else None
+        )
+
+    def forward(self, x, skips, temb, context):
+        for i, resnet in enumerate(self.resnets):
+            x = resnet(torch.cat([x, skips.pop()], dim=1), temb)
+            if self.attentions is not None:
+                x = self.attentions[i](x, context)
+        if self.upsamplers is not None:
+            x = self.upsamplers[0](x)
+        return x
+
+
+class MidBlock(nn.Module):
+    def __init__(self, cfg: UNetConfig, channels: int, temb_channels: int):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(channels, channels, cfg.norm_num_groups, temb_channels)
+            for _ in range(2)
+        ])
+        self.attentions = nn.ModuleList([_transformer(cfg, channels)])
+
+    def forward(self, x, temb, context):
+        x = self.resnets[0](x, temb)
+        x = self.attentions[0](x, context)
+        return self.resnets[1](x, temb)
+
+
+class UNet2DCondition(nn.Module):
+    """epsilon-prediction UNet: (latents NHWC, timesteps [B], context
+    [B, S, cross_dim]) -> noise prediction NHWC (f32)."""
+
+    def __init__(self, cfg: UNetConfig, device=None, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if cfg.quant_int8:
+            raise NotImplementedError("int8 UNet is not ported yet (ROADMAP Queue A.11)")
+        self.cfg = cfg
+        device = resolve_device(device)
+        channels = cfg.block_out_channels
+        temb_channels = channels[0] * 4
+        with torch.device(device):
+            self.time_embedding = TimestepEmbedding(channels[0], temb_channels)
+            self.conv_in = nn.Conv2d(cfg.in_channels, channels[0], 3, padding=1)
+
+            # Channel count of every skip, in push order, to size the up path.
+            skip_channels = [channels[0]]
+            self.down_blocks = nn.ModuleList()
+            prev = channels[0]
+            for i, out_ch in enumerate(channels):
+                is_last = i == len(channels) - 1
+                self.down_blocks.append(CrossAttnDownBlock(
+                    cfg, prev, out_ch, cfg.cross_attn_blocks[i], not is_last, temb_channels,
+                ))
+                skip_channels += [out_ch] * (cfg.layers_per_block + (0 if is_last else 1))
+                prev = out_ch
+
+            self.mid_block = MidBlock(cfg, channels[-1], temb_channels)
+
+            self.up_blocks = nn.ModuleList()
+            for i, out_ch in enumerate(reversed(channels)):
+                rev = len(channels) - 1 - i
+                ins = []
+                for _ in range(cfg.layers_per_block + 1):
+                    ins.append(prev + skip_channels.pop())
+                    prev = out_ch
+                self.up_blocks.append(CrossAttnUpBlock(
+                    cfg, ins, out_ch, cfg.cross_attn_blocks[rev],
+                    i != len(channels) - 1, temb_channels,
+                ))
+
+            self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, channels[0], eps=1e-5)
+            self.conv_out = nn.Conv2d(channels[0], cfg.out_channels, 3, padding=1)
+        if dtype is not None:
+            self.to(dtype)
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        dtype = self.conv_in.weight.dtype
+        context = encoder_hidden_states.to(dtype)
+        timesteps = torch.as_tensor(timesteps, device=sample.device)
+        if timesteps.ndim == 0:
+            timesteps = timesteps.expand(sample.shape[0])
+
+        temb = timestep_embedding(
+            timesteps, cfg.block_out_channels[0], cfg.flip_sin_to_cos, cfg.freq_shift
+        ).to(dtype)
+        temb = self.time_embedding(temb)
+
+        x = self.conv_in(sample.permute(0, 3, 1, 2).to(dtype))
+        skips = [x]
+        for block in self.down_blocks:
+            x, block_skips = block(x, temb, context)
+            skips.extend(block_skips)
+        x = self.mid_block(x, temb, context)
+        for block in self.up_blocks:
+            x = block(x, skips, temb, context)
+
+        x = F.silu(group_norm_f32(self.conv_norm_out, x)).to(dtype)
+        return conv_f32(self.conv_out, x).permute(0, 2, 3, 1)

@@ -1,0 +1,348 @@
+"""Text-to-image denoise pipeline: an eager per-step loop.
+
+Port of ``consolver_tpu/pipelines/t2i.py`` (the learnable-solver path).  Each
+step runs a CFG-batched UNet forward, pushes the new epsilon into the solver
+history, lets the FactorNet pick an action from that history, combines the
+history and applies the DDIM x0-form update; the RL trajectory (conds,
+actions, probs, masks) is recorded per step and step 0 is dropped, as in the
+JAX package's scan.  The plain-DDIM baseline is ``factor_net=None``
+(``order_dim=1``, passthrough combine).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from consolver_torch.core import schedules, solver
+from consolver_torch.data.tokenizer import HashTokenizer, uncond_input_ids
+from consolver_torch.device import resolve_device
+from consolver_torch.models.vae import decode_latents as _decode_latents
+from consolver_torch.policy.factor_net import FactorNet
+
+UNetApply = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class Trajectory:
+    """Per-step PPO records shaped ``[B, steps-1, ...]`` (step 0 dropped).
+    ``valid`` marks real (non-pad) rows of a padded rollout."""
+
+    conds_x: torch.Tensor  # [B, S-1, 2]
+    actions: torch.Tensor  # [B, S-1, A]
+    probs: torch.Tensor  # [B, S-1, A]
+    masks: torch.Tensor  # [B, S-1, A]
+    conds_eps: Optional[torch.Tensor] = None  # [B, S-1, order_dim, ...] if use_conv
+    valid: Optional[torch.Tensor] = None  # [B, S-1]
+
+
+def _solver_dims(factor_net: Optional[FactorNet]) -> Tuple[int, int, int]:
+    if factor_net is None:
+        return 1, 0, 1  # degenerate DDIM solver: passthrough, no actions
+    cfg = factor_net.config
+    return cfg.order_dim, cfg.scaler_dim, cfg.action_dims
+
+
+def _make_loop(
+    unet_apply: UNetApply,
+    schedule: schedules.DiffusionSchedule,
+    factor_net: Optional[FactorNet],
+    guidance_scale: float,
+    record_trajectory: bool,
+    deterministic_policy: bool,
+):
+    """The step loop shared by the per-count and padded programs: runs over a
+    host ladder ``(ts, prev_ts, valid)``; a step with ``valid == 0`` runs the
+    UNet and policy but leaves latents and history unchanged."""
+    order_dim, scaler_dim, action_dims = _solver_dims(factor_net)
+    do_cfg = guidance_scale > 1.0
+    use_conv = factor_net is not None and factor_net.config.use_conv
+
+    def loop(generator, noise, context, uncond_context, ts, prev_ts, valid, padded):
+        device = noise.device
+        batch = noise.shape[0]
+        alphas = torch.as_tensor(schedule.alphas_cumprod, device=device)
+        full_context = torch.cat([uncond_context, context], dim=0) if do_cfg else context
+        st = solver.init_state(batch, order_dim, tuple(noise.shape[1:]), device=device)
+        latents = noise.float()
+        records = []
+        for t, t_prev, v in zip(ts.tolist(), prev_ts.tolist(), valid.tolist()):
+            if do_cfg:
+                t_in = torch.full((2 * batch,), t, dtype=torch.int64, device=device)
+                eps_all = unet_apply(torch.cat([latents, latents], dim=0), t_in, full_context)
+                eps_uncond, eps_text = eps_all.chunk(2, dim=0)
+                eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
+            else:
+                t_in = torch.full((batch,), t, dtype=torch.int64, device=device)
+                eps = unet_apply(latents, t_in, full_context)
+            eps = eps.float()
+
+            conds_x = torch.tensor([t, t_prev], dtype=torch.float32, device=device)
+            conds_x = conds_x[None].expand(batch, 2)
+            # The history is pushed before the policy reads it.
+            st_new = solver.push(st, eps)
+            if factor_net is not None:
+                conds = {"x": conds_x, "epsilon": st_new.ets}
+                if deterministic_policy:
+                    actions, probs = factor_net.mode_action(conds)
+                else:
+                    actions, probs = factor_net.sample_action(conds, generator)
+            else:
+                actions = torch.zeros((batch, action_dims), device=device)
+                probs = torch.ones((batch, action_dims), device=device)
+
+            order_actions, scale_actions, _ = solver.split_actions(actions, order_dim, scaler_dim)
+            coeffs = solver.normalized_coefficients(order_actions.float(), st_new.num_ets, order_dim)
+            effective = solver.combine(st_new, coeffs)
+            effective, scaled_sample = solver.apply_scalers(effective, latents, scale_actions.float())
+            masks = solver.warmup_masks(st_new.num_ets, order_dim, action_dims, batch, device) * v
+
+            a_t, a_prev = solver.gather_alpha_prods(alphas, t, t_prev, schedule.final_alpha_cumprod)
+            if v > 0:
+                latents = solver.ddim_update(
+                    scaled_sample, effective, a_t, a_prev, schedule.prediction_type
+                )
+                st = st_new
+            if record_trajectory:
+                record = {"conds_x": conds_x, "actions": actions, "probs": probs, "masks": masks}
+                if padded:
+                    record["valid"] = torch.full((batch,), float(v), device=device)
+                if use_conv:  # the history after the step (unchanged on a pad step)
+                    record["conds_eps"] = st.ets
+                records.append(record)
+
+        if not record_trajectory:
+            return latents, None
+        # [S][B, ...] -> [B, S-1, ...], dropping step 0
+        stacked = {name: torch.stack([r[name] for r in records], dim=1)[:, 1:] for name in records[0]}
+        return latents, Trajectory(**stacked)
+
+    return loop
+
+
+def make_denoise_fn(
+    unet_apply: UNetApply,
+    schedule: schedules.DiffusionSchedule,
+    factor_net: Optional[FactorNet],
+    num_inference_steps: int,
+    guidance_scale: float = 3.0,
+    timestep_spacing: str = "trailing",
+    steps_offset: int = 1,
+    record_trajectory: bool = True,
+    deterministic_policy: bool = False,
+):
+    """Build the denoise function.
+
+    ``unet_apply``: (latents NHWC, timesteps [B], context) -> epsilon.
+    Returned fn: (generator, noise, context, uncond_context) -> (final
+    latents, Trajectory or None).  CFG runs as one 2B-batched UNet call in
+    ``[uncond, text]`` order; with ``guidance_scale <= 1`` the uncond branch
+    is skipped.  ``deterministic_policy=True`` takes the mode action.
+    """
+    ts = schedules.spaced_timesteps(
+        schedule.num_train_timesteps, num_inference_steps, timestep_spacing, steps_offset
+    )
+    prev_ts = ts - schedule.num_train_timesteps // num_inference_steps
+    valid = np.ones(len(ts), np.float32)
+    loop = _make_loop(unet_apply, schedule, factor_net, guidance_scale,
+                      record_trajectory, deterministic_policy)
+
+    def denoise(generator, noise, context, uncond_context):
+        return loop(generator, noise, context, uncond_context, ts, prev_ts, valid, padded=False)
+
+    return denoise
+
+
+def padded_ladder(
+    schedule: schedules.DiffusionSchedule,
+    num_inference_steps: int,
+    max_steps: int,
+    timestep_spacing: str = "trailing",
+    steps_offset: int = 1,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The ``num_inference_steps`` ladder front-loaded into ``[max_steps]``
+    host arrays with a validity mask (pad steps repeat the last entry)."""
+    if not 1 <= num_inference_steps <= max_steps:
+        raise ValueError(f"need 1 <= num_inference_steps ({num_inference_steps}) <= {max_steps}")
+    ts = schedules.spaced_timesteps(
+        schedule.num_train_timesteps, num_inference_steps, timestep_spacing, steps_offset
+    )
+    prev_ts = ts - schedule.num_train_timesteps // num_inference_steps
+    pad = max_steps - num_inference_steps
+    ts_p = np.concatenate([ts, np.repeat(ts[-1:], pad)]).astype(np.int32)
+    prev_p = np.concatenate([prev_ts, np.repeat(prev_ts[-1:], pad)]).astype(np.int32)
+    valid = np.concatenate([np.ones(num_inference_steps), np.zeros(pad)]).astype(np.float32)
+    return ts_p, prev_p, valid
+
+
+def make_padded_denoise_fn(
+    unet_apply: UNetApply,
+    schedule: schedules.DiffusionSchedule,
+    factor_net: Optional[FactorNet],
+    max_steps: int,
+    guidance_scale: float = 3.0,
+    record_trajectory: bool = True,
+    deterministic_policy: bool = False,
+):
+    """Pad-to-max variant of :func:`make_denoise_fn`: one function serves
+    every step count in ``[1, max_steps]``.  Pad steps run the UNet but pass
+    latents and history through, and their trajectory masks are zero.
+
+    Returned fn: (generator, noise, context, uncond_context, ts[M],
+    prev_ts[M], valid[M]) -> (latents, Trajectory with ``valid``)."""
+    loop = _make_loop(unet_apply, schedule, factor_net, guidance_scale,
+                      record_trajectory, deterministic_policy)
+
+    def denoise(generator, noise, context, uncond_context, ts, prev_ts, valid):
+        if len(ts) != max_steps:
+            raise ValueError(f"ladder has {len(ts)} steps, program has {max_steps}")
+        return loop(generator, noise, context, uncond_context,
+                    np.asarray(ts), np.asarray(prev_ts), np.asarray(valid), padded=True)
+
+    return denoise
+
+
+def encode_prompt_fn(text_encoder_apply: Callable[[torch.Tensor], torch.Tensor]):
+    """(prompt_ids, uncond_ids) -> (context, uncond_context)."""
+
+    def encode(prompt_ids, uncond_ids):
+        return text_encoder_apply(prompt_ids), text_encoder_apply(uncond_ids)
+
+    return encode
+
+
+class TextToImagePipeline:
+    """The models, schedule and policy of one text-to-image deployment, with
+    cached denoise functions per (steps, cfg) program."""
+
+    def __init__(
+        self,
+        unet,
+        text_encoder,
+        vae,
+        schedule: schedules.DiffusionSchedule,
+        factor_net: Optional[FactorNet] = None,
+        timestep_spacing: str = "trailing",
+        steps_offset: int = 1,
+        tokenizer=None,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.unet = unet
+        self.text_encoder = text_encoder
+        self.vae = vae
+        self.schedule = schedule
+        self.factor_net = factor_net
+        self.timestep_spacing = timestep_spacing
+        self.steps_offset = steps_offset
+        self.tokenizer = tokenizer
+        self._denoise_cache = {}
+        self._encode = encode_prompt_fn(self.text_encoder)
+
+    def decode_latents(self, latents: torch.Tensor, chunk: Optional[int] = None) -> torch.Tensor:
+        """Scaled latents -> [0, 1] images."""
+        return _decode_latents(self.vae, latents, chunk=chunk)
+
+    def uncond_ids_for(self, prompt_ids) -> torch.Tensor:
+        """The empty prompt's ids for CFG, from the attached tokenizer (else
+        the HashTokenizer's ``[BOS, EOS, pad...]``) - not all-zero ids."""
+        max_len = int(prompt_ids.shape[1])
+        tok = self.tokenizer or HashTokenizer(max_length=max_len)
+        ids = uncond_input_ids(
+            tok, int(prompt_ids.shape[0]), max_len, vocab_size=self.text_encoder.cfg.vocab_size
+        )
+        return torch.as_tensor(ids, device=self.device)
+
+    def quantize(self, skip_levels: Tuple[int, ...] = (0,)):
+        raise NotImplementedError("int8 serving is not ported yet (ROADMAP Queue A.11)")
+
+    def denoise_fn(
+        self,
+        num_inference_steps: int,
+        guidance_scale: float,
+        record: bool = True,
+        solver: str = "consistencysolver",
+        deterministic_policy: bool = False,
+    ):
+        if solver != "consistencysolver":
+            raise NotImplementedError(
+                f"solver {solver!r}: the baseline solver zoo is not ported yet (ROADMAP Queue A.10)"
+            )
+        key = (num_inference_steps, float(guidance_scale), record, deterministic_policy)
+        if key not in self._denoise_cache:
+            self._denoise_cache[key] = make_denoise_fn(
+                self.unet, self.schedule, self.factor_net, num_inference_steps,
+                guidance_scale, self.timestep_spacing, self.steps_offset,
+                record_trajectory=record, deterministic_policy=deterministic_policy,
+            )
+        return self._denoise_cache[key]
+
+    def padded_denoise_fn(
+        self,
+        max_steps: int,
+        guidance_scale: float,
+        record: bool = True,
+        deterministic_policy: bool = False,
+    ):
+        key = ("padded", max_steps, float(guidance_scale), record, deterministic_policy)
+        if key not in self._denoise_cache:
+            self._denoise_cache[key] = make_padded_denoise_fn(
+                self.unet, self.schedule, self.factor_net, max_steps,
+                guidance_scale, record_trajectory=record,
+                deterministic_policy=deterministic_policy,
+            )
+        return self._denoise_cache[key]
+
+    @torch.inference_mode()
+    def __call__(
+        self,
+        generator: Optional[torch.Generator],
+        prompt_ids,
+        noise,
+        num_inference_steps: int = 8,
+        guidance_scale: float = 3.0,
+        uncond_ids=None,
+        decode: bool = True,
+        solver: str = "consistencysolver",
+        deterministic_policy: bool = False,
+        padded_max_steps: Optional[int] = None,
+        record: bool = True,
+    ):
+        """Returns (images NHWC in [0, 1], or the final latents when
+        ``decode=False``; the trajectory, or None when ``record=False``).
+
+        ``generator`` drives the policy's sampling (it must live on the
+        pipeline's device); ``padded_max_steps`` routes through the
+        pad-to-max program."""
+        prompt_ids = torch.as_tensor(prompt_ids, device=self.device)
+        noise = torch.as_tensor(noise, device=self.device)
+        if uncond_ids is None:
+            uncond_ids = self.uncond_ids_for(prompt_ids)
+        uncond_ids = torch.as_tensor(uncond_ids, device=self.device)
+        context, uncond_context = self._encode(prompt_ids, uncond_ids)
+        if padded_max_steps is not None:
+            if solver != "consistencysolver":
+                raise ValueError(
+                    "padded_max_steps supports only the learnable consistencysolver program"
+                )
+            denoise = self.padded_denoise_fn(
+                padded_max_steps, guidance_scale, record=record,
+                deterministic_policy=deterministic_policy,
+            )
+            ladder = padded_ladder(
+                self.schedule, num_inference_steps, padded_max_steps,
+                self.timestep_spacing, self.steps_offset,
+            )
+            latents, traj = denoise(generator, noise, context, uncond_context, *ladder)
+        else:
+            denoise = self.denoise_fn(
+                num_inference_steps, guidance_scale, solver=solver, record=record,
+                deterministic_policy=deterministic_policy,
+            )
+            latents, traj = denoise(generator, noise, context, uncond_context)
+        if not decode:
+            return latents, traj
+        return self.decode_latents(latents), traj

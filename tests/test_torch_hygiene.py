@@ -1,0 +1,114 @@
+"""Boundaries of the PyTorch port, checked on a machine without a GPU.
+
+* No file of ``consolver_torch/`` or ``chip_smoke.py`` imports jax, flax or
+  consolver_tpu, or calls ``torch.compile``.
+* The port never calls ``scaled_dot_product_attention``; ``chip_smoke.py``
+  times it as a yardstick inside ``_library_ms`` only.
+* ``device=None`` means the GPU and raises without one; importing the
+  kernel module builds nothing and needs no nvcc.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "consolver_torch").rglob("*.py"))
+SMOKE = ROOT / "chip_smoke.py"
+BANNED_IMPORTS = ("jax", "flax", "consolver_tpu")
+YARDSTICK_FUNCTION = "_library_ms"
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def _called_names(node):
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Call):
+            f = sub.func
+            if isinstance(f, ast.Attribute):
+                yield f.attr, f.value
+            elif isinstance(f, ast.Name):
+                yield f.id, None
+
+
+def _is_torch_compile(name, owner):
+    return name == "compile" and isinstance(owner, ast.Name) and owner.id == "torch"
+
+
+def test_port_files_exist():
+    assert len(PORT_FILES) >= 12 and SMOKE.exists()
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [SMOKE], ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports_or_torch_compile(path):
+    tree = ast.parse(path.read_text())
+    for module in _imports(tree):
+        assert module.split(".")[0] not in BANNED_IMPORTS, f"{path.name} imports {module}"
+    for name, owner in _called_names(tree):
+        assert not _is_torch_compile(name, owner), f"{path.name} calls torch.compile"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_never_calls_sdpa(path):
+    tree = ast.parse(path.read_text())
+    assert "scaled_dot_product_attention" not in {n for n, _ in _called_names(tree)}
+    assert "scaled_dot_product_attention" not in path.read_text()
+
+
+def test_smoke_calls_sdpa_only_as_yardstick():
+    tree = ast.parse(SMOKE.read_text())
+    allowed = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name == YARDSTICK_FUNCTION:
+            allowed = {id(sub) for sub in ast.walk(node)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+            if node.func.attr == "scaled_dot_product_attention":
+                assert id(node) in allowed, "SDPA called outside the yardstick timer"
+
+
+def test_device_none_raises_without_gpu(monkeypatch):
+    from consolver_torch.core.schedules import DiffusionSchedule
+    from consolver_torch.models.unet_2d import UNet2DCondition, UNetConfig
+    from consolver_torch.pipelines.t2i import TextToImagePipeline
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TextToImagePipeline(None, None, None, DiffusionSchedule.sd15())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        UNet2DCondition(UNetConfig.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FactorNet(FactorNetConfig())
+
+
+def test_import_builds_nothing_and_needs_no_nvcc(tmp_path):
+    """Importing every module of the port with no nvcc on PATH builds no
+    library; the CPU path of the wrapper never loads one."""
+    code = (
+        "import pkgutil, importlib, torch, consolver_torch\n"
+        "for m in pkgutil.walk_packages(consolver_torch.__path__, 'consolver_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from consolver_torch.kernels import flash_attention as fa\n"
+        "q = torch.randn(1, 16, 2, 40)\n"
+        "fa.flash_attention(q, q, q)\n"
+        "assert fa._library is None and fa.flash_attention.launches == 0\n"
+        "print(sorted(p.name for p in fa._BUILD_DIR.glob('*')) if fa._BUILD_DIR.exists() else [])\n"
+    )
+    env = {**os.environ, "PATH": str(tmp_path), "PYTHONPATH": str(ROOT)}
+    before = sorted((ROOT / "consolver_torch/kernels/_build").glob("*"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert sorted((ROOT / "consolver_torch/kernels/_build").glob("*")) == before
