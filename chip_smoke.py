@@ -6,25 +6,37 @@
 Needs one CUDA card, ``nvcc`` and the repository around this file; it exits
 non-zero, printing nothing on stdout, without them.  Phases:
 
-1. Build the hand-written flash-attention kernel from
-   ``consolver_torch/csrc/flash_attention.cu``; print the card's name and
-   power limit (``nvidia-smi``).
-2. Hold the kernel against its plain PyTorch version at every attention
-   shape of the SD-1.5 preview path (batch 8, so 16 rows under CFG), plus
-   Sq != Sk, a ragged length and large scores, in bf16 and f32; time the
-   kernel, its plain version and ``scaled_dot_product_attention`` (as a
-   yardstick only), beside the least time the card could take.
-3. Drive the port's main path at full SD-1.5 width through
-   ``TextToImagePipeline``: random-normal x0.02 bf16 weights from a seeded
-   generator, 8 prompts, 512x512, 8 steps, CFG 3.  Check the images and that
-   the kernel ran exactly 8 x 32 + 1 = 257 times; print img/s, peak memory
-   and the kernel's share of device time from ``torch.profiler``.
-4. Run the tiny stack in f32 on the card (the kernel) and on the CPU (the
-   plain versions), TF32 off, and compare latents, images and actions, for
-   the per-count and the padded programs.
+1. Build the two kernel libraries from ``consolver_torch/csrc/`` (one
+   ``nvcc`` each, both at once); print the card's name and power limit
+   (``nvidia-smi``).
+2. Hold kernel #1 (flash attention) against its plain PyTorch version at
+   every attention shape of the SD-1.5 preview path (batch 8, so 16 rows
+   under CFG) and of the FLUX-Kontext edit (the DiT's joint attention, the
+   VAE's 16384-token mid attention), plus Sq != Sk, a ragged length and
+   large scores, in bf16 and f32; time the kernel, its plain version and
+   ``scaled_dot_product_attention`` (as a yardstick only), beside the least
+   time the card could take.
+3. Hold kernels #2-#4 (``flash_bf16``, ``flash_int8``, ``flash_nomask``)
+   against their plain versions at the FLUX serving and training shapes and
+   a ragged case, with the same timings (no library call computes #3).
+4. Drive the variants' main path, the probe entry point
+   ``consolver_torch.probes.flash_variants``, and count their launches.
+5. Drive SD-1.5 at full width through ``TextToImagePipeline``: random-normal
+   x0.02 bf16 weights from a seeded generator, 8 prompts, 512x512, 8 steps,
+   CFG 3.  Check the images and that kernel #1 ran exactly 8 x 32 + 1 = 257
+   times; print img/s, peak memory and the kernel's share of device time.
+6. The tiny SD stack in f32 on the card and on the CPU, TF32 off: latents,
+   images and actions, for the per-count and the padded programs.
+7. Drive the FLUX-Kontext edit at full width through
+   ``FluxKontextPipeline``: the 11.9 B DiT, T5-XXL, CLIP-L and the 16-channel
+   VAE in bf16 (random-normal x0.02), one 1024^2 edit, 5 steps, guidance
+   2.5.  Check the image and that kernel #1 ran exactly 5 x 57 + 2 = 287
+   times; print s/edit, peak memory, the kernel's share of device time and
+   the idle share.
+8. The tiny FLUX stack in f32 on the card and on the CPU, TF32 off, as in 6.
 
 The line before the last is a JSON object listing each kernel (launches on
-the main path, worst error, times per generation); the last line is
+its main path, worst error, times); the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises.
 """
 
@@ -35,12 +47,14 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 
 BF16_TFLOPS = 989.0  # H100 SXM dense peaks (NVIDIA data sheet)
+INT8_TOPS = 1979.0
 F32_TFLOPS = 67.0  # float32 outside the tensor cores
 HBM_TBPS = 3.35
 
@@ -52,6 +66,14 @@ HBM_TBPS = 3.35
 F32_RTOL, F32_ATOL = 0.0, 1e-4
 BF16_RTOL, BF16_ATOL = 2.0**-7, 1e-5
 SLICE_TOL = 5e-4  # f32 tiny stack, card vs CPU through 3 CFG-3 steps
+# The tiny FLUX stack, f32 card vs CPU through 3 steps: its guidance
+# embedding takes sin/cos of guidance * 1000 = 2500 rad, where one f32 ulp
+# of the argument is 2.4e-4, and the two devices' sin/cos and sums differ.
+FLUX_SLICE_TOL = 1e-3
+# Kernels #2-#4 vs their plain versions: the shares of elements past one
+# bf16 ulp, and for int8 of elements differing at all (``phase_variants``).
+SHARE_PAST_ULP = 1e-3
+INT8_SHARE_DIFFERING = 1e-5
 
 BATCH = 8
 STEPS = 8
@@ -82,6 +104,30 @@ EXTRA_CASES = [
     ("large_scores", (1, 128, 1, 128), 128, 0),
 ]
 LAUNCHES_PER_GENERATION = sum(c[3] for c in MAIN_PATH_CASES)
+
+# The FLUX-Kontext edit: 1024^2 reference and output, 128x128x16 latents ->
+# 4096 target + 4096 reference + 512 T5 tokens = 8704 joint tokens; per
+# DiT forward 19 double + 38 single blocks each run one joint attention.
+FLUX_STEPS = 5
+FLUX_GUIDANCE = 2.5
+FLUX_CASES = [
+    ("flux_joint", (1, 8704, 24, 128), 8704, FLUX_STEPS * 57),
+    ("flux_vae_mid", (1, 16384, 1, 512), 16384, 2),  # encode + decode
+]
+LAUNCHES_PER_EDIT = sum(c[3] for c in FLUX_CASES)
+
+# Kernels #2-#4: (name, shape, block_q, block_k, variants).  The serving and
+# training shapes of the probe, and a ragged case for the masked variants.
+VARIANT_CASES = [
+    ("serve", (1, 8704, 24, 128), 512, 512, ("flash_bf16", "flash_int8", "flash_nomask")),
+    ("train", (8, 2560, 24, 128), 512, 512, ("flash_bf16", "flash_int8", "flash_nomask")),
+    ("ragged_200", (2, 200, 2, 128), 128, 128, ("flash_bf16", "flash_int8")),
+]
+VARIANT_SOURCES = {
+    "flash_bf16": "scripts/probe_flash_variants.py:70",
+    "flash_int8": "scripts/probe_flash_variants.py:148",
+    "flash_nomask": "scripts/probe_flash_variants.py:307",
+}
 
 
 def _time_ms(fn, iters, warmup=1):
@@ -127,7 +173,7 @@ def phase_kernel(fa):
     rows = []
     for dtype, rtol, atol in ((torch.bfloat16, BF16_RTOL, BF16_ATOL),
                               (torch.float32, F32_RTOL, F32_ATOL)):
-        for name, q_shape, sk, per_gen in MAIN_PATH_CASES + EXTRA_CASES:
+        for name, q_shape, sk, per_gen in MAIN_PATH_CASES + FLUX_CASES + EXTRA_CASES:
             b, sq, h, d = q_shape
             if name == "large_scores":
                 q = torch.full(q_shape, 10.0, device="cuda", dtype=dtype)
@@ -149,7 +195,8 @@ def phase_kernel(fa):
             heavy = b * h * sq * sk * d > 1e10
             row = {
                 "case": name, "dtype": str(dtype).replace("torch.", ""), "q": list(q_shape),
-                "sk": sk, "per_generation": per_gen, "max_abs_err": err, "max_abs_ref": ref_max,
+                "sk": sk, "path": "flux" if name.startswith("flux") else "sd",
+                "per_generation": per_gen, "max_abs_err": err, "max_abs_ref": ref_max,
                 "rtol": rtol, "atol": atol, "err_over_limit": over_limit,
                 "ms": _time_ms(lambda: fa.flash_attention(q, k, v), 5 if heavy else 20, warmup=2),
                 "plain_ms": _time_ms(lambda: fa.flash_attention_reference(q, k, v), 2 if heavy else 5),
@@ -330,6 +377,322 @@ def phase_tiny_slice(fa):
     return out
 
 
+def _heaviest_weight(q, k, scale):
+    """The largest softmax weight of any row (``1 / l`` of its row), one
+    head at a time, in f32."""
+    import torch
+
+    worst = 0.0
+    for h in range(q.shape[2]):
+        s = torch.einsum("bqd,bkd->bqk", q[:, :, h].float(), k[:, :, h].float()) * scale
+        worst = max(worst, torch.exp(s.amax(dim=-1) - torch.logsumexp(s, dim=-1)).max().item())
+        del s
+    return worst
+
+
+def _variant_bound(name, q_shape):
+    b, sq, h, d = q_shape
+    ops = 4.0 * b * h * sq * sq * d
+    peak = INT8_TOPS if name == "flash_int8" else BF16_TFLOPS
+    op_ms = ops / (peak * 1e12) * 1e3
+    byte_ms = 4 * b * sq * h * d * 2 / (HBM_TBPS * 1e12) * 1e3  # bf16 q, k, v in, out
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def phase_variants(fv):
+    """Kernels #2-#4 vs their plain versions (the same chunks) per element.
+
+    Limit ``|out - ref| <= 2^-7 |ref| + 1e-5 + flip``: one bf16 ulp of the
+    output, plus one rounding flip, because the kernel's f32 score sums run
+    in another order than cuBLAS's, so a ``p`` at a rounding boundary can
+    round the other way.  With ``P`` the heaviest softmax weight of the case
+    and ``V = max|v|``: bf16 and nomask ``flip = 2^-7 P V`` (one bf16 ulp of
+    that ``p``); int8 ``flip = 2 P V / 127`` (a flipped ``round(p * 127)``
+    moves its row by ``(v_j - out) / (127 l)``).
+
+    That limit bounds one flip at any element; the shares bound how often
+    anything differs, so that a small fault made everywhere fails too:
+    * every variant: at most ``SHARE_PAST_ULP`` of the elements past the
+      one-ulp limit (flips are rare: the CPU tests hold the same share);
+    * int8: at most ``INT8_SHARE_DIFFERING`` of the elements differing at
+      all.  The kernel repeats the plain version's f32 operations one by one
+      on exact integer products with the same ``expf`` as torch's CUDA
+      ``exp``, so the two agree bit for bit; a ``round(p * 127)`` taken
+      against another max than the chunk's moves most rows."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    rows = []
+    for case, q_shape, block_q, block_k, names in VARIANT_CASES:
+        b, sq, h, d = q_shape
+        q, k, v = (torch.randn(q_shape, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        heaviest = _heaviest_weight(q, k, 1.0 / d**0.5)
+        vmax = v.float().abs().max().item()
+        heavy = b * h * sq * sq * d > 1e10
+        for name in names:
+            kernel = getattr(fv, name)
+            plain = getattr(fv, f"{name}_reference")
+            out = kernel(q, k, v, block_q=block_q, block_k=block_k)
+            torch.cuda.synchronize()
+            ref = plain(q, k, v, block_q=block_q, block_k=block_k)
+            flip = 2 * heaviest * vmax / 127 if name == "flash_int8" else BF16_RTOL * heaviest * vmax
+            diff = (out.float() - ref.float()).abs()
+            ulp_limit = BF16_RTOL * ref.float().abs() + BF16_ATOL
+            row = {
+                "phase": "variants", "kernel": name, "case": case, "q": list(q_shape),
+                "block_q": block_q, "block_k": block_k, "max_abs_err": diff.max().item(),
+                "max_abs_ref": ref.float().abs().max().item(), "heaviest_weight": heaviest,
+                "flip_atol": flip, "err_over_limit": (diff / (ulp_limit + flip)).max().item(),
+                "share_past_one_ulp": (diff > ulp_limit).float().mean().item(),
+                "share_differing": (diff > 0).float().mean().item(),
+                "finite": bool(torch.isfinite(out).all()),
+            }
+            del diff, ulp_limit, ref
+            row["ms"] = _time_ms(lambda: kernel(q, k, v, block_q=block_q, block_k=block_k),
+                                 5 if heavy else 20, warmup=2)
+            row["plain_ms"] = _time_ms(lambda: plain(q, k, v, block_q=block_q, block_k=block_k),
+                                       2 if heavy else 5)
+            row["library_ms"] = (None if name == "flash_int8"
+                                 else _library_ms(q, k, v, 5 if heavy else 20))
+            row["bound_ms"], row["bound_by"] = _variant_bound(name, q_shape)
+            print(json.dumps(row), flush=True)
+            share_limit = INT8_SHARE_DIFFERING if name == "flash_int8" else 1.0
+            if not (row["finite"] and row["err_over_limit"] <= 1.0
+                    and row["share_past_one_ulp"] <= SHARE_PAST_ULP
+                    and row["share_differing"] <= share_limit):
+                raise AssertionError(f"{name} {case}: {row}")
+            rows.append(row)
+            del out
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_probe(fv):
+    """The variants' main path: the probe entry point at full shapes."""
+    from consolver_torch.probes import flash_variants as probe
+
+    for kernel in fv.KERNELS:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    result = probe.run("cuda", iters=5, seed=SEED + 40,
+                       log=lambda line: print(f"probe: {line}", file=sys.stderr, flush=True))
+    launches = {kernel.__name__: kernel.launches for kernel in fv.KERNELS}
+    result.update({"phase": "probe", "launches": launches, "probe_s": time.perf_counter() - t0})
+    print(json.dumps(result), flush=True)
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the probe never launched {name}")
+    return result
+
+
+def _flux_models(device, dtype, tiny, gen, std):
+    import torch
+
+    from consolver_torch.models.clip_text import ClipTextConfig, ClipTextEncoder
+    from consolver_torch.models.flux import FluxConfig, FluxTransformer
+    from consolver_torch.models.t5 import T5Config, T5Encoder
+    from consolver_torch.models.vae import AutoencoderKL, VaeConfig
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+
+    if tiny:
+        fcfg = FluxConfig.tiny()
+        t5_cfg = T5Config(vocab_size=64, d_model=fcfg.joint_text_dim, d_kv=8, d_ff=64,
+                          num_layers=1, num_heads=4)
+        clip_cfg = ClipTextConfig(vocab_size=64, hidden_size=fcfg.pooled_text_dim, num_layers=1,
+                                  num_heads=2, intermediate_size=32)
+        vae_cfg = VaeConfig(block_out_channels=(8, 16), layers_per_block=1, norm_num_groups=4,
+                            latent_channels=4)
+    else:  # FLUX-Kontext, T5-XXL, CLIP-L and the 16-channel FLUX VAE
+        fcfg, t5_cfg, clip_cfg = FluxConfig.flux_kontext(), T5Config.xxl(), ClipTextConfig.sd15()
+        vae_cfg = VaeConfig(latent_channels=16, scaling_factor=0.3611)
+    build = "cpu" if tiny else "meta"
+    models = [
+        FluxTransformer(fcfg, device=build, dtype=dtype),
+        T5Encoder(t5_cfg, device=build, dtype=dtype),
+        ClipTextEncoder(clip_cfg, device=build, dtype=dtype),
+        AutoencoderKL(vae_cfg, device=build, dtype=dtype),
+    ]
+    if not tiny:
+        models = [m.to_empty(device=device) for m in models]
+    for m in models:
+        _random_fill_(m, gen, std)
+    policy = FactorNet(FactorNetConfig(order_dim=2, scaler_dim=0, mu_dim=0, num_actions=11,
+                                       hidden_dim=256, family="fm"), device=build if tiny else device)
+    if tiny:
+        _random_fill_(policy, gen, 0.3)
+    return models + [policy]
+
+
+def phase_flux(fa):
+    """Full-width FLUX-Kontext edit: one 1024^2 edit, 5 steps, guidance 2.5."""
+    import torch
+
+    from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
+    from consolver_torch.pipelines.edit import FluxKontextPipeline
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    t0 = time.perf_counter()
+    transformer, t5, clip, vae, policy = _flux_models("cuda", torch.bfloat16, False, gen, 0.02)
+    pipe = FluxKontextPipeline(transformer, t5, clip, vae, factor_net=policy, device="cuda")
+    build_s = time.perf_counter() - t0
+    prompt = ["make the sky a sunset orange"]
+    t5_ids = tokenize_batch(HashTokenizer(vocab_size=32128, max_length=512), prompt, 512)
+    clip_ids = tokenize_batch(HashTokenizer(), prompt, 77)
+    ref_image = torch.rand((1, 1024, 1024, 3), device="cuda", generator=gen) * 2 - 1
+    noise = torch.randn((1, 128, 128, 16), device="cuda", generator=gen)
+
+    def edit(seed):
+        policy_gen = torch.Generator(device="cuda").manual_seed(seed)
+        images, _ = pipe(policy_gen, t5_ids, clip_ids, ref_image, noise,
+                         num_inference_steps=FLUX_STEPS, guidance_scale=FLUX_GUIDANCE, record=False)
+        return images
+
+    fa.flash_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    images = edit(SEED + 51)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    if tuple(images.shape) != (1, 1024, 1024, 3):
+        raise AssertionError(f"images {tuple(images.shape)}")
+    if not bool(torch.isfinite(images).all()):
+        raise AssertionError("non-finite images")
+    lo, hi = images.min().item(), images.max().item()
+    if lo < 0.0 or hi > 1.0:
+        raise AssertionError(f"images outside [0, 1]: {lo} {hi}")
+    if launches != LAUNCHES_PER_EDIT:
+        raise AssertionError(f"flash_attention launched {launches} times, want {LAUNCHES_PER_EDIT}")
+
+    run_s = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        edit(SEED + 52 + i)
+        torch.cuda.synchronize()
+        run_s.append(time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        edit(SEED + 60)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_us = kernel_us = 0.0
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.device_time_total if hasattr(evt, "device_time_total") else evt.cuda_time_total
+        device_us += us
+        if "flash_fwd_kernel" in evt.name:
+            kernel_us += us
+        by_name[evt.name[:80]] = by_name.get(evt.name[:80], 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    result = {
+        "phase": "flux_edit", "resolution": 1024, "steps": FLUX_STEPS, "guidance": FLUX_GUIDANCE,
+        "joint_tokens": 8704, "launches": launches, "models_build_s": build_s,
+        "first_edit_s": first_s, "run_s": run_s, "s_per_edit": sum(run_s) / len(run_s),
+        "peak_mem_gib": peak_gib, "image_min": lo, "image_max": hi,
+        "profiled_wall_ms": wall_ms, "device_busy_ms": device_us / 1e3,
+        "flash_kernel_ms": kernel_us / 1e3,
+        "flash_share_of_device_time": kernel_us / device_us if device_us else None,
+        "device_idle_share": 1 - device_us / 1e3 / wall_ms if device_us else None,
+        "top_device_ms": {name: us / 1e3 for name, us in top},
+    }
+    print(json.dumps(result), flush=True)
+    del pipe, transformer, t5, clip, vae, images
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_tiny_flux(fa):
+    """The tiny FLUX stack on the card vs the CPU, f32, TF32 off."""
+    import torch
+
+    from consolver_torch.pipelines.edit import FluxKontextPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 70)
+    models = _flux_models("cpu", None, True, gen, 0.1)
+    pipes = {dev: FluxKontextPipeline(*(copy.deepcopy(m).to(dev) for m in models[:4]),
+                                      factor_net=copy.deepcopy(models[4]).to(dev), device=dev)
+             for dev in ("cpu", "cuda")}
+    t5_ids = torch.randint(1, 64, (1, 4), generator=gen)
+    clip_ids = torch.randint(1, 64, (1, 4), generator=gen)
+    ref_image = torch.rand((1, 16, 16, 3), generator=gen) * 2 - 1
+    noise = torch.randn((1, 8, 8, 4), generator=gen)
+    out = {"phase": "tiny_flux"}
+    for program, kwargs in (("per_count", {}), ("padded", {"padded_max_steps": 5})):
+        before = fa.flash_attention.launches
+        results = {}
+        for name, pipe in pipes.items():
+            lat, traj = pipe(None, t5_ids, clip_ids, ref_image, noise, num_inference_steps=3,
+                             guidance_scale=FLUX_GUIDANCE, deterministic_policy=True, decode=False,
+                             **kwargs)
+            img = pipe.decode_latents(lat)
+            results[name] = (lat.cpu(), img.cpu(), traj.actions.cpu())
+        if fa.flash_attention.launches == before:
+            raise AssertionError("the card's tiny FLUX run did not launch the kernel")
+        lat_err = (results["cpu"][0] - results["cuda"][0]).abs().max().item()
+        img_err = (results["cpu"][1] - results["cuda"][1]).abs().max().item()
+        same_actions = torch.equal(results["cpu"][2], results["cuda"][2])
+        out[program] = {"latent_max_abs_err": lat_err, "image_max_abs_err": img_err,
+                        "actions_equal": same_actions}
+        if not (lat_err <= FLUX_SLICE_TOL and img_err <= FLUX_SLICE_TOL and same_actions):
+            raise AssertionError(f"tiny FLUX {program}: card vs cpu {out[program]}")
+        if not bool(torch.isfinite(results["cuda"][0]).all()):
+            raise AssertionError("non-finite tiny FLUX latents")
+    out["tol"] = FLUX_SLICE_TOL
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _kernel1_entry(rows, launches_by_path):
+    """Kernel #1's line.  Its top-level numbers are per SD-1.5 generation
+    (batch 8, 8 steps): the launches of that run, and each of its shapes
+    timed alone times its launches there.  ``by_path`` has the same numbers
+    for the SD-1.5 generation and for one FLUX-Kontext edit."""
+    per_run = [r for r in rows if r["dtype"] == "bfloat16" and r["per_generation"]]
+    by_path = {}
+    for path, key in (("sd", "sd15_generation"), ("flux", "flux_kontext_edit")):
+        sel = [r for r in per_run if r["path"] == path]
+        entry = {name: sum(r[name] * r["per_generation"] for r in sel)
+                 for name in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        ops_ms = sum(r["bound_ms"] * r["per_generation"] for r in sel
+                     if r["bound_by"] == "operations")
+        entry["bound_by"] = "operations" if ops_ms >= entry["bound_ms"] / 2 else "bytes"
+        entry["launches"] = launches_by_path[path]
+        by_path[key] = entry
+    sd = by_path["sd15_generation"]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "consolver_torch/csrc/flash_attention.cu",
+        "replaces": "consolver_tpu/kernels/flash_attention.py:67",
+        "launches": sd["launches"], "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **{name: sd[name] for name in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "per": "sd15_generation", "by_path": by_path,
+    }
+
+
+def _variant_entry(name, rows, launches):
+    """A variant's line: times at the serving shape, the probe's launches."""
+    mine = [r for r in rows if r["kernel"] == name]
+    serve = next(r for r in mine if r["case"] == "serve")
+    return {
+        "name": name, "route": "cuda", "source": "consolver_torch/csrc/flash_variants.cu",
+        "replaces": VARIANT_SOURCES[name], "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in mine),
+        "ms": serve["ms"], "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
+        "bound_by": serve["bound_by"], "library_ms": serve["library_ms"],
+        "at": {"q": serve["q"], "block_q": serve["block_q"], "block_k": serve["block_k"]},
+    }
+
+
 def main() -> int:
     if not (ROOT / "consolver_torch" / "csrc" / "flash_attention.cu").exists():
         print("chip_smoke.py needs the repository around it (consolver_torch/)", file=sys.stderr)
@@ -341,45 +704,42 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from consolver_torch.kernels import flash_attention as fa
+    from consolver_torch.kernels import flash_variants as fv
 
     torch.manual_seed(SEED)  # the policy's default-initialised hidden layers
 
+    def timed_build(module):
+        t0 = time.perf_counter()
+        module.build()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    fa.build()
-    build_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, both at once
+        build_s = dict(zip(("flash_attention", "flash_variants"), pool.map(timed_build, (fa, fv))))
+    build_s["both"] = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi, flush=True)
-    print(json.dumps({"phase": "build", "kernel": "flash_attention", "build_s": build_s,
-                      "torch": torch.__version__, "cuda": torch.version.cuda}), flush=True)
+    print(json.dumps({"phase": "build", "build_s": build_s, "torch": torch.__version__,
+                      "cuda": torch.version.cuda}), flush=True)
 
     with torch.inference_mode():
         rows = phase_kernel(fa)
-    main_path = phase_main_path(fa)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products
+    with torch.inference_mode():
+        variant_rows = phase_variants(fv)
+    probe = phase_probe(fv)
+    launches_by_path = {"sd": phase_main_path(fa)["launches"]}
     phase_tiny_slice(fa)
+    launches_by_path["flux"] = phase_flux(fa)["launches"]
+    phase_tiny_flux(fa)
 
-    per_gen = [r for r in rows if r["dtype"] == "bfloat16" and r["per_generation"]]
-    total = {key: sum(r[key] * r["per_generation"] for r in per_gen)
-             for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
-    ops_ms = sum(r["bound_ms"] * r["per_generation"] for r in per_gen if r["bound_by"] == "operations")
-    kernels = {"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "consolver_torch/csrc/flash_attention.cu",
-        "replaces": "consolver_tpu/kernels/flash_attention.py:67",
-        "launches": main_path["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        # times per generation: each main-path shape timed alone, times its
-        # launches in one generation (batch 8, 8 steps, CFG, VAE decode)
-        "ms": total["ms"],
-        "plain_ms": total["plain_ms"],
-        "bound_ms": total["bound_ms"],
-        "bound_by": "operations" if ops_ms >= total["bound_ms"] / 2 else "bytes",
-        "library_ms": total["library_ms"],
-    }]}
-    print(json.dumps(kernels), flush=True)
+    kernels = [_kernel1_entry(rows, launches_by_path)]
+    kernels += [_variant_entry(k.__name__, variant_rows, probe["launches"][k.__name__])
+                for k in fv.KERNELS]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 """The learnable linear-multistep (LMM) solver core, on torch tensors.
 
-Port of ``consolver_tpu/core/solver.py`` (the DDPM half).  The history of
+Port of ``consolver_tpu/core/solver.py``.  The history of
 model outputs is a ring ``ets`` of shape ``[B, order_dim, *sample_shape]``,
 most recent first, with ``num_ets`` valid slots; slots ``>= num_ets`` are
 zero.  The denoise loop is a Python loop, so ``num_ets`` is a Python int.
@@ -12,7 +12,9 @@ Semantics kept from the JAX package:
     ``num_ets > 1`` so the combination sums to 1;
   * the first step (``num_ets == 1``) passes the raw output through;
   * warm-up masks zero the order actions not yet active;
-  * DDIM x0-form update, with ``final_alpha_cumprod`` when ``t_prev < 0``.
+  * DDIM x0-form update, with ``final_alpha_cumprod`` when ``t_prev < 0``;
+  * flow-matching Euler update ``x + dt * v`` and the per-token branch,
+    whose dt is ``current - next`` (the mirror of the ladder's).
 """
 
 from __future__ import annotations
@@ -93,9 +95,11 @@ def warmup_masks(
     return row[None, :].expand(batch, action_dims)
 
 
-def split_actions(actions: torch.Tensor, order_dim: int, scaler_dim: int):
+def split_actions(actions: torch.Tensor, order_dim: int, scaler_dim: int, mu_dim: int = 0):
     """Split ``[B, order_dim + scaler_dim + mu_dim - 1]`` actions into the
-    (order, scaler, mu) groups."""
+    (order, scaler, mu) groups.  The mu actions are recorded for PPO but no
+    update reads them."""
+    del mu_dim
     order_actions = actions[:, : order_dim - 1]
     scale_actions = actions[:, order_dim - 1 : order_dim - 1 + scaler_dim]
     mu_actions = actions[:, order_dim - 1 + scaler_dim :]
@@ -117,6 +121,26 @@ def apply_scalers(
     if scaler_dim == 2:
         sample = sample * (scale_actions[:, 1][expand] + 1.0)
     return effective_output, sample
+
+
+def lmm_combine_step(
+    state: LMMState,
+    model_output: torch.Tensor,
+    actions: torch.Tensor,
+    sample: torch.Tensor,
+    order_dim: int,
+    scaler_dim: int,
+) -> Tuple[LMMState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Push the history, normalize the order actions, combine and scale.
+    Returns (new state, effective output, scaled sample, masks)."""
+    state = push(state, model_output)
+    order_actions, scale_actions, _ = split_actions(actions, order_dim, scaler_dim)
+    coeffs = normalized_coefficients(order_actions.float(), state.num_ets, order_dim)
+    effective = combine(state, coeffs)
+    effective, sample = apply_scalers(effective, sample, scale_actions.float())
+    masks = warmup_masks(state.num_ets, order_dim, actions.shape[1], actions.shape[0],
+                         actions.device)
+    return state, effective, sample, masks
 
 
 def ddim_update(
@@ -167,3 +191,44 @@ def add_noise(
     a = alphas_cumprod[timesteps].to(original_samples.dtype)
     a = a.reshape(a.shape + (1,) * (original_samples.ndim - a.ndim))
     return a**0.5 * original_samples + (1 - a) ** 0.5 * noise
+
+
+def fm_euler_update(sample: torch.Tensor, velocity: torch.Tensor, dt) -> torch.Tensor:
+    """Flow-matching Euler update ``x <- x + dt * v``."""
+    return sample + dt * velocity
+
+
+def fm_scale_noise(sigma: torch.Tensor, sample: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Flow-matching forward process ``x_sigma = sigma * noise + (1 - sigma) * x``."""
+    sigma = sigma.reshape(sigma.shape + (1,) * (sample.ndim - sigma.ndim)).to(sample.dtype)
+    return sigma * noise + (1.0 - sigma) * sample
+
+
+def per_token_sigma_pair(
+    per_token_timesteps: torch.Tensor,
+    sigma_ladder: torch.Tensor,
+    num_train_timesteps: int = 1000,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(current, next) sigmas ``[B, S]`` of the per-token branch: a token's
+    next sigma is the largest ladder entry strictly below its current one
+    (0 at the terminal)."""
+    per_token_sigmas = per_token_timesteps.float() / num_train_timesteps
+    ladder = sigma_ladder.float()[:, None, None]  # [L, 1, 1]
+    lower_mask = ladder < per_token_sigmas[None] - 1e-6
+    lower_sigmas = torch.where(lower_mask, ladder, torch.zeros_like(ladder)).amax(dim=0)
+    return per_token_sigmas, lower_sigmas
+
+
+def fm_per_token_update(
+    sample: torch.Tensor,
+    velocity: torch.Tensor,
+    per_token_timesteps: torch.Tensor,
+    sigma_ladder: torch.Tensor,
+    num_train_timesteps: int = 1000,
+) -> torch.Tensor:
+    """Per-token Euler step (sample/velocity ``[B, S, C]``, timesteps
+    ``[B, S]``) with ``dt = current - next``: positive, the mirror of the
+    ladder branch's ``next - current``, as in the JAX package."""
+    cur, low = per_token_sigma_pair(per_token_timesteps, sigma_ladder, num_train_timesteps)
+    dt = (cur - low)[..., None]
+    return (sample.float() + dt * velocity.float()).to(sample.dtype)

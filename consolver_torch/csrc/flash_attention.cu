@@ -28,11 +28,7 @@
 //   consolver_flash_attention_forward(...) returns cudaGetLastError() after
 //   the launch (0 = success), or -1 for a head dim / dtype it does not take.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-
-#include <atomic>
+#include "flash_common.cuh"
 
 namespace {
 
@@ -40,34 +36,12 @@ constexpr int kThreads = 256;  // 16 x 16 threads per block
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T> __device__ __forceinline__ float to_float(T x);
-template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_float<__half>(__half x) {
-  return __half2float(x);
-}
-template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-struct Params {
+struct Params : Strides {
   const void* q;
   const void* k;
   const void* v;
   void* o;
   int sq, sk, d;
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;
   float scale_log2;  // (1 / sqrt(d)) * log2(e): scores go through exp2
 };
 
@@ -217,18 +191,8 @@ int launch(const Params& p, int batch, int heads, cudaStream_t stream) {
   constexpr int smem = (BQ * (DP + 1) + BK * (DP + 1) + BQ * (BK + 1)) * sizeof(float);
   auto kernel = flash_fwd_kernel<T, DP, BQ, BK>;
   if constexpr (smem > 48 * 1024) {
-    // Opt in to more than 48 KB once per device: the attribute stays set on
-    // the function, so later launches skip the driver call.
     static std::atomic<unsigned long long> opted_in{0};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const unsigned long long bit = 1ull << (dev & 63);
-    if (!(opted_in.load(std::memory_order_acquire) & bit)) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      opted_in.fetch_or(bit, std::memory_order_release);
-    }
+    if (int rc = opt_in_smem(kernel, smem, opted_in)) return rc;
   }
   const dim3 grid((p.sq + BQ - 1) / BQ, heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(p);
@@ -258,8 +222,8 @@ extern "C" int consolver_flash_attention_forward(
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, float scale, void* stream) {
   if (d < 1 || d > 512 || sk < 1 || sq < 1) return -1;
-  Params p{q, k, v, o, sq, sk, d, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-           v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, scale * kLog2e};
+  Params p{{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh},
+           q, k, v, o, sq, sk, d, scale * kLog2e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_for_dim<float>(p, batch, heads, s);

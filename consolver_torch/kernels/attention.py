@@ -3,16 +3,22 @@
 Port of ``consolver_tpu/kernels/attention.py``.  Layout: q ``[B, Sq, H, D]``,
 k/v ``[B, Sk, H, D]`` -> out ``[B, Sq, H, D]``.
 
-  =========================  ======  =============================
-  call                       device  goes to
-  =========================  ======  =============================
-  unmasked, non-causal       CUDA    the hand-written flash kernel
-  unmasked, non-causal       CPU     its plain version
-  causal or masked           any     :func:`xla_attention`
-  =========================  ======  =============================
+  ===========================  ======  =============================
+  call                         device  goes to
+  ===========================  ======  =============================
+  unmasked, non-causal         CUDA    the hand-written flash kernel
+  unmasked, non-causal         CPU     its plain version
+  causal or masked             any     :func:`xla_attention`
+  additive bias (T5 position)  any     :func:`xla_attention` direct
+  ===========================  ======  =============================
 
-A CUDA call the kernel cannot take (head dim > 512, a dtype other than
-bf16/f16/f32) raises; nothing falls back.
+The SD-1.5 UNet (head dims 40/80/160), both VAEs' mid attention (d = 512)
+and every FLUX joint attention (d = 128, 24 heads, 8704 tokens for a 1024^2
+edit) are unmasked and go to the kernel on the card.  CLIP's causal
+attention and T5's position-biased attention (which calls
+:func:`xla_attention` itself) take the plain path.  A CUDA call the kernel
+cannot take (head dim > 512, a dtype other than bf16/f16/f32) raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -30,14 +36,19 @@ def xla_attention(
     v: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     is_causal: bool = False,
+    bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain attention with the JAX package's XLA semantics: f32 logits and
-    softmax, probabilities cast to the input dtype, then ``p @ v``.
+    """Plain attention with the JAX package's XLA semantics: f32 logits
+    (scaled by ``1/sqrt(d)``, plus ``bias``) and softmax, probabilities cast
+    to the input dtype, then ``p @ v``.
 
-    ``mask`` is boolean, broadcastable to ``[B, H, Sq, Sk]``, True = keep.
+    ``mask`` is boolean, broadcastable to ``[B, H, Sq, Sk]``, True = keep;
+    ``bias`` is additive, broadcastable to ``[B, H, Sq, Sk]``.
     """
     scale = 1.0 / (q.shape[-1] ** 0.5)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.float()
     keep = None
     if mask is not None:
         keep = mask.to(torch.bool)

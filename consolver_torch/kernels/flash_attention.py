@@ -16,37 +16,18 @@ take.  ``flash_attention.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+from consolver_torch.kernels import _nvcc
+
+_SOURCE = _nvcc.CSRC / "flash_attention.cu"
+_BUILD_DIR = _nvcc.BUILD_DIR
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 MAX_HEAD_DIM = 512
 _MAX_GRID_YZ = 65535
 
 _library = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the flash-attention kernel cannot be built")
-
-
-def _library_path() -> Path:
-    """Where the build of the current source lands (keyed by its content)."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    return _BUILD_DIR / f"libflash_attention_{digest}.so"
 
 
 def build() -> ctypes.CDLL:
@@ -55,25 +36,7 @@ def build() -> ctypes.CDLL:
     global _library
     if _library is not None:
         return _library
-    out = _library_path()
-    if not out.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(tmp), str(_SOURCE),
-        ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {_SOURCE.name}:\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        # ptxas' register / shared-memory / spill report, kept beside the build
-        out.with_suffix(".ptxas.txt").write_text(proc.stderr)
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    lib = _nvcc.build_library(_SOURCE)
     fn = lib.consolver_flash_attention_forward
     fn.restype = ctypes.c_int
     fn.argtypes = (
@@ -92,9 +55,14 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              name: str = "flash_attention kernel", max_head_dim: int = MAX_HEAD_DIM) -> None:
+    """Raises unless the kernel ``name`` takes these operands: ``[B, S, H,
+    D]`` q and k/v alike in float32/float16/bfloat16 on one device, head
+    dims 1..``max_head_dim`` contiguous, non-empty sequences, and batch and
+    heads within the launch grid.  Shared by every flash kernel's wrapper."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
-        raise ValueError("flash_attention expects [B, S, H, D] tensors")
+        raise ValueError(f"{name} expects [B, S, H, D] tensors")
     if k.shape != v.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     b, sq, h, d = q.shape
@@ -102,19 +70,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"flash_attention kernel takes float32/float16/bfloat16 alike, "
-            f"got {q.dtype}, {k.dtype}, {v.dtype}"
+            f"{name} takes float32/float16/bfloat16 alike, got {q.dtype}, {k.dtype}, {v.dtype}"
         )
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel takes head dims 1..{MAX_HEAD_DIM}, got {d}")
+    if not 1 <= d <= max_head_dim:
+        raise ValueError(f"{name} takes head dims 1..{max_head_dim}, got {d}")
     if sq < 1 or k.shape[1] < 1:
-        raise ValueError("flash_attention needs non-empty sequences")
+        raise ValueError(f"{name} needs non-empty sequences")
     if b > _MAX_GRID_YZ or h > _MAX_GRID_YZ:
         raise ValueError(f"batch {b} or heads {h} exceed the launch grid")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("flash_attention kernel needs a contiguous head dim")
+        raise ValueError(f"{name} needs a contiguous head dim")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -124,23 +91,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         return flash_attention_reference(q, k, v)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    _check(q, k, v)
+    check_qkv(q, k, v)
     lib = build()
     b, sq, h, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.consolver_flash_attention_forward(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, h, sq, k.shape[1], d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
-            1.0 / (d**0.5), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed (code {rc})")
+    _nvcc.call(
+        lib.consolver_flash_attention_forward, "flash_attention", q.device,
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, h, sq, k.shape[1], d, *_nvcc.bshd_strides(q, k, v, out), 1.0 / (d**0.5),
+    )
     flash_attention.launches += 1
     return out
 

@@ -11,7 +11,12 @@ nested dicts of numpy arrays becomes a flat torch state dict.
 :func:`load_jax_params` matches the result to a module's own key names by
 merging list indices back (``linear.1`` and ``linear_1`` name one key), so
 names such as diffusers' ``time_embedding.linear_1`` load as they are.  The
-FactorNet's ``fc0/fc1/head`` take ``kernel.T`` and ``bias`` by the same rules.
+FactorNet's ``fc0/fc1/head`` take ``kernel.T`` and ``bias`` by the same rules,
+and so do the FLUX and T5 trees: ``transformer_blocks_N`` /
+``single_transformer_blocks_N`` / ``block_N`` become list indices,
+``attn_to_out_0`` and ``wi_0`` match the port's attributes of those names,
+``QKNorm.scale`` / ``T5LayerNorm.scale`` become ``weight``, and the
+``shared`` and ``relative_attention_bias`` embeddings load untransposed.
 """
 
 from __future__ import annotations

@@ -105,7 +105,7 @@ def test_kernel_shape_checks_raise(shapes, dtype, error):
     q = torch.zeros(shapes[0], dtype=dtype)
     k = torch.zeros(shapes[1], dtype=dtype)
     with pytest.raises(error):
-        tfa._check(q, k, k)
+        tfa.check_qkv(q, k, k)
 
 
 def test_non_cuda_non_cpu_device_raises():

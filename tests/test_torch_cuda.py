@@ -84,3 +84,43 @@ def test_tiny_unet_card_matches_cpu(cuda, monkeypatch):
         ref = unet(x, t, ctx)
         out = copy.deepcopy(unet).to(cuda)(x.to(cuda), t.to(cuda), ctx.to(cuda))
     assert (out.cpu() - ref).abs().max().item() <= 1e-4
+
+
+VARIANT_CASES = [  # (shape, block_k); flash_nomask takes only Sk % block_k == 0
+    ((1, 256, 3, 128), 64), ((1, 512, 2, 128), 512), ((2, 128, 1, 80), 128),
+]
+
+
+@pytest.mark.parametrize("name,shape,block_k", [
+    (name, shape, block_k) for name in ("flash_bf16", "flash_int8", "flash_nomask")
+    for shape, block_k in VARIANT_CASES
+] + [("flash_bf16", (2, 200, 2, 128), 128), ("flash_int8", (2, 200, 2, 128), 128)])
+def test_variant_kernels_match_plain_versions(cuda, monkeypatch, name, shape, block_k):
+    """Kernels #2-#4 vs their plain versions walking the same chunks, bf16.
+    Limit per element: one bf16 ulp + 1e-5 + one rounding flip of the
+    heaviest probability P (bf16 and nomask: 2^-7 P max|v|; int8:
+    2 P max|v| / 127), as chip_smoke.py states.  Flips are rare, so at most
+    0.1 % of the elements may lie past one ulp; the int8 kernel repeats its
+    plain version's f32 operations on exact integer products with the same
+    expf, so at most 1e-5 of its elements (none at these sizes) may differ."""
+    from consolver_torch.kernels import flash_variants as fv
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(shape, device=cuda, generator=g).to(torch.bfloat16) for _ in range(3))
+    kernel, plain = getattr(fv, name), getattr(fv, f"{name}_reference")
+    before = kernel.launches
+    out = kernel(q, k, v, block_q=block_k, block_k=block_k)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and out.dtype == torch.bfloat16
+    ref = plain(q, k, v, block_q=block_k, block_k=block_k).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / shape[-1] ** 0.5
+    heaviest = torch.exp(s.amax(-1) - torch.logsumexp(s, -1)).max().item()
+    vmax = v.float().abs().max().item()
+    flip = 2 * heaviest * vmax / 127 if name == "flash_int8" else 2.0**-7 * heaviest * vmax
+    diff = (out.float() - ref).abs()
+    ulp_limit = 2.0**-7 * ref.abs() + 1e-5
+    assert (diff <= ulp_limit + flip).all()
+    assert (diff > ulp_limit).float().mean().item() <= 1e-3
+    if name == "flash_int8":
+        assert (diff > 0).float().mean().item() <= 1e-5

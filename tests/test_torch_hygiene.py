@@ -93,6 +93,32 @@ def test_device_none_raises_without_gpu(monkeypatch):
         FactorNet(FactorNetConfig())
 
 
+def test_edit_family_device_none_raises_without_gpu(monkeypatch):
+    from consolver_torch.models.flux import FluxConfig, FluxTransformer
+    from consolver_torch.models.t5 import T5Config, T5Encoder
+    from consolver_torch.pipelines.edit import FluxKontextPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FluxKontextPipeline(None, None, None, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FluxTransformer(FluxConfig.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T5Encoder(T5Config.tiny())
+
+
+def test_variant_wrappers_take_the_plain_version_only_on_the_cpu():
+    """A tensor on another device than the CPU launches the kernel or
+    raises: on a meta tensor (no CUDA here) every wrapper raises."""
+    from consolver_torch.kernels import flash_variants as fv
+
+    q = torch.empty((1, 64, 2, 128), device="meta", dtype=torch.bfloat16)
+    for kernel in fv.KERNELS:
+        with pytest.raises(RuntimeError, match="cuda or cpu"):
+            kernel(q, q, q, block_q=64, block_k=64)
+    assert all(kernel.launches == 0 for kernel in fv.KERNELS) and fv._library is None
+
+
 def test_import_builds_nothing_and_needs_no_nvcc(tmp_path):
     """Importing every module of the port with no nvcc on PATH builds no
     library; the CPU path of the wrapper never loads one."""
@@ -100,10 +126,13 @@ def test_import_builds_nothing_and_needs_no_nvcc(tmp_path):
         "import pkgutil, importlib, torch, consolver_torch\n"
         "for m in pkgutil.walk_packages(consolver_torch.__path__, 'consolver_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "from consolver_torch.kernels import flash_attention as fa\n"
+        "from consolver_torch.kernels import flash_attention as fa, flash_variants as fv\n"
         "q = torch.randn(1, 16, 2, 40)\n"
         "fa.flash_attention(q, q, q)\n"
         "assert fa._library is None and fa.flash_attention.launches == 0\n"
+        "q = torch.randn(1, 64, 2, 128)\n"
+        "[f(q, q, q, block_q=64, block_k=64) for f in fv.KERNELS]\n"
+        "assert fv._library is None and not any(f.launches for f in fv.KERNELS)\n"
         "print(sorted(p.name for p in fa._BUILD_DIR.glob('*')) if fa._BUILD_DIR.exists() else [])\n"
     )
     env = {**os.environ, "PATH": str(tmp_path), "PYTHONPATH": str(ROOT)}
