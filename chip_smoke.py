@@ -16,9 +16,13 @@ non-zero, printing nothing on stdout, without them.  Phases:
    large scores, in bf16 and f32; time the kernel, its plain version and
    ``scaled_dot_product_attention`` (as a yardstick only), beside the least
    time the card could take.
-3. Hold kernels #2-#4 (``flash_bf16``, ``flash_int8``, ``flash_nomask``)
-   against their plain versions at the FLUX serving and training shapes and
-   a ragged case, with the same timings (no library call computes #3).
+3. Report what the tensor-core kernel of #2 and #4 compiled to (registers
+   and spills from ptxas, its HMMA / HGMMA count in ``cuobjdump -sass``,
+   shared memory and blocks per SM), then hold kernels #2-#4
+   (``flash_bf16``, ``flash_int8``, ``flash_nomask``) against their plain
+   versions at the FLUX serving and training shapes and a ragged case, with
+   the same timings (no library call computes #3), the route each took,
+   its TFLOP/s and its time over SDPA's and over the bound.
 4. Drive the variants' main path, the probe entry point
    ``consolver_torch.probes.flash_variants``, and count their launches.
 5. Drive SD-1.5 at full width through ``TextToImagePipeline``: random-normal
@@ -44,6 +48,8 @@ from __future__ import annotations
 
 import copy
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -433,16 +439,19 @@ def phase_variants(fv):
         for name in names:
             kernel = getattr(fv, name)
             plain = getattr(fv, f"{name}_reference")
+            before = dict(kernel.launches_by_route)
             out = kernel(q, k, v, block_q=block_q, block_k=block_k)
             torch.cuda.synchronize()
+            route = next(r for r, n in kernel.launches_by_route.items() if n != before[r])
             ref = plain(q, k, v, block_q=block_q, block_k=block_k)
             flip = 2 * heaviest * vmax / 127 if name == "flash_int8" else BF16_RTOL * heaviest * vmax
             diff = (out.float() - ref.float()).abs()
             ulp_limit = BF16_RTOL * ref.float().abs() + BF16_ATOL
             row = {
-                "phase": "variants", "kernel": name, "case": case, "q": list(q_shape),
-                "block_q": block_q, "block_k": block_k, "max_abs_err": diff.max().item(),
-                "max_abs_ref": ref.float().abs().max().item(), "heaviest_weight": heaviest,
+                "phase": "variants", "kernel": name, "route": route, "case": case,
+                "q": list(q_shape), "block_q": block_q, "block_k": block_k,
+                "max_abs_err": diff.max().item(), "max_abs_ref": ref.float().abs().max().item(),
+                "heaviest_weight": heaviest,
                 "flip_atol": flip, "err_over_limit": (diff / (ulp_limit + flip)).max().item(),
                 "share_past_one_ulp": (diff > ulp_limit).float().mean().item(),
                 "share_differing": (diff > 0).float().mean().item(),
@@ -456,6 +465,10 @@ def phase_variants(fv):
             row["library_ms"] = (None if name == "flash_int8"
                                  else _library_ms(q, k, v, 5 if heavy else 20))
             row["bound_ms"], row["bound_by"] = _variant_bound(name, q_shape)
+            # the function's operations (4 B H Sq Sk d), not the two-pass kernel's 1.5x
+            row["tflops"] = 4.0 * b * h * sq * sq * d / (row["ms"] * 1e9)
+            row["ms_over_library"] = row["library_ms"] and row["ms"] / row["library_ms"]
+            row["ms_over_bound"] = row["ms"] / row["bound_ms"]
             print(json.dumps(row), flush=True)
             share_limit = INT8_SHARE_DIFFERING if name == "flash_int8" else 1.0
             if not (row["finite"] and row["err_over_limit"] <= 1.0
@@ -469,17 +482,92 @@ def phase_variants(fv):
     return rows
 
 
+MMA_KERNEL = "bf16_mma_kernel"  # the tensor-core kernel's name inside its mangled symbols
+MAX_MMA_SMEM = 113 * 1024  # at most this per block, so that 2 blocks fit on one SM
+
+
+def _ptxas_report(text):
+    """Per kernel symbol of a ``ptxas -v`` report: registers, spill bytes and
+    static shared memory."""
+    report, name = {}, None
+    for line in text.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            name = found.group(1)
+            report[name] = {"registers": 0, "spill_stores": 0, "spill_loads": 0, "static_smem": 0}
+            continue
+        if name is None:
+            continue
+        for key, pattern in (("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("static_smem", r"(\d+) bytes smem")):
+            found = re.search(pattern, line)
+            if found:
+                report[name][key] = int(found.group(1))
+    return report
+
+
+def _sass_mma_counts(library):
+    """Per kernel symbol of the built library, its ``HMMA`` and ``HGMMA``
+    instructions in ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name is not None:
+            for op in re.findall(r"\b(HGMMA|HMMA)\b", line):
+                counts[name][op] += 1
+    return counts
+
+
+def phase_mma_kernel(fv):
+    """What the tensor-core kernel compiled to: registers and spills
+    (ptxas), HMMA / HGMMA instructions (SASS), dynamic shared memory and
+    resident blocks per SM (occupancy API).  Hard failures: no tensor-core
+    instruction, more than MAX_MMA_SMEM or fewer than 2 blocks per SM."""
+    from consolver_torch.kernels import _nvcc
+
+    library = _nvcc.library_path(fv._SOURCE)
+    ptxas = {n: r for n, r in _ptxas_report(library.with_suffix(".ptxas.txt").read_text()).items()
+             if MMA_KERNEL in n}
+    sass = {n: c for n, c in _sass_mma_counts(library).items() if MMA_KERNEL in n}
+    occupancy = {}
+    for variant in ("bf16", "nomask"):
+        for vec in (True, False):
+            smem, blocks = fv.mma_occupancy(variant, vec)
+            occupancy[f"{variant}/{'cp.async' if vec else 'elementwise'}"] = {
+                "dynamic_smem_bytes": smem, "blocks_per_sm": blocks}
+    result = {"phase": "mma_kernel", "ptxas": ptxas, "sass": sass, "occupancy": occupancy}
+    print(json.dumps(result), flush=True)
+    if len(sass) != 4 or len(ptxas) != 4:
+        raise AssertionError(f"expected 4 instantiations of {MMA_KERNEL}: {sorted(sass)}")
+    for name, counts in sass.items():
+        if counts["HMMA"] + counts["HGMMA"] == 0:
+            raise AssertionError(f"{name} has no tensor-core instruction")
+    for key, occ in occupancy.items():
+        if occ["dynamic_smem_bytes"] > MAX_MMA_SMEM or occ["blocks_per_sm"] < 2:
+            raise AssertionError(f"{MMA_KERNEL} {key}: {occ}")
+    return result
+
+
 def phase_probe(fv):
     """The variants' main path: the probe entry point at full shapes."""
     from consolver_torch.probes import flash_variants as probe
 
-    for kernel in fv.KERNELS:
-        kernel.launches = 0
+    fv.reset_counts()
     t0 = time.perf_counter()
     result = probe.run("cuda", iters=5, seed=SEED + 40,
                        log=lambda line: print(f"probe: {line}", file=sys.stderr, flush=True))
     launches = {kernel.__name__: kernel.launches for kernel in fv.KERNELS}
-    result.update({"phase": "probe", "launches": launches, "probe_s": time.perf_counter() - t0})
+    by_route = {kernel.__name__: dict(kernel.launches_by_route) for kernel in fv.KERNELS}
+    result.update({"phase": "probe", "launches": launches, "launches_by_route": by_route,
+                   "probe_s": time.perf_counter() - t0})
     print(json.dumps(result), flush=True)
     for name, n in launches.items():
         if n == 0:
@@ -679,8 +767,9 @@ def _kernel1_entry(rows, launches_by_path):
     }
 
 
-def _variant_entry(name, rows, launches):
-    """A variant's line: times at the serving shape, the probe's launches."""
+def _variant_entry(name, rows, launches, launches_by_route):
+    """A variant's line: times at the serving shape, the probe's launches
+    (and per kernel route: "mma", "fma" or "dp4a")."""
     mine = [r for r in rows if r["kernel"] == name]
     serve = next(r for r in mine if r["case"] == "serve")
     return {
@@ -689,6 +778,9 @@ def _variant_entry(name, rows, launches):
         "max_abs_err": max(r["max_abs_err"] for r in mine),
         "ms": serve["ms"], "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
         "bound_by": serve["bound_by"], "library_ms": serve["library_ms"],
+        "kernel_route": serve["route"], "launches_by_route": launches_by_route,
+        "tflops": serve["tflops"], "ms_over_library": serve["ms_over_library"],
+        "ms_over_bound": serve["ms_over_bound"],
         "at": {"q": serve["q"], "block_q": serve["block_q"], "block_k": serve["block_k"]},
     }
 
@@ -728,6 +820,7 @@ def main() -> int:
     with torch.inference_mode():
         rows = phase_kernel(fa)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products
+    phase_mma_kernel(fv)
     with torch.inference_mode():
         variant_rows = phase_variants(fv)
     probe = phase_probe(fv)
@@ -737,8 +830,8 @@ def main() -> int:
     phase_tiny_flux(fa)
 
     kernels = [_kernel1_entry(rows, launches_by_path)]
-    kernels += [_variant_entry(k.__name__, variant_rows, probe["launches"][k.__name__])
-                for k in fv.KERNELS]
+    kernels += [_variant_entry(k.__name__, variant_rows, probe["launches"][k.__name__],
+                               probe["launches_by_route"][k.__name__]) for k in fv.KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

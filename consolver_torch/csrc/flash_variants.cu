@@ -9,11 +9,12 @@
 //
 // Semantics are those of the TPU kernels, defined per chunk of block_k keys:
 // the running max that p is taken against is the max through the end of the
-// current chunk. So the kernel, which tiles a chunk into 64-key tiles,
-// first writes the whole chunk's scores (64 rows x block_k, f32) to shared
-// memory while it takes their row max, then turns them into p in place, and
-// only then streams V. bf16/nomask: s = (q.k) * scale (nomask: q scaled in
-// f32 and rounded to bf16 while staged, s unscaled), cols >= Sk at -1e30,
+// current chunk. The kernels tile a chunk into 64-key tiles and take the
+// chunk's row max before any p of it (the FMA and int8 kernels by writing
+// the chunk's scores, 64 rows x block_k f32, to shared memory, the tensor-
+// core kernel by a second pass over K). bf16/nomask: s = (q.k) * scale
+// (nomask: q scaled in f32 and rounded to bf16 while staged, s unscaled),
+// cols >= Sk at -1e30,
 // p = exp(s - m), l += sum(p) in f32, acc += bf16(p) @ v. int8: s =
 // int32(qq.kq) * (qs * scale) * ks, pq = rint(p * 127) (half to even, as
 // jnp.round), l += sum(pq) * (1/127) starting from 1e-20 (XLA compiles the
@@ -25,16 +26,42 @@
 // What bounds it: 4*B*H*Sq*Sk*d operations over |q|+|k|+|v|+|o| bytes, about
 // 2,200 operations per byte at the FLUX serving shape [1, 8704, 24, 128] in
 // bf16 (and twice that in int8), far above the card's ~295: compute-bound on
-// tensor cores. This first version computes with FMAs (bf16 products
-// exactly in f32) and dp4a (int8), not tensor cores: each thread keeps a
-// 4 x 4 score and 4 x 8 output register tile, a block owns 64 query rows of
-// one (batch, head), and the chunk's score tile (128 KB at block_k = 512)
-// limits it to one block per SM. Moving the products to mma.sync / wgmma is
-// the next step.
+// tensor cores.
+//
+// Routes, chosen by the type of q/k/v (the wrapper names them):
+// * "mma", variants 0 and 1 with bf16 q/k/v: bf16_mma_kernel. Both products
+//   on tensor cores (mma.sync m16n8k16 bf16 x bf16 -> f32, fragments by
+//   ldmatrix, .trans for V). A block is 4 warps x 16 query rows. The chunk
+//   max must be known before any p of the chunk, and 16 rows x 512 keys of
+//   f32 scores would be 256 registers a thread, so each chunk is walked
+//   twice: pass 1 computes s tile by tile and keeps only the row max
+//   (reduced over the 4 lanes of a quad); pass 2 rescales acc by alpha,
+//   recomputes s (the same MMAs on the same fragments: bit-identical), forms
+//   p in the score registers, adds the f32 p to l and repacks bf16(p) as the
+//   A fragments of the p.v MMA: the m16n8k16 C layout is the A layout, so p
+//   never touches shared memory. q.k^T runs twice (1.5x the work); in
+//   exchange shared memory holds only a 2-stage ring of bf16 K/V tiles
+//   (68 KB; Q passes through it once into registers), which fits 3 blocks
+//   per SM, and any block_k that is a multiple of 64 is taken. Tile t+1
+//   arrives by cp.async 16-byte copies while tile t is multiplied (one
+//   barrier per tile), zero-filled past Sq / Sk / d, so the MMAs always run
+//   the full depth 128 with no branch on d; rows padded to 136 bf16 so the 8
+//   rows an ldmatrix reads hit distinct banks.
+//   Rows that are not 16-byte aligned (or d % 8 != 0) are staged element by
+//   element by the same kernel (kVec = false).
+// * "fma", variants 0 and 1 with f32 or f16 q/k/v: bf16_variant_kernel, the
+//   first port. A bf16 MMA would round f32/f16 inputs and change the
+//   function, so they stay on f32 FMAs (bf16 products exactly in f32): each
+//   thread keeps a 4 x 4 score and 4 x 8 output register tile, a block owns
+//   64 query rows of one (batch, head), and the chunk's score tile (128 KB
+//   at block_k = 512) limits it to one block per SM and block_k to 512.
+// * "dp4a", variant 2: int8_variant_kernel, as the FMA route with dp4a.
 //
 // C interface (route: nvcc -> shared library -> ctypes):
 //   consolver_flash_variant_forward(...) returns cudaGetLastError() after the
 //   launch (0 = success), or -1 for a shape / dtype / variant it does not take.
+//   consolver_flash_mma_occupancy(...) reports the tensor-core kernel's
+//   dynamic shared memory and resident blocks per SM.
 
 #include "flash_common.cuh"
 
@@ -139,7 +166,8 @@ __device__ __forceinline__ V row_sum16(V x) {
   return x;
 }
 
-// Variants 0 (bf16) and 1 (nomask). T is the type of q, k, v and the output.
+// Variants 0 (bf16) and 1 (nomask), FMA route (f32 and f16). T is the type
+// of q, k, v and the output.
 template <typename T, bool kPrescaleQ>
 __global__ void __launch_bounds__(kThreads) bf16_variant_kernel(Params p) {
   extern __shared__ float smem[];
@@ -263,6 +291,290 @@ __global__ void __launch_bounds__(kThreads) bf16_variant_kernel(Params p) {
     for (int c = 0; c < CD; ++c) {
       const int col = tx + 16 * c;
       if (col < p.d) og[row * p.o_ss + col] = from_float<T>(acc[i][c] / l[i]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core route: variants 0 and 1 with bf16 q/k/v.
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 128;        // 4 warps x 16 query rows = BQ
+constexpr int LDS = DP + 8;             // bf16 row stride of the shared tiles (272 bytes)
+constexpr int kTileElems = KT * LDS;    // one 64-row tile (BQ == KT)
+constexpr int kMmaSmem = 4 * kTileElems * 2;  // 2 stages x (K, V): 69,632 bytes
+static_assert(BQ == KT && BQ == 16 * (kMmaThreads / 32), "one 16-row MMA slab per warp");
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 sums. Fragments of
+// lane (g = lane / 4, t = lane % 4): a0 (row g, cols 2t, 2t+1), a1 (row g+8),
+// a2 (row g, cols 2t+8, 2t+9), a3 (row g+8, cols 2t+8, 2t+9); b0 (k 2t, 2t+1,
+// col g), b1 (k 2t+8, 2t+9); c0 c1 (row g, cols 2t, 2t+1), c2 c3 (row g+8).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// Rows [row0, row0 + 64) of one (batch, head) slice into a shared tile (row
+// stride LDS, DP columns); rows >= n and columns >= d are zeros, so the
+// MMAs always run the full depth DP with no branch on d. kVec: cp.async
+// 16-byte copies (rows 16-byte aligned, d % 8 == 0); else element by element.
+template <bool kVec>
+__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src, long long row_stride,
+                                           int row0, int n, int d) {
+  if (kVec) {
+    for (int i = threadIdx.x; i < KT * (DP / 8); i += kMmaThreads) {
+      const int r = i / (DP / 8);
+      const int c = (i - r * (DP / 8)) * 8;
+      const int row = row0 + r;
+      const bool full = row < n && c < d;
+      cp_async16(dst + r * LDS + c, full ? src + row * row_stride + c : src, full ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < KT * DP; i += kMmaThreads) {
+      const int r = i / DP;
+      const int c = i - r * DP;
+      const int row = row0 + r;
+      dst[r * LDS + c] = (row < n && c < d) ? src[row * row_stride + c] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// One warp's 16 x 64 scores against a K tile, s[j] holding keys 8j..8j+7 in
+// the C layout. The same MMAs on the same fragments in the same order, so a
+// second call on one tile gives the same bits.
+__device__ __forceinline__ void tile_scores(float (&s)[8][4], const unsigned (&qf)[DP / 16][4],
+                                            const bf16* kt, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  const int key = (lane & 7) + ((lane >> 4) << 3);
+  const int col = ((lane >> 3) & 1) << 3;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {  // keys 16jp..16jp+15: two 8-key n-tiles
+      unsigned b[4];
+      ldmatrix_x4(b, kt + (16 * jp + key) * LDS + 16 * kk + col);
+      mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
+      mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+    }
+  }
+}
+
+// Where a block is in its walk: chunk start c0, pass (0: K for the max, 1:
+// K and V for p), tile start t0 inside the chunk.
+struct Cursor {
+  int c0, pass, t0;
+  __device__ int chunk_cols(const Params& p) const {  // the chunk's keys in whole tiles
+    return min(p.block_k, ((p.sk - c0 + KT - 1) / KT) * KT);
+  }
+  __device__ bool last_tile(const Params& p) const { return t0 + KT >= chunk_cols(p); }
+  __device__ Cursor next(const Params& p) const {
+    if (!last_tile(p)) return {c0, pass, t0 + KT};
+    return pass == 0 ? Cursor{c0, 1, 0} : Cursor{c0 + p.block_k, 0, 0};
+  }
+};
+
+template <bool kPrescaleQ, bool kVec>
+__global__ void __launch_bounds__(kMmaThreads, 3) bf16_mma_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // stage s: K at tile 2s, V at 2s + 1
+  // Q passes through stage 1's K slot: it is read into registers before the
+  // loop's first barrier, after which the ring overwrites it.
+  bf16* qtile = ring + 2 * kTileElems;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+  auto issue = [&](int stage, const Cursor& c) {
+    bf16* kt = ring + 2 * stage * kTileElems;
+    stage_bf16<kVec>(kt, kg, p.k_ss, c.c0 + c.t0, p.sk, p.d);
+    if (c.pass == 1) stage_bf16<kVec>(kt + kTileElems, vg, p.v_ss, c.c0 + c.t0, p.sk, p.d);
+  };
+
+  Cursor cur{0, 0, 0};
+  stage_bf16<kVec>(qtile, qg, p.q_ss, q0, p.sq, p.d);
+  issue(0, cur);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (kPrescaleQ) {  // (q.astype(f32) * scale).astype(bf16)
+    for (int i = threadIdx.x; i < BQ * DP; i += kMmaThreads) {
+      bf16* x = &qtile[(i / DP) * LDS + i % DP];
+      *x = __float2bfloat16_rn(__fmul_rn(__bfloat162float(*x), p.scale));
+    }
+    __syncthreads();
+  }
+  unsigned qf[DP / 16][4];  // the warp's 16 query rows as A fragments
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int row = 16 * warp + (lane & 7) + (((lane >> 3) & 1) << 3);
+    ldmatrix_x4(qf[kk], qtile + row * LDS + 16 * kk + ((lane >> 4) << 3));
+  }
+
+  // Per thread two rows: g = lane / 4 (index 0) and g + 8 (index 1) of the
+  // warp's slab; acc[j] holds output columns 8j..8j+7.
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
+  float mx[2] = {kNegInf, kNegInf}, rs[2] = {0.f, 0.f};
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const int tcol = 2 * (lane & 3);
+
+  int stage = 0;
+  while (cur.c0 < p.sk) {
+    const Cursor nxt = cur.next(p);
+    cp_async_wait<0>();
+    __syncthreads();  // this tile has arrived; every warp is done with the other stage
+    if (nxt.c0 < p.sk) issue(stage ^ 1, nxt);  // in flight while this tile is multiplied
+    cp_async_commit();
+    const bf16* kt = ring + 2 * stage * kTileElems;
+
+    float s[8][4];
+    tile_scores(s, qf, kt, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // s = f32(q.k) * scale; columns >= Sk at -1e30. __fmul_rn: never
+        // contracted into the subtraction below, so both passes see one value.
+        float x = kPrescaleQ ? s[j][e] : __fmul_rn(s[j][e], p.scale);
+        if (cur.c0 + cur.t0 + 8 * j + tcol + (e & 1) >= p.sk) x = kNegInf;
+        s[j][e] = x;
+      }
+
+    if (cur.pass == 0) {
+      if (cur.t0 == 0) mx[0] = mx[1] = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      if (cur.last_tile(p)) {  // the chunk's max: m_new, alpha; acc *= alpha
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x = mx[r];
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+          const float m_new = fmaxf(m[r], x);
+          alpha[r] = expf(m[r] - m_new);
+          m[r] = m_new;
+          rs[r] = 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+          acc[j][0] *= alpha[0];
+          acc[j][1] *= alpha[0];
+          acc[j][2] *= alpha[1];
+          acc[j][3] *= alpha[1];
+        }
+      }
+    } else {
+      // p = exp(s - m_new); l sums the f32 p; acc += bf16(p) . v
+      unsigned pf[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pr = expf(s[j][e] - m[e >> 1]);
+          rs[e >> 1] += pr;
+          s[j][e] = pr;
+        }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // C fragments of keys 16kk.. -> A fragments
+        pf[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pf[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pf[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pf[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      }
+      const bf16* vt = kt + kTileElems;
+      const int key = (lane & 7) + (((lane >> 3) & 1) << 3);
+      const int col = (lane >> 4) << 3;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int jp = 0; jp < DP / 16; ++jp) {  // output columns 16jp..16jp+15
+          unsigned bv[4];
+          ldmatrix_x4_trans(bv, vt + (16 * kk + key) * LDS + 16 * jp + col);
+          mma_bf16(acc[2 * jp], pf[kk], bv[0], bv[1]);
+          mma_bf16(acc[2 * jp + 1], pf[kk], bv[2], bv[3]);
+        }
+      if (cur.last_tile(p)) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x = rs[r];
+          x += __shfl_xor_sync(0xffffffffu, x, 1);
+          x += __shfl_xor_sync(0xffffffffu, x, 2);
+          l[r] = l[r] * alpha[r] + x;
+        }
+      }
+    }
+    cur = nxt;
+    stage ^= 1;
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + (lane >> 2) + 8 * r;
+    if (row >= p.sq) continue;
+    bf16* orow = og + row * p.o_ss;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + tcol;
+      if (col >= p.d) break;
+      const float lo = acc[j][2 * r] / l[r];
+      const float hi = acc[j][2 * r + 1] / l[r];
+      if (kVec) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(lo, hi);
+      } else {
+        orow[col] = __float2bfloat16_rn(lo);
+        if (col + 1 < p.d) orow[col + 1] = __float2bfloat16_rn(hi);
+      }
     }
   }
 }
@@ -423,50 +735,109 @@ constexpr int int8_smem(int block_k) {
 
 // Each kernel opts in to the largest dynamic shared memory any block_k needs.
 template <typename T>
-int launch(int variant, const Params& p, int batch, cudaStream_t stream) {
-  const dim3 grid((p.sq + BQ - 1) / BQ, p.heads, batch);
-  if (variant == 2) {
-    static std::atomic<unsigned long long> opted{0};
-    auto kernel = int8_variant_kernel<T>;
-    if (int rc = opt_in_smem(kernel, int8_smem(kMaxBlockK), opted)) return rc;
-    kernel<<<grid, kThreads, int8_smem(p.block_k), stream>>>(p);
-  } else if (variant == 1) {
-    static std::atomic<unsigned long long> opted{0};
-    auto kernel = bf16_variant_kernel<T, true>;
-    if (int rc = opt_in_smem(kernel, bf16_smem(kMaxBlockK), opted)) return rc;
-    kernel<<<grid, kThreads, bf16_smem(p.block_k), stream>>>(p);
-  } else {
-    static std::atomic<unsigned long long> opted{0};
-    auto kernel = bf16_variant_kernel<T, false>;
-    if (int rc = opt_in_smem(kernel, bf16_smem(kMaxBlockK), opted)) return rc;
-    kernel<<<grid, kThreads, bf16_smem(p.block_k), stream>>>(p);
-  }
+int launch_int8(const Params& p, dim3 grid, cudaStream_t stream) {
+  static std::atomic<unsigned long long> opted{0};
+  auto kernel = int8_variant_kernel<T>;
+  if (int rc = opt_in_smem(kernel, int8_smem(kMaxBlockK), opted)) return rc;
+  kernel<<<grid, kThreads, int8_smem(p.block_k), stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kPrescaleQ>
+int launch_fma(const Params& p, dim3 grid, cudaStream_t stream) {
+  static std::atomic<unsigned long long> opted{0};
+  auto kernel = bf16_variant_kernel<T, kPrescaleQ>;
+  if (int rc = opt_in_smem(kernel, bf16_smem(kMaxBlockK), opted)) return rc;
+  kernel<<<grid, kThreads, bf16_smem(p.block_k), stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core kernel's shared memory does not depend on block_k.
+template <bool kPrescaleQ, bool kVec>
+int opt_in_mma() {
+  static std::atomic<unsigned long long> opted{0};
+  return opt_in_smem(bf16_mma_kernel<kPrescaleQ, kVec>, kMmaSmem, opted);
+}
+
+template <bool kPrescaleQ, bool kVec>
+int launch_mma(const Params& p, dim3 grid, cudaStream_t stream) {
+  if (int rc = opt_in_mma<kPrescaleQ, kVec>()) return rc;
+  bf16_mma_kernel<kPrescaleQ, kVec><<<grid, kMmaThreads, kMmaSmem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cp.async 16-byte copies need every row start 16-byte aligned.
+bool rows_aligned(const void* ptr, long long sb, long long ss, long long sh) {
+  return reinterpret_cast<unsigned long long>(ptr) % 16 == 0 && sb % 8 == 0 && ss % 8 == 0 &&
+         sh % 8 == 0;
 }
 
 }  // namespace
 
 // variant: 0 = bf16, 1 = nomask, 2 = int8. dtype (of q/k/v for variants 0
 // and 1, of the output for all): 0 = float32, 1 = float16, 2 = bfloat16.
-// Strides are in elements; the head dim must be contiguous. qs/ks/vs are
-// read by variant 2 only ([B, S, H], [B, S, H], [B, H, D], contiguous f32).
+// Variants 0 and 1 take the tensor-core kernel for bfloat16 (any block_k
+// that is a multiple of 64; vec = 1 stages by cp.async and needs d % 8 == 0
+// and 16-byte aligned rows, vec = 0 stages element by element) and the FMA
+// kernel for float32 / float16; variant 2 takes the int8 kernel. The FMA
+// and int8 kernels take block_k up to 512. Strides are in elements; the head
+// dim must be contiguous. qs/ks/vs are read by variant 2 only ([B, S, H],
+// [B, S, H], [B, H, D], contiguous f32).
 extern "C" int consolver_flash_variant_forward(
     int variant, int dtype, const void* q, const void* k, const void* v, const void* qs,
     const void* ks, const void* vs, void* o, int batch, int heads, int sq, int sk, int d,
-    int block_k, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh, long long o_sb, long long o_ss,
-    long long o_sh, float scale, void* stream) {
+    int block_k, int vec, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_ss, long long o_sh, float scale, void* stream) {
   if (variant < 0 || variant > 2 || d < 1 || d > DP || sq < 1 || sk < 1) return -1;
-  if (block_k < KT || block_k > kMaxBlockK || block_k % KT != 0) return -1;
+  if (dtype < 0 || dtype > 2) return -1;
+  const bool mma = variant != 2 && dtype == 2;
+  if (block_k < KT || block_k % KT != 0 || (!mma && block_k > kMaxBlockK)) return -1;
   if (variant == 2 && (qs == nullptr || ks == nullptr || vs == nullptr)) return -1;
+  if (vec && !(mma && d % 8 == 0 && rows_aligned(q, q_sb, q_ss, q_sh) &&
+               rows_aligned(k, k_sb, k_ss, k_sh) && rows_aligned(v, v_sb, v_ss, v_sh) &&
+               rows_aligned(o, o_sb, o_ss, o_sh)))
+    return -1;
   Params p{{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh},
            q, k, v, static_cast<const float*>(qs), static_cast<const float*>(ks),
            static_cast<const float*>(vs), o, heads, sq, sk, d, block_k, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch<float>(variant, p, batch, s);
-    case 1: return launch<__half>(variant, p, batch, s);
-    case 2: return launch<__nv_bfloat16>(variant, p, batch, s);
-    default: return -1;
+  const dim3 grid((sq + BQ - 1) / BQ, heads, batch);
+  if (variant == 2) {
+    switch (dtype) {
+      case 0: return launch_int8<float>(p, grid, s);
+      case 1: return launch_int8<__half>(p, grid, s);
+      default: return launch_int8<__nv_bfloat16>(p, grid, s);
+    }
   }
+  if (mma) {
+    if (variant == 1)
+      return vec ? launch_mma<true, true>(p, grid, s) : launch_mma<true, false>(p, grid, s);
+    return vec ? launch_mma<false, true>(p, grid, s) : launch_mma<false, false>(p, grid, s);
+  }
+  if (dtype == 0)
+    return variant == 1 ? launch_fma<float, true>(p, grid, s)
+                        : launch_fma<float, false>(p, grid, s);
+  return variant == 1 ? launch_fma<__half, true>(p, grid, s)
+                      : launch_fma<__half, false>(p, grid, s);
+}
+
+// The tensor-core kernel of `variant` (0 or 1) with vec staging or not: its
+// dynamic shared memory per block and how many blocks of it fit on one SM.
+extern "C" int consolver_flash_mma_occupancy(int variant, int vec, int* smem_bytes,
+                                             int* blocks_per_sm) {
+  int rc = 0;
+  *smem_bytes = kMmaSmem;
+  if (variant == 1) {
+    rc = vec ? opt_in_mma<true, true>() : opt_in_mma<true, false>();
+    if (rc) return rc;
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, vec ? bf16_mma_kernel<true, true> : bf16_mma_kernel<true, false>,
+        kMmaThreads, kMmaSmem));
+  }
+  rc = vec ? opt_in_mma<false, true>() : opt_in_mma<false, false>();
+  if (rc) return rc;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, vec ? bf16_mma_kernel<false, true> : bf16_mma_kernel<false, false>,
+      kMmaThreads, kMmaSmem));
 }

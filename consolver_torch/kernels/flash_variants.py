@@ -24,11 +24,25 @@ max through the end of the current chunk, so the results depend on
 sets the JAX padding, which does not change any row; :func:`flash_nomask`
 checks it as the JAX ``assert`` does.
 
+Routes (:func:`kernel_route`, by the type of q/k/v; each wrapper counts its
+launches in ``.launches`` and per route in ``.launches_by_route``):
+
+* ``"mma"``: bf16 q/k/v in :func:`flash_bf16` / :func:`flash_nomask`, the
+  tensor-core kernel.  It walks each chunk twice (the max, then ``p``) and
+  keeps no scores in shared memory, so it takes any ``block_k`` that is a
+  multiple of 64, as the JAX function does.  Rows that start 16-byte
+  aligned with ``d % 8 == 0`` arrive by ``cp.async``; others are staged
+  element by element by the same kernel (:func:`staging`).
+* ``"fma"``: f32 / f16 q/k/v in the same two wrappers (a bf16 MMA would
+  round them): the first port's FMA kernel, which keeps a chunk's scores
+  in shared memory, so ``block_k <= MAX_BLOCK_K``.
+* ``"dp4a"``: :func:`flash_int8`, likewise ``block_k <= MAX_BLOCK_K``.
+
 Layout: q ``[B, Sq, H, D]``, k/v ``[B, Sk, H, D]`` -> out in q's dtype.  A
 CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
-version.  Each wrapper counts its launches in ``.launches``.  The library is
-built at first use (:mod:`consolver_torch.kernels._nvcc`); importing this
-module builds nothing.
+version.  The library is built at first use
+(:mod:`consolver_torch.kernels._nvcc`); importing this module builds
+nothing.
 """
 
 from __future__ import annotations
@@ -47,7 +61,7 @@ _VARIANT_CODES = {"bf16": 0, "nomask": 1, "int8": 2}
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 SUB_TILE = 64  # keys per shared-memory tile inside a chunk
-MAX_BLOCK_K = 512  # a chunk's scores stay in shared memory
+MAX_BLOCK_K = 512  # FMA and dp4a routes: a chunk's scores stay in shared memory
 
 _library = None
 
@@ -61,9 +75,13 @@ def build() -> ctypes.CDLL:
     fn = lib.consolver_flash_variant_forward
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
         + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p]
     )
+    occ = lib.consolver_flash_mma_occupancy
+    occ.restype = ctypes.c_int
+    occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                    ctypes.POINTER(ctypes.c_int)]
     _library = lib
     return lib
 
@@ -213,23 +231,67 @@ def _check_int8_block(block_k):
         raise ValueError(f"flash_int8 takes block_k <= 1024 (exact int sums in f32), got {block_k}")
 
 
-def _check(q, k, v, block_k):
+def kernel_route(dtype: torch.dtype, variant: str = "bf16") -> str:
+    """The kernel a CUDA call takes: ``"dp4a"`` for int8; for bf16 and
+    nomask, ``"mma"`` (tensor cores) on bf16 q/k/v and ``"fma"`` on f32 /
+    f16, which a bf16 MMA would round."""
+    if variant == "int8":
+        return "dp4a"
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def rows_aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every ``[B, S, H, D]`` row of these 2-byte tensors starts on
+    16 bytes: data pointers on 16 bytes, (batch, sequence, head) strides
+    multiples of 8 elements."""
+    return all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+               for t in tensors)
+
+
+def staging(route: str, d: int, aligned: bool) -> str:
+    """How the kernel brings K/V tiles into shared memory: ``"cp.async"``
+    16-byte copies (tensor-core route, ``d % 8 == 0``, aligned rows), else
+    ``"elementwise"``."""
+    return "cp.async" if route == "mma" and d % 8 == 0 and aligned else "elementwise"
+
+
+def _check(q, k, v, block_k, route=None):
+    """Raises unless the ``route`` kernel (by default the one q's dtype
+    takes) accepts these operands and ``block_k``: any multiple of 64 on
+    the tensor-core route, up to ``MAX_BLOCK_K`` on the others."""
     check_qkv(q, k, v, "the flash variant kernels", MAX_HEAD_DIM)
-    if block_k % SUB_TILE or not SUB_TILE <= block_k <= MAX_BLOCK_K:
-        raise ValueError(f"the flash variant kernels take block_k in multiples of {SUB_TILE} "
-                         f"up to {MAX_BLOCK_K}, got {block_k}")
+    route = route or kernel_route(q.dtype)
+    limit = None if route == "mma" else MAX_BLOCK_K
+    if block_k % SUB_TILE or block_k < SUB_TILE or (limit is not None and block_k > limit):
+        upto = f" up to {limit}" if limit else ""
+        raise ValueError(f"the {route} flash variant kernel takes block_k in multiples of "
+                         f"{SUB_TILE}{upto}, got {block_k}")
 
 
-def _launch(variant, q, k, v, out, block_k, scales=(None, None, None)):
+def _launch(variant, q, k, v, out, block_k, route, scales=(None, None, None)):
     lib = build()
     b, sq, h, d = q.shape
     qs, ks, vs = (0 if t is None else t.data_ptr() for t in scales)
+    vec = staging(route, d, rows_aligned(q, k, v, out)) == "cp.async"
     _nvcc.call(
         lib.consolver_flash_variant_forward, f"flash_{variant}", q.device,
         _VARIANT_CODES[variant], _DTYPE_CODES[out.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qs, ks, vs, out.data_ptr(),
-        b, h, sq, k.shape[1], d, block_k, *_nvcc.bshd_strides(q, k, v, out), 1.0 / (d**0.5),
+        b, h, sq, k.shape[1], d, block_k, int(vec), *_nvcc.bshd_strides(q, k, v, out),
+        1.0 / (d**0.5),
     )
+
+
+def mma_occupancy(variant: str = "bf16", vec: bool = True) -> Tuple[int, int]:
+    """The tensor-core kernel's dynamic shared memory per block (bytes) and
+    its resident blocks per SM on the current card."""
+    lib = build()
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.consolver_flash_mma_occupancy(_VARIANT_CODES[variant], int(vec), ctypes.byref(smem),
+                                           ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed (code {rc})")
+    return smem.value, blocks.value
 
 
 def _device_check(q, name):
@@ -242,10 +304,11 @@ def flash_bf16(q, k, v, block_q: int = 512, block_k: int = 512) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_bf16_reference(q, k, v, block_q, block_k)
     _device_check(q, "flash_bf16")
-    _check(q, k, v, block_k)
+    route = kernel_route(q.dtype)
+    _check(q, k, v, block_k, route)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("bf16", q, k, v, out, block_k)
-    flash_bf16.launches += 1
+    _launch("bf16", q, k, v, out, block_k, route)
+    _count(flash_bf16, route)
     return out
 
 
@@ -255,10 +318,11 @@ def flash_nomask(q, k, v, block_q: int = 512, block_k: int = 512) -> torch.Tenso
     if q.device.type == "cpu":
         return flash_nomask_reference(q, k, v, block_q, block_k)
     _device_check(q, "flash_nomask")
-    _check(q, k, v, block_k)
+    route = kernel_route(q.dtype)
+    _check(q, k, v, block_k, route)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("nomask", q, k, v, out, block_k)
-    flash_nomask.launches += 1
+    _launch("nomask", q, k, v, out, block_k, route)
+    _count(flash_nomask, route)
     return out
 
 
@@ -269,15 +333,29 @@ def flash_int8(q, k, v, block_q: int = 512, block_k: int = 512) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_int8_reference(q, k, v, block_q, block_k)
     _device_check(q, "flash_int8")
-    _check(q, k, v, block_k)
+    route = kernel_route(q.dtype, "int8")
+    _check(q, k, v, block_k, route)
     qq, qs, kq, ks, vq, vs = quantize_int8(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("int8", qq, kq, vq, out, block_k, scales=(qs, ks, vs))
-    flash_int8.launches += 1
+    _launch("int8", qq, kq, vq, out, block_k, route, scales=(qs, ks, vs))
+    _count(flash_int8, route)
     return out
 
 
-flash_bf16.launches = 0
-flash_nomask.launches = 0
-flash_int8.launches = 0
+def _count(kernel, route):
+    kernel.launches += 1
+    kernel.launches_by_route[route] += 1
+
+
 KERNELS = (flash_bf16, flash_int8, flash_nomask)
+
+
+def reset_counts() -> None:
+    """Sets every wrapper's launch counts to 0."""
+    for kernel in KERNELS:
+        kernel.launches = 0
+        kernel.launches_by_route = ({"dp4a": 0} if kernel is flash_int8
+                                    else {"mma": 0, "fma": 0})
+
+
+reset_counts()

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernel on the card (skipped without one).
+"""The hand-written CUDA kernels on the card (skipped without one).
 
 Run on a machine with an NVIDIA Hopper GPU and nvcc:
 
@@ -9,6 +9,11 @@ on the same inputs: |out - ref| <= rtol * |ref| + atol.  The kernel computes
 in f32 and rounds once to the output type, so rtol is one ulp of that type
 (twice the rounding error: 2^-7 for bf16, 2^-10 for f16, 0 for f32); atol
 covers the f32 summation order (1e-4 in f32, where it is the whole limit).
+The variants (kernels #2-#4) add one rounding flip of the heaviest
+probability and bound the share of elements past one ulp.  Their bf16 cases
+take the tensor-core route ("mma": ragged Sk and Sq, d = 80 / 72 / 40 on
+cp.async copies, d = 76 and unaligned packed views staged element by
+element, block_k = 1024); f32 and f16 take the FMA route.
 """
 
 import copy
@@ -124,3 +129,101 @@ def test_variant_kernels_match_plain_versions(cuda, monkeypatch, name, shape, bl
     assert (diff > ulp_limit).float().mean().item() <= 1e-3
     if name == "flash_int8":
         assert (diff > 0).float().mean().item() <= 1e-5
+
+
+def _variant_within_limits(name, q, k, v, block_q, block_k):
+    """Runs ``name`` on the card and holds it against its plain version with
+    the limits above; returns the route it took."""
+    from consolver_torch.kernels import flash_variants as fv
+
+    kernel, plain = getattr(fv, name), getattr(fv, f"{name}_reference")
+    before = dict(kernel.launches_by_route)
+    out = kernel(q, k, v, block_q=block_q, block_k=block_k)
+    torch.cuda.synchronize()
+    taken = [r for r, n in kernel.launches_by_route.items() if n != before[r]]
+    assert len(taken) == 1 and kernel.launches_by_route[taken[0]] == before[taken[0]] + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    ref = plain(q, k, v, block_q=block_q, block_k=block_k).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / q.shape[-1] ** 0.5
+    heaviest = torch.exp(s.amax(-1) - torch.logsumexp(s, -1)).max().item()
+    rtol = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10, torch.float32: 0.0}[q.dtype]
+    atol = 1e-4 if q.dtype == torch.float32 else 1e-5
+    flip = 2.0**-7 * heaviest * v.float().abs().max().item()
+    diff = (out.float() - ref).abs()
+    ulp_limit = rtol * ref.abs() + atol
+    assert torch.isfinite(out).all()
+    assert (diff <= ulp_limit + flip).all(), (diff / (ulp_limit + flip)).max().item()
+    assert (diff > ulp_limit).float().mean().item() <= 1e-3
+    return taken[0]
+
+
+def _bf16_qkv(shape, sk, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, sq, h, d = shape
+    return (torch.randn(shape, device=device, generator=g).to(torch.bfloat16),
+            torch.randn((b, sk, h, d), device=device, generator=g).to(torch.bfloat16),
+            torch.randn((b, sk, h, d), device=device, generator=g).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("sk,block_k", [
+    (37, 64), (37, 192), (37, 512), (200, 64), (200, 192), (200, 512),
+    (1000, 64), (1000, 192), (1000, 512),
+])
+def test_mma_route_ragged_keys(cuda, monkeypatch, sk, block_k):
+    """flash_bf16 on the tensor-core route with Sk below one tile, across
+    tiles and across chunks, and Sq (100) not a multiple of 64 rows."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _bf16_qkv((2, 100, 3, 128), sk, 4, cuda)
+    assert _variant_within_limits("flash_bf16", q, k, v, 64, block_k) == "mma"
+
+
+@pytest.mark.parametrize("d", [80, 72, 76, 40])
+def test_mma_route_narrow_heads(cuda, monkeypatch, d):
+    """d < 128: columns past d zero-filled.  d = 76 has rows that are not
+    16-byte aligned, so the kernel stages them element by element."""
+    from consolver_torch.kernels import flash_variants as fv
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _bf16_qkv((1, 130, 2, d), 300, 5, cuda)
+    want = "cp.async" if d % 8 == 0 else "elementwise"
+    assert fv.staging("mma", d, fv.rows_aligned(q, k, v)) == want
+    assert _variant_within_limits("flash_bf16", q, k, v, 64, 128) == "mma"
+    q, k, v = _bf16_qkv((1, 256, 2, d), 256, 6, cuda)
+    assert _variant_within_limits("flash_nomask", q, k, v, 128, 128) == "mma"
+
+
+@pytest.mark.parametrize("name", ["flash_bf16", "flash_nomask"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_mma_route_packed_strided_views(cuda, monkeypatch, name, offset):
+    """q/k/v as strided views of one packed [B, S, 3, H, D] tensor; with a
+    one-element offset no row is 16-byte aligned (element staging)."""
+    from consolver_torch.kernels import flash_variants as fv
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    flat = torch.randn(2 * 256 * 3 * 4 * 128 + offset, device=cuda, generator=g)
+    qkv = flat.to(torch.bfloat16)[offset:].view(2, 256, 3, 4, 128)
+    q, k, v = qkv.unbind(dim=2)
+    assert fv.staging("mma", 128, fv.rows_aligned(q, k, v)) == (
+        "cp.async" if offset == 0 else "elementwise")
+    assert _variant_within_limits(name, q, k, v, 128, 128) == "mma"
+
+
+@pytest.mark.parametrize("name", ["flash_bf16", "flash_nomask"])
+def test_mma_route_block_k_1024(cuda, monkeypatch, name):
+    """block_k above the FMA route's 512: two 1024-key chunks."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _bf16_qkv((1, 256, 2, 128), 2048, 8, cuda)
+    assert _variant_within_limits(name, q, k, v, 256, 1024) == "mma"
+
+
+@pytest.mark.parametrize("name", ["flash_bf16", "flash_nomask"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_f32_and_f16_stay_on_the_fma_route(cuda, monkeypatch, name, dtype):
+    """A bf16 MMA would round f32 / f16 inputs: they take the FMA kernel,
+    held to one ulp of their own type (+ one flip of the heaviest p)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn((1, 256, 2, 128), device=cuda, generator=g).to(dtype)
+               for _ in range(3))
+    assert _variant_within_limits(name, q, k, v, 128, 128) == "fma"

@@ -15,9 +15,12 @@ its row) and ``V = max|v|``:
     moves its row by ``(v_j - out) / (127 l)``.
 At these 200-256-key shapes ``P`` is 0.14-0.26; at the FLUX shapes (8704
 keys) it is far smaller.  The tests also bound the share of elements past
-the one-ulp limit.  The int8 operands must be bit-equal to what XLA
-compiles the JAX wrapper's quantization into (it turns each division by
-127 into a multiply by the f32 reciprocal, and the port does the same);
+the one-ulp limit.  The plain versions are held at ``block_k = 1024`` too,
+which the tensor-core route takes; the route, staging and ``block_k``
+choices of the wrappers are plain functions tested here.  The int8 operands
+must be bit-equal to what XLA compiles the JAX wrapper's quantization into
+(it turns each division by 127 into a multiply by the f32 reciprocal, and
+the port does the same);
 with them the int8 outputs here are bit-equal but for the rare exp flip.
 """
 
@@ -83,6 +86,80 @@ def test_nomask_plain_matches_pallas(block_q, block_k):
     out = fv.flash_nomask(*map(_to_torch, (q, k, v)), block_q=block_q, block_k=block_k)
     worst, past_ulp = _over_limit(out, ref, _flip_atol(q, k, v, int8=False))
     assert worst <= 1.0 and past_ulp <= 1e-3, (worst, past_ulp)
+
+
+@pytest.mark.parametrize("name,s", [("bf16", 1100), ("nomask", 2048)])
+def test_plain_matches_pallas_at_block_k_1024(name, s):
+    """The tensor-core route takes block_k past 512; its spec at 1024 (two
+    chunks, the second ragged for bf16) still matches the Pallas kernel."""
+    q, k, v = _qkv(1, s, 2, 128, seed=s)
+    pallas = flash_bf16 if name == "bf16" else flash_nomask
+    ref = pallas(q, k, v, block_q=256 if name == "nomask" else 128, block_k=1024, interpret=True)
+    port = getattr(fv, f"flash_{name}")
+    out = port(*map(_to_torch, (q, k, v)), block_q=256 if name == "nomask" else 128, block_k=1024)
+    worst, past_ulp = _over_limit(out, ref, _flip_atol(q, k, v, int8=False))
+    assert worst <= 1.0 and past_ulp <= 1e-3, (worst, past_ulp)
+
+
+@pytest.mark.parametrize("dtype,variant,route", [
+    (torch.bfloat16, "bf16", "mma"), (torch.bfloat16, "nomask", "mma"),
+    (torch.float32, "bf16", "fma"), (torch.float16, "nomask", "fma"),
+    (torch.bfloat16, "int8", "dp4a"), (torch.float32, "int8", "dp4a"),
+])
+def test_route_follows_dtype(dtype, variant, route):
+    """bf16 q/k/v take the tensor cores; f32 / f16 stay on FMAs, which a
+    bf16 MMA would round; int8 is its own kernel."""
+    assert fv.kernel_route(dtype, variant) == route
+
+
+@pytest.mark.parametrize("route,d,aligned,want", [
+    ("mma", 128, True, "cp.async"), ("mma", 80, True, "cp.async"), ("mma", 72, True, "cp.async"),
+    ("mma", 76, True, "elementwise"), ("mma", 128, False, "elementwise"),
+    ("fma", 128, True, "elementwise"), ("dp4a", 128, True, "elementwise"),
+])
+def test_staging_follows_route_d_and_alignment(route, d, aligned, want):
+    assert fv.staging(route, d, aligned) == want
+
+
+def test_rows_aligned_reads_pointers_and_strides():
+    packed = torch.zeros((2, 64, 3, 4, 128 + 8), dtype=torch.bfloat16)
+    q, k, v = packed[..., :128].unbind(dim=2)  # row starts on 16 bytes
+    assert fv.rows_aligned(q, k, v)
+    flat = torch.zeros(2 * 64 * 4 * 128 + 1, dtype=torch.bfloat16)
+    assert not fv.rows_aligned(flat[1:].view(2, 64, 4, 128))  # starts 2 bytes in
+    assert not fv.rows_aligned(torch.zeros((1, 64, 2, 76), dtype=torch.bfloat16))  # 152-byte rows
+
+
+@pytest.mark.parametrize("dtype,route,block_k,accepted", [
+    (torch.bfloat16, None, 1024, True), (torch.bfloat16, None, 4096, True),
+    (torch.bfloat16, "mma", 576, True), (torch.float32, None, 1024, False),
+    (torch.float16, None, 576, False), (torch.bfloat16, "dp4a", 1024, False),
+    (torch.bfloat16, "dp4a", 512, True),
+])
+def test_block_k_past_512_only_on_the_tensor_core_route(dtype, route, block_k, accepted):
+    """The tensor-core kernel keeps no chunk in shared memory, so any
+    multiple of 64 goes; the FMA and int8 kernels keep theirs to 512."""
+    q = torch.zeros((1, 64, 2, 128), dtype=dtype)
+    if accepted:
+        fv._check(q, q, q, block_k, route)
+    else:
+        with pytest.raises(ValueError, match="up to 512"):
+            fv._check(q, q, q, block_k, route)
+
+
+def test_mma_ablations_apply_to_the_current_source(monkeypatch):
+    """Every ablation of the tensor-core kernel is a set of literal edits
+    that must each apply once to the source as it stands; the probe needs a
+    card."""
+    from consolver_torch.probes import mma_ablation
+
+    sources = mma_ablation.altered_sources()
+    assert set(sources) == {"kernel", *mma_ablation.ABLATIONS}
+    assert len({sources[name] for name in sources}) == len(sources)
+    assert {kind for kind, _ in mma_ablation.ABLATIONS.values()} == {"design", "cost", "mutant"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mma_ablation.run()
 
 
 def test_nomask_rejects_ragged_blocks():
