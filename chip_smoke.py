@@ -9,13 +9,18 @@ non-zero, printing nothing on stdout, without them.  Phases:
 1. Build the two kernel libraries from ``consolver_torch/csrc/`` (one
    ``nvcc`` each, both at once); print the card's name and power limit
    (``nvidia-smi``).
-2. Hold kernel #1 (flash attention) against its plain PyTorch version at
+2. Report what kernel #1's tensor-core kernels compiled to, for every
+   instantiation (design A or B, padded head dim, cp.async or element
+   staging): registers and spills from ptxas, the HMMA / HGMMA count in
+   ``cuobjdump -sass``, dynamic shared memory and blocks per SM.  Then hold
+   kernel #1 (flash attention) against its plain PyTorch version at
    every attention shape of the SD-1.5 preview path (batch 8, so 16 rows
    under CFG) and of the FLUX-Kontext edit (the DiT's joint attention, the
    VAE's 16384-token mid attention), plus Sq != Sk, a ragged length and
-   large scores, in bf16 and f32; time the kernel, its plain version and
-   ``scaled_dot_product_attention`` (as a yardstick only), beside the least
-   time the card could take.
+   large scores, in bf16 (route "mma") and f32 (route "fma"); time the
+   kernel, its plain version and ``scaled_dot_product_attention`` (as a
+   yardstick only), beside the least time the card could take, with the
+   TFLOP/s of the function and the time over SDPA's and over the bound.
 3. Report what the tensor-core kernel of #2 and #4 compiled to (registers
    and spills from ptxas, its HMMA / HGMMA count in ``cuobjdump -sass``,
    shared memory and blocks per SM), then hold kernels #2-#4
@@ -28,15 +33,16 @@ non-zero, printing nothing on stdout, without them.  Phases:
 5. Drive SD-1.5 at full width through ``TextToImagePipeline``: random-normal
    x0.02 bf16 weights from a seeded generator, 8 prompts, 512x512, 8 steps,
    CFG 3.  Check the images and that kernel #1 ran exactly 8 x 32 + 1 = 257
-   times; print img/s, peak memory and the kernel's share of device time.
+   times, all on the "mma" route; print img/s, peak memory and the
+   kernel's share of device time.
 6. The tiny SD stack in f32 on the card and on the CPU, TF32 off: latents,
    images and actions, for the per-count and the padded programs.
 7. Drive the FLUX-Kontext edit at full width through
    ``FluxKontextPipeline``: the 11.9 B DiT, T5-XXL, CLIP-L and the 16-channel
    VAE in bf16 (random-normal x0.02), one 1024^2 edit, 5 steps, guidance
    2.5.  Check the image and that kernel #1 ran exactly 5 x 57 + 2 = 287
-   times; print s/edit, peak memory, the kernel's share of device time and
-   the idle share.
+   times, all on the "mma" route; print s/edit, peak memory, the kernel's
+   share of device time and the idle share.
 8. The tiny FLUX stack in f32 on the card and on the CPU, TF32 off, as in 6.
 
 The line before the last is a JSON object listing each kernel (launches on
@@ -172,13 +178,14 @@ def _bound(q_shape, sk, dtype):
 
 
 def phase_kernel(fa):
-    """Kernel vs plain version at every case; returns per-case rows."""
+    """Kernel vs plain version at every case; returns per-case rows.  bf16
+    must take the tensor-core route, f32 the FMA route."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for dtype, rtol, atol in ((torch.bfloat16, BF16_RTOL, BF16_ATOL),
-                              (torch.float32, F32_RTOL, F32_ATOL)):
+    for dtype, rtol, atol, want_route in ((torch.bfloat16, BF16_RTOL, BF16_ATOL, "mma"),
+                                          (torch.float32, F32_RTOL, F32_ATOL, "fma")):
         for name, q_shape, sk, per_gen in MAIN_PATH_CASES + FLUX_CASES + EXTRA_CASES:
             b, sq, h, d = q_shape
             if name == "large_scores":
@@ -188,8 +195,10 @@ def phase_kernel(fa):
                 q = torch.randn(q_shape, device="cuda", generator=gen).to(dtype)
                 k = torch.randn((b, sk, h, d), device="cuda", generator=gen).to(dtype)
             v = torch.randn((b, sk, h, d), device="cuda", generator=gen).to(dtype)
+            before = dict(fa.flash_attention.launches_by_route)
             out = fa.flash_attention(q, k, v)
             torch.cuda.synchronize()
+            route = [r for r, n in fa.flash_attention.launches_by_route.items() if n != before[r]]
             ref = fa.flash_attention_reference(q.float(), k.float(), v.float())
             diff = (out.float() - ref).abs()
             err = diff.max().item()
@@ -202,6 +211,9 @@ def phase_kernel(fa):
             row = {
                 "case": name, "dtype": str(dtype).replace("torch.", ""), "q": list(q_shape),
                 "sk": sk, "path": "flux" if name.startswith("flux") else "sd",
+                "route": route[0] if len(route) == 1 else route,
+                "design": fa.mma_design(d) if want_route == "mma" else None,
+                "padded_d": fa.padded_width(d, want_route),
                 "per_generation": per_gen, "max_abs_err": err, "max_abs_ref": ref_max,
                 "rtol": rtol, "atol": atol, "err_over_limit": over_limit,
                 "ms": _time_ms(lambda: fa.flash_attention(q, k, v), 5 if heavy else 20, warmup=2),
@@ -209,11 +221,17 @@ def phase_kernel(fa):
                 "library_ms": _library_ms(q, k, v, 5 if heavy else 20),
             }
             row["bound_ms"], row["bound_by"] = _bound(q_shape, sk, dtype)
+            row["tflops"] = 4.0 * b * h * sq * sk * d / (row["ms"] * 1e9)
+            row["ms_over_library"] = row["ms"] / row["library_ms"]
+            row["ms_over_bound"] = row["ms"] / row["bound_ms"]
             print(json.dumps({"phase": "kernel", **row}), flush=True)
             if not finite or not over_limit <= 1.0:
                 raise AssertionError(
                     f"flash_attention {name} {dtype}: max err {err}, {over_limit}x the limit "
                     f"{rtol} * |ref| + {atol}")
+            if row["route"] != want_route:
+                raise AssertionError(
+                    f"flash_attention {name} {dtype} took {route}, want {want_route}")
             rows.append(row)
             del q, k, v, out
     torch.cuda.empty_cache()
@@ -262,10 +280,11 @@ def phase_main_path(fa):
                          guidance_scale=CFG, record=False)
         return images
 
-    fa.flash_attention.launches = 0
+    fa.reset_counts()
     images = generate(SEED + 2)
     torch.cuda.synchronize()
     launches = fa.flash_attention.launches
+    by_route = dict(fa.flash_attention.launches_by_route)
     if tuple(images.shape) != (BATCH, 512, 512, 3):
         raise AssertionError(f"images {tuple(images.shape)}")
     if not bool(torch.isfinite(images).all()):
@@ -273,8 +292,9 @@ def phase_main_path(fa):
     lo, hi = images.min().item(), images.max().item()
     if lo < 0.0 or hi > 1.0:
         raise AssertionError(f"images outside [0, 1]: {lo} {hi}")
-    if launches != LAUNCHES_PER_GENERATION:
-        raise AssertionError(f"flash_attention launched {launches} times, want {LAUNCHES_PER_GENERATION}")
+    if launches != LAUNCHES_PER_GENERATION or by_route["mma"] != LAUNCHES_PER_GENERATION:
+        raise AssertionError(f"flash_attention launched {launches} times ({by_route}), want "
+                             f"{LAUNCHES_PER_GENERATION} on mma")
 
     generate(SEED + 3)  # warm-up after the first (autotuning) run
     torch.cuda.synchronize()
@@ -303,13 +323,13 @@ def phase_main_path(fa):
             continue
         us = evt.device_time_total if hasattr(evt, "device_time_total") else evt.cuda_time_total
         device_us += us
-        if "flash_fwd_kernel" in evt.name:
+        if KERNEL1_SYMBOL in evt.name:
             kernel_us += us
         by_name[evt.name[:80]] = by_name.get(evt.name[:80], 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     result = {
         "phase": "main_path", "batch": BATCH, "steps": STEPS, "cfg": CFG, "resolution": 512,
-        "launches": launches, "img_per_s": BATCH * runs / elapsed,
+        "launches": launches, "launches_by_route": by_route, "img_per_s": BATCH * runs / elapsed,
         "s_per_generation": elapsed / runs, "run_s": run_s, "peak_mem_gib": peak_gib,
         "image_min": lo, "image_max": hi,
         "profiled_wall_ms": wall_ms, "device_busy_ms": device_us / 1e3,
@@ -556,6 +576,49 @@ def phase_mma_kernel(fv):
     return result
 
 
+KERNEL1_SYMBOL = "flash_fwd"  # in the name of every kernel #1 kernel, FMA and tensor-core
+KERNEL1_MMA = re.compile(r"flash_fwd_mma_([ab])_kernelILi(\d+)ELb([01])E")  # design, width, vec
+MIN_BLOCKS_PER_SM = {"A": 2, "B": 1}
+
+
+def phase_kernel1_build(fa):
+    """What kernel #1's tensor-core kernels compiled to, per instantiation
+    (design, padded head dim, staging): registers and spills (ptxas), HMMA /
+    HGMMA instructions (SASS), threads, dynamic shared memory and resident
+    blocks per SM (occupancy API).  Hard failures: an instantiation missing,
+    no tensor-core instruction, fewer than 2 blocks per SM in design A or 1
+    in design B."""
+    from consolver_torch.kernels import _nvcc
+
+    library = _nvcc.library_path(fa._SOURCE)
+    ptxas = _ptxas_report(library.with_suffix(".ptxas.txt").read_text())
+    sass = _sass_mma_counts(library)
+    instances = {}
+    for symbol in sorted(set(ptxas) | set(sass)):
+        found = KERNEL1_MMA.search(symbol)
+        if not found:
+            continue
+        width, vec = int(found.group(2)), found.group(3) == "1"
+        occ = fa.mma_occupancy(width, vec)
+        if occ["design"] != found.group(1).upper() or occ["width"] != width:
+            raise AssertionError(f"{symbol}: the launcher picks {occ} for d = {width}")
+        key = f"{occ['design']}/d{width}/{'cp.async' if vec else 'elementwise'}"
+        instances[key] = {**ptxas.get(symbol, {}), **sass.get(symbol, {"HMMA": 0, "HGMMA": 0}),
+                          **occ}
+    result = {"phase": "kernel1_build", "instances": instances}
+    print(json.dumps(result), flush=True)
+    want = 2 * len(fa.MMA_WIDTHS)
+    if len(instances) != want:
+        raise AssertionError(f"expected {want} tensor-core instantiations of kernel #1: "
+                             f"{sorted(instances)}")
+    for key, row in instances.items():
+        if row["HMMA"] + row["HGMMA"] == 0:
+            raise AssertionError(f"kernel #1 {key} has no tensor-core instruction")
+        if row["blocks_per_sm"] < MIN_BLOCKS_PER_SM[row["design"]]:
+            raise AssertionError(f"kernel #1 {key}: {row['blocks_per_sm']} blocks per SM")
+    return result
+
+
 def phase_probe(fv):
     """The variants' main path: the probe entry point at full shapes."""
     from consolver_torch.probes import flash_variants as probe
@@ -637,13 +700,14 @@ def phase_flux(fa):
                          num_inference_steps=FLUX_STEPS, guidance_scale=FLUX_GUIDANCE, record=False)
         return images
 
-    fa.flash_attention.launches = 0
+    fa.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     images = edit(SEED + 51)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = fa.flash_attention.launches
+    by_route = dict(fa.flash_attention.launches_by_route)
     if tuple(images.shape) != (1, 1024, 1024, 3):
         raise AssertionError(f"images {tuple(images.shape)}")
     if not bool(torch.isfinite(images).all()):
@@ -651,8 +715,9 @@ def phase_flux(fa):
     lo, hi = images.min().item(), images.max().item()
     if lo < 0.0 or hi > 1.0:
         raise AssertionError(f"images outside [0, 1]: {lo} {hi}")
-    if launches != LAUNCHES_PER_EDIT:
-        raise AssertionError(f"flash_attention launched {launches} times, want {LAUNCHES_PER_EDIT}")
+    if launches != LAUNCHES_PER_EDIT or by_route["mma"] != LAUNCHES_PER_EDIT:
+        raise AssertionError(f"flash_attention launched {launches} times ({by_route}), want "
+                             f"{LAUNCHES_PER_EDIT} on mma")
 
     run_s = []
     for i in range(2):
@@ -676,13 +741,14 @@ def phase_flux(fa):
             continue
         us = evt.device_time_total if hasattr(evt, "device_time_total") else evt.cuda_time_total
         device_us += us
-        if "flash_fwd_kernel" in evt.name:
+        if KERNEL1_SYMBOL in evt.name:
             kernel_us += us
         by_name[evt.name[:80]] = by_name.get(evt.name[:80], 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     result = {
         "phase": "flux_edit", "resolution": 1024, "steps": FLUX_STEPS, "guidance": FLUX_GUIDANCE,
-        "joint_tokens": 8704, "launches": launches, "models_build_s": build_s,
+        "joint_tokens": 8704, "launches": launches, "launches_by_route": by_route,
+        "models_build_s": build_s,
         "first_edit_s": first_s, "run_s": run_s, "s_per_edit": sum(run_s) / len(run_s),
         "peak_mem_gib": peak_gib, "image_min": lo, "image_max": hi,
         "profiled_wall_ms": wall_ms, "device_busy_ms": device_us / 1e3,
@@ -740,11 +806,12 @@ def phase_tiny_flux(fa):
     return out
 
 
-def _kernel1_entry(rows, launches_by_path):
+def _kernel1_entry(rows, runs_by_path):
     """Kernel #1's line.  Its top-level numbers are per SD-1.5 generation
     (batch 8, 8 steps): the launches of that run, and each of its shapes
     timed alone times its launches there.  ``by_path`` has the same numbers
-    for the SD-1.5 generation and for one FLUX-Kontext edit."""
+    for the SD-1.5 generation and for one FLUX-Kontext edit, with the
+    launches per route ("mma" or "fma") of that run."""
     per_run = [r for r in rows if r["dtype"] == "bfloat16" and r["per_generation"]]
     by_path = {}
     for path, key in (("sd", "sd15_generation"), ("flux", "flux_kontext_edit")):
@@ -754,7 +821,12 @@ def _kernel1_entry(rows, launches_by_path):
         ops_ms = sum(r["bound_ms"] * r["per_generation"] for r in sel
                      if r["bound_by"] == "operations")
         entry["bound_by"] = "operations" if ops_ms >= entry["bound_ms"] / 2 else "bytes"
-        entry["launches"] = launches_by_path[path]
+        entry["launches"] = runs_by_path[path]["launches"]
+        entry["launches_by_route"] = runs_by_path[path]["launches_by_route"]
+        entry["tflops"] = (sum(4.0 * r["q"][0] * r["q"][1] * r["q"][2] * r["q"][3] * r["sk"]
+                               * r["per_generation"] for r in sel) / (entry["ms"] * 1e9))
+        entry["ms_over_library"] = entry["ms"] / entry["library_ms"]
+        entry["ms_over_bound"] = entry["ms"] / entry["bound_ms"]
         by_path[key] = entry
     sd = by_path["sd15_generation"]
     return {
@@ -763,6 +835,8 @@ def _kernel1_entry(rows, launches_by_path):
         "replaces": "consolver_tpu/kernels/flash_attention.py:67",
         "launches": sd["launches"], "max_abs_err": max(r["max_abs_err"] for r in rows),
         **{name: sd[name] for name in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "kernel_route": max(sd["launches_by_route"], key=sd["launches_by_route"].get),
+        "launches_by_route": sd["launches_by_route"],
         "per": "sd15_generation", "by_path": by_path,
     }
 
@@ -817,6 +891,7 @@ def main() -> int:
     print(json.dumps({"phase": "build", "build_s": build_s, "torch": torch.__version__,
                       "cuda": torch.version.cuda}), flush=True)
 
+    phase_kernel1_build(fa)
     with torch.inference_mode():
         rows = phase_kernel(fa)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products
@@ -824,12 +899,12 @@ def main() -> int:
     with torch.inference_mode():
         variant_rows = phase_variants(fv)
     probe = phase_probe(fv)
-    launches_by_path = {"sd": phase_main_path(fa)["launches"]}
+    runs_by_path = {"sd": phase_main_path(fa)}
     phase_tiny_slice(fa)
-    launches_by_path["flux"] = phase_flux(fa)["launches"]
+    runs_by_path["flux"] = phase_flux(fa)
     phase_tiny_flux(fa)
 
-    kernels = [_kernel1_entry(rows, launches_by_path)]
+    kernels = [_kernel1_entry(rows, runs_by_path)]
     kernels += [_variant_entry(k.__name__, variant_rows, probe["launches"][k.__name__],
                                probe["launches_by_route"][k.__name__]) for k in fv.KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,24 +9,65 @@
 // thread block owns one (batch, head, q-tile), streams K/V tiles through
 // shared memory, reads q/k/v in their [B, S, H, D] layout through strides,
 // and masks the ragged Sq/Sk tails and zero-fills head dims up to the tile
-// width (40 -> 48, 80, 160, 512) in shared memory only.
+// width in shared memory only.
 //
 // What bounds it: the work is 4*B*H*Sq*Sk*d operations against
-// (|q| + |k| + |v| + |o|) bytes. The self-attentions that carry the time on
-// the SD-1.5 path (S = 4096 and 1024 in the UNet, the VAE's single-head
-// d = 512 over 4096 tokens) do 500 to 2,000 operations per byte, above
-// the card's ~295, so the kernel is compute-bound there; only the 77-key
-// cross-attentions and the S <= 256 levels sit below the line (PERF.md has
-// each shape's bound, from chip_smoke.py). This first version
-// computes with plain f32 FMAs from shared memory (no tensor cores): each
-// thread keeps a register micro-tile of RQ rows x CK scores and RQ rows x
-// DP/16 output columns, the S tile never leaves the SM, and row strides of
-// DP + 1 floats keep the column reads free of bank conflicts. Moving both
-// products to wgmma/mma.sync tensor-core instructions is the next step.
+// (|q| + |k| + |v| + |o|) bytes. The self-attentions that carry the time
+// (the SD-1.5 UNet at S = 4096 and 1024, both VAEs' single-head d = 512, the
+// FLUX joint attention over 8704 tokens) do 500 to 2,200 operations per
+// byte, above the card's ~295, so the kernel is compute-bound there; only
+// the 77-key cross-attentions and the S <= 256 levels sit below the line
+// (PERF.md has each shape's bound, from chip_smoke.py).
+//
+// The function is the Pallas kernel's: scores and probabilities p in f32.
+// Two routes, chosen by the type of q/k/v:
+//
+// * "mma", bf16 q/k/v: tensor cores (mma.sync m16n8k16 bf16 x bf16 -> f32,
+//   fragments by ldmatrix, .trans for V). q.k^T of bf16 values is exact in
+//   its products and sums in f32, so it costs nothing against f32 math; the
+//   scores are then scaled by (1/sqrt(d)) log2(e) in f32 and go through
+//   exp2f, as on the FMA route. A bf16 p would not keep the function (about
+//   10x the one-ulp limit at SD and FLUX shapes), so p is split into
+//   p_hi = bf16(p) and p_lo = bf16(p - p_hi) and acc += p_hi v + p_lo v: two
+//   MMAs per V fragment, which is loaded once for both (1.5x the function's
+//   MMA work; p_hi + p_lo carries 16 bits of p, and the output matches f32
+//   p to its own rounding). l sums the f32 p. One online-softmax pass per
+//   K/V tile: keys >= Sk are set to -1e30 before the max (zero-filled K rows
+//   would score 0), and V rows past Sk are zeros (0 x NaN is NaN). The
+//   padded head dim is a template parameter, so the MMA loops have no
+//   branch on d. Tiles arrive by cp.async 16-byte copies into a 2-stage
+//   K/V ring (one barrier per tile) when rows are 16-byte aligned and
+//   d % 8 == 0, else element by element (kVec = false). Two designs:
+//   - A, d <= 160 (FLUX 128, SD 40 / 80 / 160), flash_fwd_mma_a_kernel: 4
+//     warps x 16 query rows, 64-key tiles, the head dim padded to a multiple
+//     of 16 (40 -> 48). Q passes once through the ring into A fragments held
+//     in registers; the f32 accumulator of a warp's 16 rows x all columns
+//     stays in registers (d = 160: 80 a thread), and p goes from the score
+//     C fragments into the A fragments of the p.v MMAs in registers. 2 to 4
+//     blocks per SM by width.
+//   - B, 160 < d <= 512 (both VAEs' mid attention, d = 512),
+//     flash_fwd_mma_b_kernel: 16 x 512 f32 would be 256 registers a thread,
+//     so 8 warps split the output columns in two halves. Q (64 x 512 bf16)
+//     stays in shared memory and is read by ldmatrix at every k-step; for
+//     each 32-key tile, warp (slab, half) scores its slab's 16 rows against
+//     the half's 16 keys, the row max crosses the two halves through shared
+//     memory, p_hi and p_lo go to shared memory as bf16, and each warp
+//     accumulates its slab's rows over its half of the output columns
+//     (d = 512: 128 f32 a thread). 206 KB of shared memory, 1 block per SM.
+//
+// * "fma", f32 / f16 q/k/v, flash_fwd_kernel (a bf16 MMA would round them):
+//   plain f32 FMAs from shared memory. Each thread keeps a register
+//   micro-tile of RQ rows x CK scores and RQ rows x DP/16 output columns,
+//   the S tile never leaves the SM, and row strides of DP + 1 floats keep
+//   the column reads free of bank conflicts; head dims zero-filled to
+//   32, 48, 64, 80, 128, 160, 256 or 512.
 //
 // C interface (route: nvcc -> shared library -> ctypes):
 //   consolver_flash_attention_forward(...) returns cudaGetLastError() after
-//   the launch (0 = success), or -1 for a head dim / dtype it does not take.
+//   the launch (0 = success), or -1 for a head dim / dtype / staging it does
+//   not take. consolver_flash_attention_mma_info(...) reports the tensor-core
+//   kernel a head dim takes: its design, width, threads, dynamic shared
+//   memory and resident blocks per SM.
 
 #include "flash_common.cuh"
 
@@ -212,23 +253,474 @@ int launch_for_dim(const Params& p, int batch, int heads, cudaStream_t stream) {
   return -1;
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core route ("mma"): bf16 q/k/v.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxWidthA = 160;  // design A up to this head dim, design B above
+
+// p_hi = bf16(p), p_lo = bf16(p - p_hi) of two neighbouring columns, packed
+// as one 32-bit A-fragment register each (the lower column in the low half).
+// p - p_hi is exact in f32.
+__device__ __forceinline__ void split_bf16(float p0, float p1, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack_bf16(p0 - hf.x, p1 - hf.y);
+}
+
+// Lane offsets (row, column) of the ldmatrix.x4 addresses. a_*: A fragments
+// (16 rows x 16 columns), and with .trans the B fragments of two 8-column
+// n-tiles from 16 V rows, which take the same pattern. k_*: B fragments of
+// two 8-key n-tiles from K rows.
+__device__ __forceinline__ int a_row(int lane) { return (lane & 7) + (((lane >> 3) & 1) << 3); }
+__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) << 3; }
+__device__ __forceinline__ int k_row(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
+__device__ __forceinline__ int k_col(int lane) { return ((lane >> 3) & 1) << 3; }
+
+// Design A: 4 warps x 16 query rows, 64-key tiles.
+constexpr int kThreadsA = 128;
+constexpr int kRowsA = 64;
+constexpr int kKeysA = 64;
+static_assert(kRowsA == kKeysA && kRowsA == 16 * (kThreadsA / 32), "one 16-row slab per warp");
+
+constexpr int smem_a(int dp) { return 4 * kKeysA * (dp + 8) * 2; }  // 2 stages x (K, V)
+// Blocks per SM the registers are held to: narrow heads have the fewest
+// MMAs per exponential and need the most warps to hide latency.
+constexpr int min_blocks_a(int dp) { return dp <= 48 ? 4 : dp <= 128 ? 3 : 2; }
+
+template <int DP, bool kVec>
+__global__ void __launch_bounds__(kThreadsA, min_blocks_a(DP)) flash_fwd_mma_a_kernel(Params p) {
+  static_assert(DP % 16 == 0 && DP <= kMaxWidthA, "design A widths");
+  constexpr int LDS = DP + 8;
+  constexpr int TILE = kKeysA * LDS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // stage s: K at tile 2s, V at 2s + 1
+  // Q passes through stage 1's K slot: it is read into registers before the
+  // loop's first barrier, after which the ring overwrites it.
+  bf16* qtile = ring + 2 * TILE;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * kRowsA;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+  auto issue = [&](int stage, int k0) {
+    bf16* kt = ring + 2 * stage * TILE;
+    stage_rows<kKeysA, DP, kThreadsA, kVec>(kt, kg, p.k_ss, k0, p.sk, p.d);
+    stage_rows<kKeysA, DP, kThreadsA, kVec>(kt + TILE, vg, p.v_ss, k0, p.sk, p.d);
+  };
+
+  stage_rows<kRowsA, DP, kThreadsA, kVec>(qtile, qg, p.q_ss, q0, p.sq, p.d);
+  issue(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  unsigned qf[DP / 16][4];  // the warp's 16 query rows as A fragments
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    ldmatrix_x4(qf[kk], qtile + (16 * warp + a_row(lane)) * LDS + 16 * kk + a_col(lane));
+
+  // Per thread two rows: g = lane / 4 (index 0) and g + 8 (index 1) of the
+  // warp's slab; acc[j] holds output columns 8j..8j+7. l sums this thread's
+  // columns only; the quad's four partial sums are added at the end.
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const int tcol = 2 * (lane & 3);
+
+  int stage = 0;
+  for (int k0 = 0; k0 < p.sk; k0 += kKeysA) {
+    cp_async_wait<0>();
+    __syncthreads();  // this tile has arrived; every warp is done with the other stage
+    if (k0 + kKeysA < p.sk) issue(stage ^ 1, k0 + kKeysA);  // in flight during this tile
+    cp_async_commit();
+    const bf16* kt = ring + 2 * stage * TILE;
+    const bf16* vt = kt + TILE;
+
+    float s[8][4];  // the warp's 16 x 64 scores, s[j] = keys 8j..8j+7 (C layout)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {  // keys 16jp..16jp+15: two 8-key n-tiles
+        unsigned bk[4];
+        ldmatrix_x4(bk, kt + (16 * jp + k_row(lane)) * LDS + 16 * kk + k_col(lane));
+        mma_bf16(s[2 * jp], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * jp + 1], qf[kk], bk[2], bk[3]);
+      }
+    }
+
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * p.scale_log2;
+        if (k0 + 8 * j + tcol + (e & 1) >= p.sk) x = kNegInf;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // the row's max over the quad's columns
+      float x = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m_new = fmaxf(m[r], x);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = exp2f(s[j][e] - m[e >> 1]);
+        l[e >> 1] += pr;
+        s[j][e] = pr;
+      }
+
+    // acc += p_hi v + p_lo v. The C fragments of keys 16kk..16kk+15 are the
+    // A fragment of that k-step.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      unsigned phi[4], plo[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], phi[0], plo[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], phi[1], plo[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], phi[2], plo[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], phi[3], plo[3]);
+#pragma unroll
+      for (int jp = 0; jp < DP / 16; ++jp) {  // output columns 16jp..16jp+15
+        unsigned bv[4];
+        ldmatrix_x4_trans(bv, vt + (16 * kk + a_row(lane)) * LDS + 16 * jp + a_col(lane));
+        mma_bf16(acc[2 * jp], phi, bv[0], bv[1]);
+        mma_bf16(acc[2 * jp + 1], phi, bv[2], bv[3]);
+        mma_bf16(acc[2 * jp], plo, bv[0], bv[1]);
+        mma_bf16(acc[2 * jp + 1], plo, bv[2], bv[3]);
+      }
+    }
+    stage ^= 1;
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + (lane >> 2) + 8 * r;
+    if (row >= p.sq) continue;
+    const float inv = 1.f / l[r];
+    bf16* orow = og + row * p.o_ss;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + tcol;
+      if (col >= p.d) break;
+      const float lo = acc[j][2 * r] * inv;
+      const float hi = acc[j][2 * r + 1] * inv;
+      if (kVec) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(lo, hi);
+      } else {
+        orow[col] = __float2bfloat16_rn(lo);
+        if (col + 1 < p.d) orow[col + 1] = __float2bfloat16_rn(hi);
+      }
+    }
+  }
+}
+
+// Design B: 8 warps, 64 query rows, 32-key tiles. Warp w owns slab
+// w % 4 (16 rows) and half w / 4: keys 16 half.. of each tile for the
+// scores, output columns half * DP / 2.. for the accumulator.
+constexpr int kThreadsB = 256;
+constexpr int kRowsB = 64;
+constexpr int kKeysB = 32;
+constexpr int kLdp = kKeysB + 8;  // bf16 row stride of the p tiles
+static_assert(kRowsB == 16 * (kThreadsB / 32) / 2 && kKeysB == 2 * 16, "4 slabs x 2 halves");
+
+// Q, 2 stages x (K, V), p_hi and p_lo, and 2 x 64 floats for the row max
+// and sum of each half.
+constexpr int smem_b(int dp) {
+  return ((kRowsB + 4 * kKeysB) * (dp + 8) + 2 * kRowsB * kLdp) * 2 + 2 * kRowsB * 4;
+}
+
+template <int DP, bool kVec>
+__global__ void __launch_bounds__(kThreadsB, 1) flash_fwd_mma_b_kernel(Params p) {
+  static_assert(DP % 32 == 0 && DP > kMaxWidthA, "design B widths");
+  constexpr int LDS = DP + 8;
+  constexpr int KTILE = kKeysB * LDS;
+  constexpr int HALF = DP / 2;  // output columns per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][LDS], resident
+  bf16* ring = qs + kRowsB * LDS;                // stage s: K at 2s, V at 2s + 1
+  bf16* phi = ring + 4 * KTILE;                  // [64][kLdp] bf16(p)
+  bf16* plo = phi + kRowsB * kLdp;               // [64][kLdp] bf16(p - bf16(p))
+  float* red = reinterpret_cast<float*>(plo + kRowsB * kLdp);  // [2][64] per half
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int slab = warp & 3;
+  const int half = warp >> 2;
+  const int q0 = blockIdx.x * kRowsB;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+  auto issue = [&](int stage, int k0) {
+    bf16* kt = ring + 2 * stage * KTILE;
+    stage_rows<kKeysB, DP, kThreadsB, kVec>(kt, kg, p.k_ss, k0, p.sk, p.d);
+    stage_rows<kKeysB, DP, kThreadsB, kVec>(kt + KTILE, vg, p.v_ss, k0, p.sk, p.d);
+  };
+  stage_rows<kRowsB, DP, kThreadsB, kVec>(qs, qg, p.q_ss, q0, p.sq, p.d);
+  issue(0, 0);
+  cp_async_commit();
+
+  const int g = lane >> 2;
+  const int tcol = 2 * (lane & 3);
+  const int arow = 16 * slab + a_row(lane);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[HALF / 8][4];
+#pragma unroll
+  for (int j = 0; j < HALF / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  int stage = 0;
+  for (int k0 = 0; k0 < p.sk; k0 += kKeysB) {
+    cp_async_wait<0>();
+    // This tile (and Q) has arrived; every warp is done with the other
+    // stage, the p tiles and the row maxima of the previous tile.
+    __syncthreads();
+    if (k0 + kKeysB < p.sk) issue(stage ^ 1, k0 + kKeysB);
+    cp_async_commit();
+    const bf16* kt = ring + 2 * stage * KTILE;
+    const bf16* vt = kt + KTILE;
+
+    // 1. the slab's 16 rows x the half's 16 keys; even and odd k-steps sum
+    // into separate accumulators, so that two MMA chains are in flight.
+    float s[2][2][4];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) s[c][j][0] = s[c][j][1] = s[c][j][2] = s[c][j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      unsigned a[4], bk[4];
+      ldmatrix_x4(a, qs + arow * LDS + 16 * kk + a_col(lane));
+      ldmatrix_x4(bk, kt + (16 * half + k_row(lane)) * LDS + 16 * kk + k_col(lane));
+      mma_bf16(s[kk & 1][0], a, bk[0], bk[1]);
+      mma_bf16(s[kk & 1][1], a, bk[2], bk[3]);
+    }
+    float x[2][4];
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = (s[0][j][e] + s[1][j][e]) * p.scale_log2;
+        if (k0 + 16 * half + 8 * j + tcol + (e & 1) >= p.sk) v = kNegInf;
+        x[j][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      if ((lane & 3) == 0) red[half * kRowsB + 16 * slab + g + 8 * r] = mx[r];
+    }
+    __syncthreads();  // both halves' row maxima
+
+    // 2. the tile's row max over both halves (the two warps of a slab
+    // compute the same m and alpha); p of the half's keys: l sums the f32 p,
+    // p_hi and p_lo go to shared memory.
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * slab + g + 8 * r;
+      const float m_new = fmaxf(m[r], fmaxf(red[row], red[kRowsB + row]));
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float p0 = exp2f(x[j][2 * r] - m_new);
+        const float p1 = exp2f(x[j][2 * r + 1] - m_new);
+        l[r] += p0 + p1;
+        unsigned hi, lo;
+        split_bf16(p0, p1, hi, lo);
+        const int off = row * kLdp + 16 * half + 8 * j + tcol;
+        *reinterpret_cast<unsigned*>(phi + off) = hi;
+        *reinterpret_cast<unsigned*>(plo + off) = lo;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < HALF / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+    __syncthreads();  // the p tiles are whole
+
+    // 3. acc (the slab's rows x the half's columns) += p_hi v + p_lo v
+#pragma unroll
+    for (int ks = 0; ks < kKeysB / 16; ++ks) {
+      unsigned ah[4], al[4];
+      ldmatrix_x4(ah, phi + arow * kLdp + 16 * ks + a_col(lane));
+      ldmatrix_x4(al, plo + arow * kLdp + 16 * ks + a_col(lane));
+#pragma unroll
+      for (int jp = 0; jp < HALF / 16; ++jp) {
+        unsigned bv[4];
+        ldmatrix_x4_trans(bv, vt + (16 * ks + a_row(lane)) * LDS + HALF * half + 16 * jp +
+                                  a_col(lane));
+        mma_bf16(acc[2 * jp], ah, bv[0], bv[1]);
+        mma_bf16(acc[2 * jp + 1], ah, bv[2], bv[3]);
+        mma_bf16(acc[2 * jp], al, bv[0], bv[1]);
+        mma_bf16(acc[2 * jp + 1], al, bv[2], bv[3]);
+      }
+    }
+    stage ^= 1;
+  }
+
+  // l over the quad, then over the two halves (every warp has read the last
+  // row maxima before the last tile's second barrier).
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if ((lane & 3) == 0) red[half * kRowsB + 16 * slab + g + 8 * r] = l[r];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int srow = 16 * slab + g + 8 * r;
+    const int row = q0 + srow;
+    if (row >= p.sq) continue;
+    const float inv = 1.f / (red[srow] + red[kRowsB + srow]);
+    bf16* orow = og + row * p.o_ss + HALF * half;
+#pragma unroll
+    for (int j = 0; j < HALF / 8; ++j) {
+      const int col = 8 * j + tcol;
+      if (HALF * half + col >= p.d) break;
+      const float lo = acc[j][2 * r] * inv;
+      const float hi = acc[j][2 * r + 1] * inv;
+      if (kVec) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(lo, hi);
+      } else {
+        orow[col] = __float2bfloat16_rn(lo);
+        if (HALF * half + col + 1 < p.d) orow[col + 1] = __float2bfloat16_rn(hi);
+      }
+    }
+  }
+}
+
+// The tensor-core kernel of one padded width and staging, with its launch
+// shape and its once-per-device shared-memory opt-in.
+struct MmaKernel {
+  void (*fn)(Params);
+  int design;  // 0 = A, 1 = B
+  int width, threads, rows, smem;
+  std::atomic<unsigned long long>* opted;
+};
+
+template <int DP, bool kVec>
+MmaKernel mma_kernel_of() {
+  static std::atomic<unsigned long long> opted{0};
+  if constexpr (DP <= kMaxWidthA)
+    return {flash_fwd_mma_a_kernel<DP, kVec>, 0, DP, kThreadsA, kRowsA, smem_a(DP), &opted};
+  else
+    return {flash_fwd_mma_b_kernel<DP, kVec>, 1, DP, kThreadsB, kRowsB, smem_b(DP), &opted};
+}
+
+// d in 1..512: design A pads to a multiple of 16 up to 160, design B to 256
+// or 512.
+template <bool kVec>
+MmaKernel mma_kernel(int d) {
+  switch ((d + 15) / 16) {
+    case 1: return mma_kernel_of<16, kVec>();
+    case 2: return mma_kernel_of<32, kVec>();
+    case 3: return mma_kernel_of<48, kVec>();
+    case 4: return mma_kernel_of<64, kVec>();
+    case 5: return mma_kernel_of<80, kVec>();
+    case 6: return mma_kernel_of<96, kVec>();
+    case 7: return mma_kernel_of<112, kVec>();
+    case 8: return mma_kernel_of<128, kVec>();
+    case 9: return mma_kernel_of<144, kVec>();
+    case 10: return mma_kernel_of<160, kVec>();
+    default: return d <= 256 ? mma_kernel_of<256, kVec>() : mma_kernel_of<512, kVec>();
+  }
+}
+
+MmaKernel mma_kernel(int d, bool vec) { return vec ? mma_kernel<true>(d) : mma_kernel<false>(d); }
+
+int launch_mma(const Params& p, bool vec, int batch, int heads, cudaStream_t stream) {
+  const MmaKernel k = mma_kernel(p.d, vec);
+  if (int rc = opt_in_smem(k.fn, k.smem, *k.opted)) return rc;
+  const dim3 grid((p.sq + k.rows - 1) / k.rows, heads, batch);
+  Params args = p;
+  void* argv[] = {&args};
+  const cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(k.fn), grid,
+                                           dim3(k.threads), argv, k.smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16. Strides are in elements;
-// the head dim must be contiguous (stride 1).
+// dtype: 0 = float32, 1 = float16 (both on the FMA kernel), 2 = bfloat16
+// (the tensor-core kernels). vec = 1 stages bf16 tiles by cp.async and
+// needs d % 8 == 0 and 16-byte aligned rows; vec = 0 stages element by
+// element (and is the only staging of the FMA kernel). Strides are in
+// elements; the head dim must be contiguous (stride 1).
 extern "C" int consolver_flash_attention_forward(
     int dtype, const void* q, const void* k, const void* v, void* o, int batch, int heads,
-    int sq, int sk, int d, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh, float scale, void* stream) {
+    int sq, int sk, int d, int vec, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long o_sb, long long o_ss, long long o_sh, float scale, void* stream) {
   if (d < 1 || d > 512 || sk < 1 || sq < 1) return -1;
+  if (vec && !(dtype == 2 && d % 8 == 0 && rows_aligned(q, q_sb, q_ss, q_sh) &&
+               rows_aligned(k, k_sb, k_ss, k_sh) && rows_aligned(v, v_sb, v_ss, v_sh) &&
+               rows_aligned(o, o_sb, o_ss, o_sh)))
+    return -1;
   Params p{{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh},
            q, k, v, o, sq, sk, d, scale * kLog2e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_for_dim<float>(p, batch, heads, s);
     case 1: return launch_for_dim<__half>(p, batch, heads, s);
-    case 2: return launch_for_dim<__nv_bfloat16>(p, batch, heads, s);
+    case 2: return launch_mma(p, vec != 0, batch, heads, s);
     default: return -1;
   }
+}
+
+// The tensor-core kernel a bf16 call with head dim d (1..512) and staging
+// vec launches: its design (0 = A, 1 = B), padded width, threads per block,
+// dynamic shared memory per block and resident blocks per SM.
+extern "C" int consolver_flash_attention_mma_info(int d, int vec, int* design, int* width,
+                                                  int* threads, int* smem_bytes,
+                                                  int* blocks_per_sm) {
+  if (d < 1 || d > 512) return -1;
+  const MmaKernel k = mma_kernel(d, vec != 0);
+  if (int rc = opt_in_smem(k.fn, k.smem, *k.opted)) return rc;
+  *design = k.design;
+  *width = k.width;
+  *threads = k.threads;
+  *smem_bytes = k.smem;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, k.fn, k.threads, k.smem));
 }

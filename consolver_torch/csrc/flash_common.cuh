@@ -1,8 +1,11 @@
 // Helpers shared by the flash-attention kernels of this directory
 // (flash_attention.cu, flash_variants.cu): conversions between the storage
-// types and f32, the [B, S, H, D] stride layout the C interfaces pass, and
-// the once-per-device opt-in to more than 48 KB of dynamic shared memory.
-// Each source is its own library, so this header is included once per build.
+// types and f32, the [B, S, H, D] stride layout the C interfaces pass, the
+// once-per-device opt-in to more than 48 KB of dynamic shared memory, and
+// what the tensor-core kernels share: the PTX wrappers (cp.async, ldmatrix,
+// mma.sync m16n8k16 bf16) and the staging of bf16 rows into shared tiles.
+// Each source is its own library, so this header is included once per
+// build.
 
 #pragma once
 
@@ -13,6 +16,8 @@
 #include <atomic>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 template <typename T> __device__ __forceinline__ float to_float(T x);
 template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
@@ -57,6 +62,85 @@ int opt_in_smem(Kernel kernel, int bytes, std::atomic<unsigned long long>& opted
     opted_in.fetch_or(bit, std::memory_order_release);
   }
   return 0;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 sums. Fragments of
+// lane (g = lane / 4, t = lane % 4): a0 (row g, cols 2t, 2t+1), a1 (row g+8),
+// a2 (row g, cols 2t+8, 2t+9), a3 (row g+8, cols 2t+8, 2t+9); b0 (k 2t, 2t+1,
+// col g), b1 (k 2t+8, 2t+9); c0 c1 (row g, cols 2t, 2t+1), c2 c3 (row g+8).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// Rows [row0, row0 + ROWS) of one (batch, head) slice into a shared tile of
+// row stride DP + 8 (the 8 rows an ldmatrix reads fall on distinct banks);
+// rows >= n and columns >= d are zeros. kVec: cp.async 16-byte copies (rows
+// 16-byte aligned, d % 8 == 0); else element by element. NT threads share it.
+template <int ROWS, int DP, int NT, bool kVec>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long row_stride,
+                                           int row0, int n, int d) {
+  constexpr int LDS = DP + 8;
+  if constexpr (kVec) {
+    for (int i = threadIdx.x; i < ROWS * (DP / 8); i += NT) {
+      const int r = i / (DP / 8);
+      const int c = (i - r * (DP / 8)) * 8;
+      const int row = row0 + r;
+      const bool full = row < n && c < d;
+      cp_async16(dst + r * LDS + c, full ? src + row * row_stride + c : src, full ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DP; i += NT) {
+      const int r = i / DP;
+      const int c = i - r * DP;
+      const int row = row0 + r;
+      dst[r * LDS + c] = (row < n && c < d) ? src[row * row_stride + c] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// cp.async 16-byte copies need every bf16 row start 16-byte aligned.
+inline bool rows_aligned(const void* ptr, long long sb, long long ss, long long sh) {
+  return reinterpret_cast<unsigned long long>(ptr) % 16 == 0 && sb % 8 == 0 && ss % 8 == 0 &&
+         sh % 8 == 0;
 }
 
 }  // namespace

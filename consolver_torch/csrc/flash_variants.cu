@@ -305,80 +305,6 @@ constexpr int kTileElems = KT * LDS;    // one 64-row tile (BQ == KT)
 constexpr int kMmaSmem = 4 * kTileElems * 2;  // 2 stages x (K, V): 69,632 bytes
 static_assert(BQ == KT && BQ == 16 * (kMmaThreads / 32), "one 16-row MMA slab per warp");
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 sums. Fragments of
-// lane (g = lane / 4, t = lane % 4): a0 (row g, cols 2t, 2t+1), a1 (row g+8),
-// a2 (row g, cols 2t+8, 2t+9), a3 (row g+8, cols 2t+8, 2t+9); b0 (k 2t, 2t+1,
-// col g), b1 (k 2t+8, 2t+9); c0 c1 (row g, cols 2t, 2t+1), c2 c3 (row g+8).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// Rows [row0, row0 + 64) of one (batch, head) slice into a shared tile (row
-// stride LDS, DP columns); rows >= n and columns >= d are zeros, so the
-// MMAs always run the full depth DP with no branch on d. kVec: cp.async
-// 16-byte copies (rows 16-byte aligned, d % 8 == 0); else element by element.
-template <bool kVec>
-__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src, long long row_stride,
-                                           int row0, int n, int d) {
-  if (kVec) {
-    for (int i = threadIdx.x; i < KT * (DP / 8); i += kMmaThreads) {
-      const int r = i / (DP / 8);
-      const int c = (i - r * (DP / 8)) * 8;
-      const int row = row0 + r;
-      const bool full = row < n && c < d;
-      cp_async16(dst + r * LDS + c, full ? src + row * row_stride + c : src, full ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < KT * DP; i += kMmaThreads) {
-      const int r = i / DP;
-      const int c = i - r * DP;
-      const int row = row0 + r;
-      dst[r * LDS + c] = (row < n && c < d) ? src[row * row_stride + c] : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
 // One warp's 16 x 64 scores against a K tile, s[j] holding keys 8j..8j+7 in
 // the C layout. The same MMAs on the same fragments in the same order, so a
 // second call on one tile gives the same bits.
@@ -434,12 +360,13 @@ __global__ void __launch_bounds__(kMmaThreads, 3) bf16_mma_kernel(Params p) {
 
   auto issue = [&](int stage, const Cursor& c) {
     bf16* kt = ring + 2 * stage * kTileElems;
-    stage_bf16<kVec>(kt, kg, p.k_ss, c.c0 + c.t0, p.sk, p.d);
-    if (c.pass == 1) stage_bf16<kVec>(kt + kTileElems, vg, p.v_ss, c.c0 + c.t0, p.sk, p.d);
+    stage_rows<KT, DP, kMmaThreads, kVec>(kt, kg, p.k_ss, c.c0 + c.t0, p.sk, p.d);
+    if (c.pass == 1)
+      stage_rows<KT, DP, kMmaThreads, kVec>(kt + kTileElems, vg, p.v_ss, c.c0 + c.t0, p.sk, p.d);
   };
 
   Cursor cur{0, 0, 0};
-  stage_bf16<kVec>(qtile, qg, p.q_ss, q0, p.sq, p.d);
+  stage_rows<KT, DP, kMmaThreads, kVec>(qtile, qg, p.q_ss, q0, p.sq, p.d);
   issue(0, cur);
   cp_async_commit();
   cp_async_wait<0>();
@@ -764,12 +691,6 @@ int launch_mma(const Params& p, dim3 grid, cudaStream_t stream) {
   if (int rc = opt_in_mma<kPrescaleQ, kVec>()) return rc;
   bf16_mma_kernel<kPrescaleQ, kVec><<<grid, kMmaThreads, kMmaSmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
-}
-
-// cp.async 16-byte copies need every row start 16-byte aligned.
-bool rows_aligned(const void* ptr, long long sb, long long ss, long long sh) {
-  return reinterpret_cast<unsigned long long>(ptr) % 16 == 0 && sb % 8 == 0 && ss % 8 == 0 &&
-         sh % 8 == 0;
 }
 
 }  // namespace

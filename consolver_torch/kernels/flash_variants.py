@@ -54,7 +54,8 @@ import numpy as np
 import torch
 
 from consolver_torch.kernels import _nvcc
-from consolver_torch.kernels.flash_attention import _DTYPE_CODES, check_qkv
+from consolver_torch.kernels.flash_attention import (_DTYPE_CODES, check_qkv, rows_aligned,
+                                                     staging)
 
 _SOURCE = _nvcc.CSRC / "flash_variants.cu"
 _VARIANT_CODES = {"bf16": 0, "nomask": 1, "int8": 2}
@@ -238,21 +239,6 @@ def kernel_route(dtype: torch.dtype, variant: str = "bf16") -> str:
     if variant == "int8":
         return "dp4a"
     return "mma" if dtype == torch.bfloat16 else "fma"
-
-
-def rows_aligned(*tensors: torch.Tensor) -> bool:
-    """Whether every ``[B, S, H, D]`` row of these 2-byte tensors starts on
-    16 bytes: data pointers on 16 bytes, (batch, sequence, head) strides
-    multiples of 8 elements."""
-    return all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
-               for t in tensors)
-
-
-def staging(route: str, d: int, aligned: bool) -> str:
-    """How the kernel brings K/V tiles into shared memory: ``"cp.async"``
-    16-byte copies (tensor-core route, ``d % 8 == 0``, aligned rows), else
-    ``"elementwise"``."""
-    return "cp.async" if route == "mma" and d % 8 == 0 and aligned else "elementwise"
 
 
 def _check(q, k, v, block_k, route=None):

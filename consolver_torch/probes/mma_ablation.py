@@ -1,13 +1,18 @@
-"""Ablations of the tensor-core kernel of ``flash_bf16`` / ``flash_nomask``.
+"""Ablations of the tensor-core kernels: ``flash_bf16`` / ``flash_nomask``
+(``csrc/flash_variants.cu``) and kernel #1 (``csrc/flash_attention.cu``).
 
-    python -m consolver_torch.probes.mma_ablation        # on the card
+    python -m consolver_torch.probes.mma_ablation                    # both, on the card
+    python -m consolver_torch.probes.mma_ablation --target kernel1   # kernel #1 only
 
-Builds altered copies of ``csrc/flash_variants.cu`` (one ``nvcc`` each, all
-at once, into a temporary directory), loads each in place of the library
-and times :func:`flash_bf16` at the FLUX serving and training shapes with
-CUDA events, beside the unaltered kernel, in one process on one card.  Each
-copy is held to the plain version with the per-element limit and the
-one-ulp share of ``chip_smoke.py``'s variants phase.  The copies:
+Builds altered copies of a source (one ``nvcc`` each, all at once, into a
+temporary directory), loads each in place of the library and times the
+wrapper with CUDA events, beside the unaltered kernel, in one process on
+one card.
+
+``--target variants`` times :func:`flash_bf16` at the FLUX serving and
+training shapes; each copy is held to the plain version with the
+per-element limit and the one-ulp share of ``chip_smoke.py``'s variants
+phase.  The copies:
 
 * undo one design choice (``design``): a runtime branch on the head dim in
   the unrolled MMA loops; Q in its own tile with 2 blocks per SM; two
@@ -17,6 +22,18 @@ one-ulp share of ``chip_smoke.py``'s variants phase.  The copies:
 * plant one fault (``mutant``, which the limits must catch): the max of the
   chunk's last 64-key tile in place of the chunk's; ``alpha`` left off
   ``l``.
+
+``--target kernel1`` times :func:`flash_attention` on bf16 inputs (the
+"mma" route) at the FLUX joint shape and SD-1.5's L0 self-attention; each
+copy is held to the f32 plain version with ``chip_smoke.py``'s kernel #1
+limit, one bf16 ulp + 1e-5 at every element.  The copies:
+
+* undo one design choice (``design``): every width held to 2 blocks per SM
+  (more registers, fewer warps);
+* drop one part of the work (``cost``, wrong on purpose): the ``p_lo`` MMAs
+  of design A, so ``p`` enters ``p v`` as one bf16 value: what the split
+  costs, and the gate it must fail;
+* plant one fault (``mutant``): ``alpha`` left off design A's accumulator.
 
 Every edit is a literal replacement in the current source and must apply
 exactly once (:func:`altered_sources`), so the ablations cannot drift.
@@ -35,10 +52,12 @@ from pathlib import Path
 import torch
 
 from consolver_torch.kernels import _nvcc
+from consolver_torch.kernels import flash_attention as fa
 from consolver_torch.kernels import flash_variants as fv
 
 SHAPES = {"serve": (1, 8704, 24, 128), "train": (8, 2560, 24, 128)}
 BLOCK_K = 512
+KERNEL1_SHAPES = {"flux_joint": (1, 8704, 24, 128), "sd_l0_self": (16, 4096, 8, 40)}
 
 _ONE_BARRIER = """    cp_async_wait<0>();
     __syncthreads();  // this tile has arrived; every warp is done with the other stage
@@ -93,11 +112,40 @@ ABLATIONS = {
 }
 
 
-def altered_sources() -> dict:
+_ACC_ALPHA_A = """    for (int j = 0; j < DP / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+"""
+
+KERNEL1_ABLATIONS = {
+    "min_blocks_2": ("design", [
+        ("return dp <= 48 ? 4 : dp <= 128 ? 3 : 2;", "return 2;"),
+    ]),
+    "no_p_lo": ("cost", [
+        ("        mma_bf16(acc[2 * jp], plo, bv[0], bv[1]);\n"
+         "        mma_bf16(acc[2 * jp + 1], plo, bv[2], bv[3]);\n", ""),
+    ]),
+    "no_alpha_on_acc": ("mutant", [(_ACC_ALPHA_A, "")]),
+}
+
+# target -> (wrapper module, ablations of its source, the library's entry points)
+TARGETS = {
+    "variants": (fv, ABLATIONS,
+                 ("consolver_flash_variant_forward", "consolver_flash_mma_occupancy")),
+    "kernel1": (fa, KERNEL1_ABLATIONS,
+                ("consolver_flash_attention_forward", "consolver_flash_attention_mma_info")),
+}
+
+
+def altered_sources(target: str = "variants") -> dict:
     """Each ablation's source; raises unless every edit applies exactly once."""
-    source = fv._SOURCE.read_text()
+    module, ablations, _ = TARGETS[target]
+    source = module._SOURCE.read_text()
     out = {"kernel": source}
-    for name, (_, edits) in ABLATIONS.items():
+    for name, (_, edits) in ablations.items():
         text = source
         for old, new in edits:
             if text.count(old) != 1:
@@ -107,16 +155,16 @@ def altered_sources() -> dict:
     return out
 
 
-def _build(workdir: Path, name: str, source: str) -> ctypes.CDLL:
+def _build(workdir: Path, name: str, source: str, filename: str) -> ctypes.CDLL:
     d = workdir / name
     d.mkdir()
-    (d / fv._SOURCE.name).write_text(source)
+    (d / filename).write_text(source)
     for header in _nvcc.CSRC.glob("*.cuh"):
         (d / header.name).write_text(header.read_text())
     lib = d / "lib.so"
     proc = subprocess.run(
         [_nvcc.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-o", str(lib), str(d / fv._SOURCE.name)],
+         "-shared", "-Xcompiler", "-fPIC", "-o", str(lib), str(d / filename)],
         capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on ablation {name}:\n{proc.stderr}")
@@ -137,41 +185,80 @@ def _within_limits(out, ref, q, k, v):
     return (diff / (ulp + flip)).max().item(), (diff > ulp).float().mean().item()
 
 
-def run(iters: int = 10, seed: int = 0, log=print) -> dict:
-    """Builds every copy, then times and checks each at both shapes."""
+def run(iters: int = 10, seed: int = 0, log=print, target: str = "variants") -> dict:
+    """Builds every copy of ``target``'s source, then times and checks each
+    at its shapes."""
     if not torch.cuda.is_available():
         raise RuntimeError("mma_ablation runs on a CUDA card only")
-    real = fv.build()
-    sources = altered_sources()
-    results = {}
+    module, _, entries = TARGETS[target]
+    real = module.build()
+    sources = altered_sources(target)
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(sources)) as pool:
-        libs = dict(zip(sources, pool.map(lambda kv: _build(Path(tmp), *kv), sources.items())))
+        libs = dict(zip(sources, pool.map(lambda kv: _build(Path(tmp), *kv, module._SOURCE.name),
+                                          sources.items())))
         for lib in libs.values():
-            for fn in ("consolver_flash_variant_forward", "consolver_flash_mma_occupancy"):
+            for fn in entries:
                 getattr(lib, fn).restype = ctypes.c_int
                 getattr(lib, fn).argtypes = getattr(real, fn).argtypes
         gen = torch.Generator(device="cuda").manual_seed(seed)
         try:
-            for shape_name, shape in SHAPES.items():
-                q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
-                           for _ in range(3))
-                fv._library = real
-                ref = fv.flash_bf16_reference(q, k, v, block_k=BLOCK_K)
-                for name, lib in libs.items():
-                    fv._library = lib
-                    out = fv.flash_bf16(q, k, v, block_k=BLOCK_K)
-                    worst, past = _within_limits(out, ref, q, k, v)
-                    del out
-                    ms = _time_ms(lambda: fv.flash_bf16(q, k, v, block_k=BLOCK_K), iters)
-                    kind = ABLATIONS[name][0] if name in ABLATIONS else "kernel"
-                    row = {"ablation": name, "kind": kind, "shape": shape_name, "ms": ms,
-                           "err_over_limit": worst, "share_past_one_ulp": past,
-                           "passes_limits": worst <= 1.0 and past <= 1e-3}
-                    results[f"{shape_name}/{name}"] = row
-                    log(json.dumps(row))
-                del q, k, v, ref
+            if target == "variants":
+                return _run_variants(libs, real, iters, gen, log)
+            return _run_kernel1(libs, iters, gen, log)
         finally:
-            fv._library = real
+            module._library = real
+
+
+def _run_variants(libs, real, iters, gen, log) -> dict:
+    results = {}
+    for shape_name, shape in SHAPES.items():
+        q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        fv._library = real
+        ref = fv.flash_bf16_reference(q, k, v, block_k=BLOCK_K)
+        for name, lib in libs.items():
+            fv._library = lib
+            out = fv.flash_bf16(q, k, v, block_k=BLOCK_K)
+            worst, past = _within_limits(out, ref, q, k, v)
+            del out
+            ms = _time_ms(lambda: fv.flash_bf16(q, k, v, block_k=BLOCK_K), iters)
+            kind = ABLATIONS[name][0] if name in ABLATIONS else "kernel"
+            row = {"ablation": name, "kind": kind, "shape": shape_name, "ms": ms,
+                   "err_over_limit": worst, "share_past_one_ulp": past,
+                   "passes_limits": worst <= 1.0 and past <= 1e-3}
+            results[f"{shape_name}/{name}"] = row
+            log(json.dumps(row))
+        del q, k, v, ref
+    return results
+
+
+def _run_kernel1(libs, iters, gen, log) -> dict:
+    """Kernel #1's copies on bf16 inputs against the f32 plain version: the
+    worst element's error over one bf16 ulp + 1e-5."""
+    results = {}
+    for shape_name, (b, s, h, d) in KERNEL1_SHAPES.items():
+        q, k, v = (torch.randn((b, s, h, d), device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        ref = fa.flash_attention_reference(q.float(), k.float(), v.float())
+        limit = 2.0**-7 * ref.abs() + 1e-5
+        for name, lib in libs.items():
+            fa._library = lib
+            before = fa.flash_attention.launches_by_route["mma"]
+            out = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            if fa.flash_attention.launches_by_route["mma"] != before + 1:
+                raise RuntimeError(f"kernel #1 copy {name} did not take the mma route")
+            worst = ((out.float() - ref).abs() / limit).max().item()
+            del out
+            ms = _time_ms(lambda: fa.flash_attention(q, k, v), iters)
+            kind = KERNEL1_ABLATIONS[name][0] if name in KERNEL1_ABLATIONS else "kernel"
+            row = {"target": "kernel1", "ablation": name, "kind": kind, "shape": shape_name,
+                   "ms": ms, "tflops": 4.0 * b * h * s * s * d / (ms * 1e9),
+                   "err_over_limit": worst, "passes_limits": worst <= 1.0}
+            results[f"{shape_name}/{name}"] = row
+            log(json.dumps(row))
+        del q, k, v, ref, limit
+        torch.cuda.empty_cache()
     return results
 
 
@@ -190,10 +277,12 @@ def _time_ms(fn, iters: int) -> float:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--iters", type=int, default=10)
+    parser.add_argument("--target", choices=(*TARGETS, "all"), default="all")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         parser.error("no CUDA device: the ablations build and time CUDA kernels")
-    run(args.iters)
+    for target in TARGETS if args.target == "all" else (args.target,):
+        run(args.iters, target=target)
     return 0
 
 

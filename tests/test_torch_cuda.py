@@ -9,11 +9,15 @@ on the same inputs: |out - ref| <= rtol * |ref| + atol.  The kernel computes
 in f32 and rounds once to the output type, so rtol is one ulp of that type
 (twice the rounding error: 2^-7 for bf16, 2^-10 for f16, 0 for f32); atol
 covers the f32 summation order (1e-4 in f32, where it is the whole limit).
-The variants (kernels #2-#4) add one rounding flip of the heaviest
-probability and bound the share of elements past one ulp.  Their bf16 cases
-take the tensor-core route ("mma": ragged Sk and Sq, d = 80 / 72 / 40 on
-cp.async copies, d = 76 and unaligned packed views staged element by
-element, block_k = 1024); f32 and f16 take the FMA route.
+Kernel #1's bf16 cases take its tensor-core route ("mma": design A up to
+d = 160, design B above), its f32 and f16 cases the FMA route; the
+``kernel1_*`` tests assert the route from ``launches_by_route`` and cover
+every main-path head dim, ragged keys, packed views aligned and not, and
+large scores.  The variants (kernels #2-#4) add one rounding flip of the
+heaviest probability and bound the share of elements past one ulp.  Their
+bf16 cases take the tensor-core route ("mma": ragged Sk and Sq, d = 80 / 72
+/ 40 on cp.async copies, d = 76 and unaligned packed views staged element
+by element, block_k = 1024); f32 and f16 take the FMA route.
 """
 
 import copy
@@ -227,3 +231,81 @@ def test_f32_and_f16_stay_on_the_fma_route(cuda, monkeypatch, name, dtype):
     q, k, v = (torch.randn((1, 256, 2, 128), device=cuda, generator=g).to(dtype)
                for _ in range(3))
     assert _variant_within_limits(name, q, k, v, 128, 128) == "fma"
+
+
+KERNEL1_TOL = {torch.bfloat16: (2.0**-7, 1e-5), torch.float16: (2.0**-10, 1e-5),
+               torch.float32: (0.0, 1e-4)}
+
+
+def _kernel1_route(q, k, v):
+    """Runs kernel #1 on the card, holds it to one ulp of its output type +
+    atol against the f32 plain version at every element, and returns the
+    route it took."""
+    before = dict(fa.flash_attention.launches_by_route)
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    taken = [r for r, n in fa.flash_attention.launches_by_route.items() if n != before[r]]
+    assert len(taken) == 1
+    assert fa.flash_attention.launches_by_route[taken[0]] == before[taken[0]] + 1
+    assert out.dtype == q.dtype and out.shape == q.shape and torch.isfinite(out).all()
+    ref = fa.flash_attention_reference(q.float(), k.float(), v.float())
+    rtol, atol = KERNEL1_TOL[q.dtype]
+    over = ((out.float() - ref).abs() / (rtol * ref.abs() + atol)).max().item()
+    assert over <= 1.0, over
+    return taken[0]
+
+
+@pytest.mark.parametrize("d", [20, 24, 40, 80, 128, 160, 256, 300, 512])
+def test_kernel1_mma_route_head_dims(cuda, monkeypatch, d):
+    """bf16 at every main-path head dim (design A: 24-160; design B: 256,
+    512), and d = 20 / 300, whose rows are staged element by element."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _bf16_qkv((2, 130, 2, d), 300, 10 + d, cuda)
+    want = "cp.async" if d % 8 == 0 else "elementwise"
+    assert fa.staging("mma", d, fa.rows_aligned(q, k, v)) == want
+    assert _kernel1_route(q, k, v) == "mma"
+
+
+@pytest.mark.parametrize("d", [128, 512])
+@pytest.mark.parametrize("sk", [77, 200, 1000])
+def test_kernel1_mma_route_ragged_keys(cuda, monkeypatch, sk, d):
+    """Sk not a multiple of the key tile (77: a second tile of 13 keys) and
+    Sq = 100, in both designs."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _bf16_qkv((2, 100, 2, d), sk, 11, cuda)
+    assert _kernel1_route(q, k, v) == "mma"
+
+
+@pytest.mark.parametrize("d", [40, 512])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kernel1_mma_route_packed_strided_views(cuda, monkeypatch, d, offset):
+    """q/k/v as views of one packed [B, S, 3, H, D] tensor, read without
+    copies; offset by one element, no row is 16-byte aligned (element
+    staging)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    flat = torch.randn(2 * 256 * 3 * 2 * d + offset, device=cuda, generator=g)
+    q, k, v = flat.to(torch.bfloat16)[offset:].view(2, 256, 3, 2, d).unbind(dim=2)
+    assert fa.staging("mma", d, fa.rows_aligned(q, k, v)) == (
+        "cp.async" if offset == 0 else "elementwise")
+    assert _kernel1_route(q, k, v) == "mma"
+
+
+@pytest.mark.parametrize("d", [128, 512])
+def test_kernel1_mma_route_large_scores(cuda, monkeypatch, d):
+    """q = k = 10: every score is 100 d, and the online softmax stays finite."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q = torch.full((1, 128, 1, d), 10.0, device=cuda, dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    v = torch.randn((1, 128, 1, d), device=cuda, generator=g).to(torch.bfloat16)
+    assert _kernel1_route(q, q.clone(), v) == "mma"
+
+
+@pytest.mark.parametrize("d", [40, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_kernel1_f32_and_f16_stay_on_the_fma_route(cuda, monkeypatch, dtype, d):
+    """A bf16 MMA would round f32 / f16 inputs: they take the FMA kernel."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v = (torch.randn((1, 130, 2, d), device=cuda, generator=g).to(dtype) for _ in range(3))
+    assert _kernel1_route(q, k, v) == "fma"
