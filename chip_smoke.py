@@ -21,13 +21,18 @@ non-zero, printing nothing on stdout, without them.  Phases:
    kernel, its plain version and ``scaled_dot_product_attention`` (as a
    yardstick only), beside the least time the card could take, with the
    TFLOP/s of the function and the time over SDPA's and over the bound.
-3. Report what the tensor-core kernel of #2 and #4 compiled to (registers
-   and spills from ptxas, its HMMA / HGMMA count in ``cuobjdump -sass``,
-   shared memory and blocks per SM), then hold kernels #2-#4
+3. Report what the tensor-core kernels of #2 / #4 (``bf16_mma_kernel``)
+   and of #3 (``int8_mma_kernel``) compiled to (registers and spills from
+   ptxas, their HMMA / HGMMA and IMMA / IGMMA counts in ``cuobjdump
+   -sass``, shared memory and blocks per SM), then hold kernels #2-#4
    (``flash_bf16``, ``flash_int8``, ``flash_nomask``) against their plain
-   versions at the FLUX serving and training shapes and a ragged case, with
-   the same timings (no library call computes #3), the route each took,
-   its TFLOP/s and its time over SDPA's and over the bound.
+   versions at the FLUX serving and training shapes, ragged cases and, for
+   int8, block_k = 1024, with the same timings (no library call computes
+   #3), the route each took ("mma" for bf16 / nomask, "imma" for int8), its
+   TFLOP/s (int8: TOP/s) and its time over SDPA's and over the bound.  For
+   int8 the wrapper's time splits into ``quant_ms`` (quantization and
+   layout, plain torch) and ``kernel_ms`` (the launch alone), and the rate
+   and the ratio to the bound come from ``kernel_ms``.
 4. Drive the variants' main path, the probe entry point
    ``consolver_torch.probes.flash_variants``, and count their launches.
 5. Drive SD-1.5 at full width through ``TextToImagePipeline``: random-normal
@@ -129,11 +134,15 @@ FLUX_CASES = [
 LAUNCHES_PER_EDIT = sum(c[3] for c in FLUX_CASES)
 
 # Kernels #2-#4: (name, shape, block_q, block_k, variants).  The serving and
-# training shapes of the probe, and a ragged case for the masked variants.
+# training shapes of the probe, a ragged case for the masked variants, and
+# for int8 a partial tile inside a chunk (Sk = 77) and 1024-key chunks with
+# a ragged last one (3000 = 2 x 1024 + 952).
 VARIANT_CASES = [
     ("serve", (1, 8704, 24, 128), 512, 512, ("flash_bf16", "flash_int8", "flash_nomask")),
     ("train", (8, 2560, 24, 128), 512, 512, ("flash_bf16", "flash_int8", "flash_nomask")),
     ("ragged_200", (2, 200, 2, 128), 128, 128, ("flash_bf16", "flash_int8")),
+    ("ragged_77", (2, 77, 2, 128), 128, 128, ("flash_int8",)),
+    ("block_k_1024", (1, 3000, 8, 128), 1024, 1024, ("flash_int8",)),
 ]
 VARIANT_SOURCES = {
     "flash_bf16": "scripts/probe_flash_variants.py:70",
@@ -459,12 +468,14 @@ def phase_variants(fv):
         for name in names:
             kernel = getattr(fv, name)
             plain = getattr(fv, f"{name}_reference")
+            int8 = name == "flash_int8"
+            want_route = fv.kernel_route(q.dtype, "int8" if int8 else "bf16")
             before = dict(kernel.launches_by_route)
             out = kernel(q, k, v, block_q=block_q, block_k=block_k)
             torch.cuda.synchronize()
             route = next(r for r, n in kernel.launches_by_route.items() if n != before[r])
             ref = plain(q, k, v, block_q=block_q, block_k=block_k)
-            flip = 2 * heaviest * vmax / 127 if name == "flash_int8" else BF16_RTOL * heaviest * vmax
+            flip = 2 * heaviest * vmax / 127 if int8 else BF16_RTOL * heaviest * vmax
             diff = (out.float() - ref.float()).abs()
             ulp_limit = BF16_RTOL * ref.float().abs() + BF16_ATOL
             row = {
@@ -478,23 +489,36 @@ def phase_variants(fv):
                 "finite": bool(torch.isfinite(out).all()),
             }
             del diff, ulp_limit, ref
+            iters = 5 if heavy else 20
             row["ms"] = _time_ms(lambda: kernel(q, k, v, block_q=block_q, block_k=block_k),
-                                 5 if heavy else 20, warmup=2)
+                                 iters, warmup=2)
+            if int8:  # the wrapper's time, split: quantization + layout, the launch
+                def operands():
+                    return fv.int8_kernel_operands(*fv.quantize_int8(q, k, v))
+
+                row["quant_ms"] = _time_ms(operands, iters, warmup=2)
+                ops = operands()
+                row["kernel_ms"] = _time_ms(lambda: fv.launch_int8(ops, q.dtype, block_k),
+                                            iters, warmup=2)
+                del ops
             row["plain_ms"] = _time_ms(lambda: plain(q, k, v, block_q=block_q, block_k=block_k),
                                        2 if heavy else 5)
-            row["library_ms"] = (None if name == "flash_int8"
-                                 else _library_ms(q, k, v, 5 if heavy else 20))
+            row["library_ms"] = None if int8 else _library_ms(q, k, v, iters)
             row["bound_ms"], row["bound_by"] = _variant_bound(name, q_shape)
-            # the function's operations (4 B H Sq Sk d), not the two-pass kernel's 1.5x
-            row["tflops"] = 4.0 * b * h * sq * sq * d / (row["ms"] * 1e9)
+            # the function's operations (4 B H Sq Sk d), not the two-pass kernel's 1.5x;
+            # int8 from the launch alone, in TOP/s
+            kernel_ms = row.get("kernel_ms", row["ms"])
+            row["tops" if int8 else "tflops"] = 4.0 * b * h * sq * sq * d / (kernel_ms * 1e9)
             row["ms_over_library"] = row["library_ms"] and row["ms"] / row["library_ms"]
-            row["ms_over_bound"] = row["ms"] / row["bound_ms"]
+            row["ms_over_bound"] = kernel_ms / row["bound_ms"]
             print(json.dumps(row), flush=True)
-            share_limit = INT8_SHARE_DIFFERING if name == "flash_int8" else 1.0
+            share_limit = INT8_SHARE_DIFFERING if int8 else 1.0
             if not (row["finite"] and row["err_over_limit"] <= 1.0
                     and row["share_past_one_ulp"] <= SHARE_PAST_ULP
                     and row["share_differing"] <= share_limit):
                 raise AssertionError(f"{name} {case}: {row}")
+            if route != want_route:
+                raise AssertionError(f"{name} {case} took route {route}, want {want_route}")
             rows.append(row)
             del out
         del q, k, v
@@ -528,9 +552,12 @@ def _ptxas_report(text):
     return report
 
 
+SASS_MMA_OPS = ("HMMA", "HGMMA", "IMMA", "IGMMA")  # float and integer tensor-core instructions
+
+
 def _sass_mma_counts(library):
-    """Per kernel symbol of the built library, its ``HMMA`` and ``HGMMA``
-    instructions in ``cuobjdump -sass``."""
+    """Per kernel symbol of the built library, its ``HMMA``, ``HGMMA``,
+    ``IMMA`` and ``IGMMA`` instructions in ``cuobjdump -sass``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
                           check=True).stdout
@@ -539,9 +566,9 @@ def _sass_mma_counts(library):
         found = re.search(r"Function : (\S+)", line)
         if found:
             name = found.group(1)
-            counts[name] = {"HMMA": 0, "HGMMA": 0}
+            counts[name] = dict.fromkeys(SASS_MMA_OPS, 0)
         elif name is not None:
-            for op in re.findall(r"\b(HGMMA|HMMA)\b", line):
+            for op in re.findall(r"\b(HGMMA|HMMA|IGMMA|IMMA)\b", line):
                 counts[name][op] += 1
     return counts
 
@@ -576,6 +603,42 @@ def phase_mma_kernel(fv):
     return result
 
 
+IMMA_KERNEL = "int8_mma_kernel"
+IMMA_OUTPUT_TYPES = ("float32", "float16", "bfloat16")
+
+
+def phase_imma_kernel(fv):
+    """What the int8 tensor-core kernel compiled to, per output type:
+    registers and spills (ptxas), IMMA / IGMMA instructions (SASS), dynamic
+    shared memory and resident blocks per SM (occupancy API).  Hard
+    failures: an instantiation missing, no integer tensor-core instruction,
+    fewer than 2 blocks per SM."""
+    import torch
+
+    from consolver_torch.kernels import _nvcc
+
+    library = _nvcc.library_path(fv._SOURCE)
+    ptxas = {n: r for n, r in _ptxas_report(library.with_suffix(".ptxas.txt").read_text()).items()
+             if IMMA_KERNEL in n}
+    sass = {n: c for n, c in _sass_mma_counts(library).items() if IMMA_KERNEL in n}
+    occupancy = {}
+    for dtype in IMMA_OUTPUT_TYPES:
+        smem, blocks = fv.imma_occupancy(getattr(torch, dtype))
+        occupancy[dtype] = {"dynamic_smem_bytes": smem, "blocks_per_sm": blocks}
+    result = {"phase": "imma_kernel", "ptxas": ptxas, "sass": sass, "occupancy": occupancy}
+    print(json.dumps(result), flush=True)
+    if len(sass) != len(IMMA_OUTPUT_TYPES) or len(ptxas) != len(IMMA_OUTPUT_TYPES):
+        raise AssertionError(f"expected {len(IMMA_OUTPUT_TYPES)} instantiations of {IMMA_KERNEL}: "
+                             f"{sorted(sass)}")
+    for name, counts in sass.items():
+        if counts["IMMA"] + counts["IGMMA"] == 0:
+            raise AssertionError(f"{name} has no integer tensor-core instruction")
+    for key, occ in occupancy.items():
+        if occ["blocks_per_sm"] < 2:
+            raise AssertionError(f"{IMMA_KERNEL} {key}: {occ}")
+    return result
+
+
 KERNEL1_SYMBOL = "flash_fwd"  # in the name of every kernel #1 kernel, FMA and tensor-core
 KERNEL1_MMA = re.compile(r"flash_fwd_mma_([ab])_kernelILi(\d+)ELb([01])E")  # design, width, vec
 MIN_BLOCKS_PER_SM = {"A": 2, "B": 1}
@@ -603,7 +666,8 @@ def phase_kernel1_build(fa):
         if occ["design"] != found.group(1).upper() or occ["width"] != width:
             raise AssertionError(f"{symbol}: the launcher picks {occ} for d = {width}")
         key = f"{occ['design']}/d{width}/{'cp.async' if vec else 'elementwise'}"
-        instances[key] = {**ptxas.get(symbol, {}), **sass.get(symbol, {"HMMA": 0, "HGMMA": 0}),
+        instances[key] = {**ptxas.get(symbol, {}),
+                          **sass.get(symbol, dict.fromkeys(SASS_MMA_OPS, 0)),
                           **occ}
     result = {"phase": "kernel1_build", "instances": instances}
     print(json.dumps(result), flush=True)
@@ -843,20 +907,28 @@ def _kernel1_entry(rows, runs_by_path):
 
 def _variant_entry(name, rows, launches, launches_by_route):
     """A variant's line: times at the serving shape, the probe's launches
-    (and per kernel route: "mma", "fma" or "dp4a")."""
+    (and per kernel route: "mma" or "fma" for bf16 / nomask, "imma" for
+    int8).  For int8, ``ms`` is the kernel's launch alone (``kernel_ms``),
+    beside the wrapper's ``wrapper_ms`` and its ``quant_ms``, and the rate is
+    in TOP/s."""
     mine = [r for r in rows if r["kernel"] == name]
     serve = next(r for r in mine if r["case"] == "serve")
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": "consolver_torch/csrc/flash_variants.cu",
         "replaces": VARIANT_SOURCES[name], "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in mine),
-        "ms": serve["ms"], "plain_ms": serve["plain_ms"], "bound_ms": serve["bound_ms"],
-        "bound_by": serve["bound_by"], "library_ms": serve["library_ms"],
+        "ms": serve.get("kernel_ms", serve["ms"]), "plain_ms": serve["plain_ms"],
+        "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+        "library_ms": serve["library_ms"],
         "kernel_route": serve["route"], "launches_by_route": launches_by_route,
-        "tflops": serve["tflops"], "ms_over_library": serve["ms_over_library"],
-        "ms_over_bound": serve["ms_over_bound"],
+        "ms_over_library": serve["ms_over_library"], "ms_over_bound": serve["ms_over_bound"],
         "at": {"q": serve["q"], "block_q": serve["block_q"], "block_k": serve["block_k"]},
     }
+    if "kernel_ms" in serve:
+        entry.update(wrapper_ms=serve["ms"], quant_ms=serve["quant_ms"], tops=serve["tops"])
+    else:
+        entry["tflops"] = serve["tflops"]
+    return entry
 
 
 def main() -> int:
@@ -896,6 +968,7 @@ def main() -> int:
         rows = phase_kernel(fa)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products
     phase_mma_kernel(fv)
+    phase_imma_kernel(fv)
     with torch.inference_mode():
         variant_rows = phase_variants(fv)
     probe = phase_probe(fv)

@@ -3,7 +3,8 @@
 // types and f32, the [B, S, H, D] stride layout the C interfaces pass, the
 // once-per-device opt-in to more than 48 KB of dynamic shared memory, and
 // what the tensor-core kernels share: the PTX wrappers (cp.async, ldmatrix,
-// mma.sync m16n8k16 bf16) and the staging of bf16 rows into shared tiles.
+// mma.sync m16n8k16 bf16 and m16n8k32 s8) and the staging of bf16 rows into
+// shared tiles.
 // Each source is its own library, so this header is included once per
 // build.
 
@@ -82,7 +83,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+// Four 8 x 8 matrices of 16-bit elements (8 rows of 16 bytes each; int8 tiles
+// read the same bytes); lane l addresses row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
@@ -103,6 +106,19 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16 x 32, row) * b (32 x 8, col), s8 in, s32 sums (exact). Fragments
+// of lane (g = lane / 4, t = lane % 4), 4 bytes a register: a0 (row g, k
+// 4t..4t+3), a1 (row g+8), a2 (row g, k 16+4t..19+4t), a3 (row g+8, k
+// 16+4t..); b0 (k 4t..4t+3, col g), b1 (k 16+4t..); c as in mma_bf16.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -137,10 +153,13 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long
   }
 }
 
-// cp.async 16-byte copies need every bf16 row start 16-byte aligned.
-inline bool rows_aligned(const void* ptr, long long sb, long long ss, long long sh) {
-  return reinterpret_cast<unsigned long long>(ptr) % 16 == 0 && sb % 8 == 0 && ss % 8 == 0 &&
-         sh % 8 == 0;
+// cp.async 16-byte copies need every row start 16-byte aligned; strides are
+// in elements of elem_bytes (2: bf16, 1: int8).
+inline bool rows_aligned(const void* ptr, long long sb, long long ss, long long sh,
+                         int elem_bytes = 2) {
+  const long long per16 = 16 / elem_bytes;
+  return reinterpret_cast<unsigned long long>(ptr) % 16 == 0 && sb % per16 == 0 &&
+         ss % per16 == 0 && sh % per16 == 0;
 }
 
 }  // namespace

@@ -10,18 +10,18 @@
 // Semantics are those of the TPU kernels, defined per chunk of block_k keys:
 // the running max that p is taken against is the max through the end of the
 // current chunk. The kernels tile a chunk into 64-key tiles and take the
-// chunk's row max before any p of it (the FMA and int8 kernels by writing
-// the chunk's scores, 64 rows x block_k f32, to shared memory, the tensor-
-// core kernel by a second pass over K). bf16/nomask: s = (q.k) * scale
+// chunk's row max before any p of it (the FMA kernel by writing the chunk's
+// scores, 64 rows x block_k f32, to shared memory, the tensor-core kernels
+// by a second pass over K). bf16/nomask: s = (q.k) * scale
 // (nomask: q scaled in f32 and rounded to bf16 while staged, s unscaled),
 // cols >= Sk at -1e30,
 // p = exp(s - m), l += sum(p) in f32, acc += bf16(p) @ v. int8: s =
 // int32(qq.kq) * (qs * scale) * ks, pq = rint(p * 127) (half to even, as
 // jnp.round), l += sum(pq) * (1/127) starting from 1e-20 (XLA compiles the
-// TPU kernel's "/ 127" into that multiply), acc += int32(pq.vq) * vs. The
-// int8 path uses __fmul_rn/__fadd_rn so that no multiply-add is contracted:
-// with the same expf it is bit-equal to the plain torch version on the
-// card, whose integer products are exact in f32.
+// TPU kernel's "/ 127" into that multiply), acc = acc * alpha + f32(int32(
+// pq.vq)) * vs. The int8 kernel uses __fmul_rn/__fadd_rn so that no
+// multiply-add is contracted: with the same expf it is bit-equal to the
+// plain torch version on the card, whose integer products are exact in f32.
 //
 // What bounds it: 4*B*H*Sq*Sk*d operations over |q|+|k|+|v|+|o| bytes, about
 // 2,200 operations per byte at the FLUX serving shape [1, 8704, 24, 128] in
@@ -55,13 +55,36 @@
 //   thread keeps a 4 x 4 score and 4 x 8 output register tile, a block owns
 //   64 query rows of one (batch, head), and the chunk's score tile (128 KB
 //   at block_k = 512) limits it to one block per SM and block_k to 512.
-// * "dp4a", variant 2: int8_variant_kernel, as the FMA route with dp4a.
+// * "imma", variant 2 (every output type): int8_mma_kernel. Both products
+//   on int8 tensor cores (mma.sync m16n8k32 s8 x s8 -> s32, exact), 4 warps
+//   x 16 query rows, two passes over each chunk as bf16_mma_kernel: pass 1
+//   keeps the scaled row max, pass 2 recomputes the integer scores (bit-
+//   identical), forms pq = rint(exp(s - m) * 127), sums it in int32 and runs
+//   pq.v. The m16n8k32 C layout (lane t holds columns 2t, 2t+1 of an n-tile)
+//   is not its A layout (k 4t..4t+3 and 16+4t..19+4t), so the K rows feeding
+//   q.k^T are permuted (score_key): the four C registers of a lane, packed by
+//   prmt, are then its A fragment in natural key order, with no shuffle and
+//   no shared memory. pq.v sums in int32 registers across the chunk and
+//   enters acc once at its end. ldmatrix has no 8-bit transpose, so the
+//   wrapper hands V over transposed ([B, H, D16, Sk16]) and the k scales as
+//   [B, H, Sk16] (flash_variants.py::int8_kernel_operands), with q / k
+//   padded along d to a multiple of 16: every tile arrives by cp.async
+//   (2-stage ring, 37,376 bytes; K rows XOR-swizzled by 16-byte chunk so the
+//   permuted rows an ldmatrix reads hit distinct banks). The f32 output
+//   accumulator sits in shared memory (32 KB, once per chunk), so 3 blocks
+//   of 4 warps fit on an SM. Any block_k
+//   that is a multiple of 64 up to 1024 is taken (beyond it pq.v may pass
+//   2^24 and its f32 conversion would round). What bounds it: 1.5x the
+//   function's int8 MMAs (pass 1 recomputes q.k^T) and about 22 ALU
+//   instructions per score in pass 2 (conversions, two scalings, expf,
+//   rint, packing), which at d = 128 outweigh the MMAs.
 //
 // C interface (route: nvcc -> shared library -> ctypes):
 //   consolver_flash_variant_forward(...) returns cudaGetLastError() after the
 //   launch (0 = success), or -1 for a shape / dtype / variant it does not take.
-//   consolver_flash_mma_occupancy(...) reports the tensor-core kernel's
-//   dynamic shared memory and resident blocks per SM.
+//   consolver_flash_mma_occupancy(...) and consolver_flash_imma_occupancy(...)
+//   report the tensor-core kernels' dynamic shared memory and resident blocks
+//   per SM.
 
 #include "flash_common.cuh"
 
@@ -75,9 +98,7 @@ constexpr int RQ = BQ / 16;    // rows per thread
 constexpr int CT = KT / 16;    // tile columns per thread
 constexpr int CD = DP / 16;    // output columns per thread
 constexpr int LD = DP + 1;     // f32 row stride: column reads hit distinct banks
-constexpr int QW = DP / 4 + 1; // int32 words per int8 row (4 channels a word)
-constexpr int VW = KT / 4 + 1; // words per channel of a transposed int8 V tile
-constexpr int kMaxBlockK = 512;
+constexpr int kMaxBlockK = 512;  // FMA route: the chunk's scores in shared memory
 constexpr float kNegInf = -1e30f;
 constexpr float kInv127 = 1.f / 127.f;  // XLA turns "/ 127" into "* (1/127)"
 
@@ -90,7 +111,7 @@ struct Params : Strides {
   const void* k;
   const void* v;
   const float* qs;  // int8: [B, Sq, H] per-token q scales
-  const float* ks;  // int8: [B, Sk, H] per-token k scales
+  const float* ks;  // int8: [B, H, Sk16] per-token k scales, zero-padded
   const float* vs;  // int8: [B, H, D] v_scale / 127
   void* o;
   int heads, sq, sk, d, block_k;
@@ -107,49 +128,6 @@ __device__ __forceinline__ void stage_f32(float* dst, const T* src, long long ro
     const int c = i - r * DP;
     const int row = row0 + r;
     dst[r * LD + c] = (row < n && c < d) ? to_float<T>(src[row * row_stride + c]) : 0.f;
-  }
-}
-
-// Rows of int8 into words of 4 consecutive channels (row stride QW words).
-template <int ROWS>
-__device__ __forceinline__ void stage_i8_rows(int* dst, const signed char* src,
-                                              long long row_stride, int row0, int n, int d) {
-  for (int i = threadIdx.x; i < ROWS * (DP / 4); i += kThreads) {
-    const int r = i / (DP / 4);
-    const int w = i - r * (DP / 4);
-    const int row = row0 + r;
-    unsigned int word = 0;
-    if (row < n) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int c = 4 * w + b;
-        const unsigned int byte =
-            c < d ? static_cast<unsigned char>(src[row * row_stride + c]) : 0u;
-        word |= byte << (8 * b);
-      }
-    }
-    dst[r * QW + w] = static_cast<int>(word);
-  }
-}
-
-// A V tile of int8 transposed into words of 4 consecutive keys per channel
-// (dst[c * VW + kk / 4]), zero-filling keys >= n and channels >= d.
-__device__ __forceinline__ void stage_i8_vt(int* dst, const signed char* src,
-                                            long long row_stride, int row0, int n, int d) {
-  for (int i = threadIdx.x; i < (KT / 4) * DP; i += kThreads) {
-    const int w = i / DP;
-    const int c = i - w * DP;
-    unsigned int word = 0;
-    if (c < d) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int row = row0 + 4 * w + b;
-        const unsigned int byte =
-            row < n ? static_cast<unsigned char>(src[row * row_stride + c]) : 0u;
-        word |= byte << (8 * b);
-      }
-    }
-    dst[c * VW + w] = static_cast<int>(word);
   }
 }
 
@@ -506,168 +484,321 @@ __global__ void __launch_bounds__(kMmaThreads, 3) bf16_mma_kernel(Params p) {
   }
 }
 
-// Variant 2 (int8). q, k, v are int8 [B, S, H, D]; T is the output type.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) int8_variant_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int lps = p.block_k + 1;
-  const int pws = p.block_k / 4 + 1;  // words per row of pq
-  float* sc = smem;                                        // [BQ][lps] scores
-  int* qw = reinterpret_cast<int*>(sc + BQ * lps);         // [BQ][QW] q words
-  int* kw = qw + BQ * QW;                                  // [KT][QW] k words
-  int* vt = kw + KT * QW;                                  // [DP][VW] V tile, transposed
-  int* pw = vt + DP * VW;                                  // [BQ][pws] pq, 4 keys a word
-  signed char* pb = reinterpret_cast<signed char*>(pw);
+// ---------------------------------------------------------------------------
+// Tensor-core route of variant 2 (int8), every output type.
+// ---------------------------------------------------------------------------
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+constexpr int kMaxBlockKInt8 = 1024;  // |pq.v| <= 1024 * 127^2 < 2^24: exact in f32
+constexpr int kI8Row = DP;            // bytes of a K / Q row in shared memory (swizzled)
+constexpr int kI8VtRow = KT + 16;     // bytes of a V^T row (one channel): 8 rows, distinct banks
+constexpr int kI8KBytes = KT * kI8Row;        // 8,192
+constexpr int kI8VtBytes = DP * kI8VtRow;     // 10,240
+constexpr int kI8Stage = kI8KBytes + kI8VtBytes + KT * 4;  // + the tile's k scales
+// The f32 output accumulator lives in shared memory (thread-private slots,
+// touched once per chunk), which frees 64 registers a thread: 3 blocks of
+// 4 warps fit on an SM instead of 2.
+constexpr int kI8Blocks = 3;
+constexpr int kI8AccBytes = BQ * DP * 4;
+constexpr int kI8Smem = 2 * kI8Stage + kI8AccBytes;  // 70,144 bytes
+static_assert(BQ * kI8Row <= kI8KBytes, "Q passes through one K slot");
+
+// Score column c of n-tile j (8 keys) of a 64-key tile scores this key of
+// the tile: within each 32-key group, n-tiles 0-3 take keys
+// 16 (j >> 1 & 1) + 4 (c >> 1) + 2 (j & 1) + (c & 1). Lane t of a quad
+// holds columns 2t, 2t+1, so the C registers of a group's four n-tiles hold
+// keys 4t..4t+3 and 16+4t..19+4t of rows g and g+8: the lane's A fragment
+// of the pq.v MMA, in natural key order.
+__device__ __forceinline__ int score_key(int j, int c) {
+  return 16 * (j >> 1) + 4 * (c >> 1) + 2 * (j & 1) + (c & 1);
+}
+
+// The 16-byte chunk that holds logical chunk c of K / Q tile row `row`: an
+// XOR by row bits (0, 2, 1 ^ 3). It is a bijection on 8 consecutive rows
+// (the Q fragments) and on the 8 rows one matrix of a permuted K ldmatrix
+// reads (row bit 1 fixed, bits 0, 2, 3 free), so either read hits 8
+// distinct 4-bank groups.
+__device__ __forceinline__ int i8_chunk(int row, int c) {
+  return c ^ ((row & 1) | ((row >> 1) & 2) | ((((row >> 3) ^ (row >> 1)) & 1) << 2));
+}
+
+// Rows [row0, row0 + ROWS) of int8 (dpad bytes each, 16-byte aligned) into
+// a swizzled tile by cp.async; rows >= n and chunks past dpad are zeros.
+template <int ROWS>
+__device__ __forceinline__ void copy_i8_rows(unsigned char* dst, const signed char* src,
+                                             long long row_stride, int row0, int n, int dpad) {
+  for (int i = threadIdx.x; i < ROWS * (DP / 16); i += kMmaThreads) {
+    const int r = i / (DP / 16);
+    const int c = i % (DP / 16);
+    const int row = row0 + r;
+    const bool full = row < n && 16 * c < dpad;
+    cp_async16(dst + r * kI8Row + 16 * i8_chunk(r, c),
+               full ? src + row * row_stride + 16 * c : src, full ? 16 : 0);
+  }
+}
+
+// Keys [key0, key0 + KT) of every channel of V^T (channel rows
+// channel_stride bytes apart, keys zero-padded to sk16) into rows of
+// kI8VtRow bytes; channels past dpad and keys past sk16 are zeros.
+__device__ __forceinline__ void copy_i8_vt(unsigned char* dst, const signed char* src,
+                                           long long channel_stride, int key0, int sk16,
+                                           int dpad) {
+  for (int i = threadIdx.x; i < DP * (KT / 16); i += kMmaThreads) {
+    const int c = i / (KT / 16);
+    const int k = 16 * (i % (KT / 16));
+    const bool full = c < dpad && key0 + k < sk16;
+    cp_async16(dst + c * kI8VtRow + k, full ? src + c * channel_stride + key0 + k : src,
+               full ? 16 : 0);
+  }
+}
+
+// One warp's 16 x 64 integer scores against a K tile: si[j][e] scores key
+// score_key(j, 2t + (e & 1)) for row g + 8 (e >> 1). The same MMAs on the
+// same fragments, so a second call on one tile gives the same integers.
+__device__ __forceinline__ void tile_scores_i8(int (&si)[8][4], const unsigned (&qf)[DP / 32][4],
+                                               const unsigned char* kt, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) si[j][0] = si[j][1] = si[j][2] = si[j][3] = 0;
+  // Lane 8m + r addresses row r of matrix m (n-tile 2jp + (m >> 1), k half
+  // m & 1): the K row that score_key puts in that column.
+  const int key = 4 * ((lane >> 1) & 3) + 2 * (lane >> 4) + (lane & 1);
+  const int half = (lane >> 3) & 1;
+#pragma unroll
+  for (int kk = 0; kk < DP / 32; ++kk) {
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      const int row = 16 * jp + key;
+      unsigned b[4];
+      ldmatrix_x4(b, kt + row * kI8Row + 16 * i8_chunk(row, 2 * kk + half));
+      mma_s8(si[2 * jp], qf[kk], b[0], b[1]);
+      mma_s8(si[2 * jp + 1], qf[kk], b[2], b[3]);
+    }
+  }
+}
+
+// The low bytes of four registers into one, the first in the low byte.
+__device__ __forceinline__ unsigned pack_s8(int b0, int b1, int b2, int b3) {
+  return __byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040), 0x5410);
+}
+
+// Variant 2: q, k int8 [B, S, H, dpad], v int8 V^T [B, H, dpad, sk16] (v_ss
+// is the channel stride), ks [B, H, sk16], qs [B, Sq, H], vs [B, H, D]; T is
+// the output type.
+template <typename T>
+__global__ void __launch_bounds__(kMmaThreads, kI8Blocks) int8_mma_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw;  // stage s at s * kI8Stage: K tile, V^T tile, k scales
+  // Q passes through stage 1's K slot: it is read into registers before the
+  // loop's first barrier, after which the ring overwrites it.
+  unsigned char* qtile = ring + kI8Stage;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const int dpad = (p.d + 15) & ~15;
+  const int sk16 = (p.sk + 15) & ~15;
   const signed char* qg = static_cast<const signed char*>(p.q) + b * p.q_sb + h * p.q_sh;
   const signed char* kg = static_cast<const signed char*>(p.k) + b * p.k_sb + h * p.k_sh;
   const signed char* vg = static_cast<const signed char*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* ksg = p.ks + static_cast<long long>(b) * p.sk * p.heads + h;
+  const float* ksg = p.ks + (static_cast<long long>(b) * p.heads + h) * sk16;
+  const float* vsg = p.vs + (static_cast<long long>(b) * p.heads + h) * p.d;
   T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 
-  stage_i8_rows<BQ>(qw, qg, p.q_ss, q0, p.sq, p.d);
+  auto issue = [&](int stage, const Cursor& c) {
+    unsigned char* st = ring + stage * kI8Stage;
+    const int key0 = c.c0 + c.t0;
+    copy_i8_rows<KT>(st, kg, p.k_ss, key0, p.sk, dpad);
+    if (threadIdx.x < KT / 4) {  // the tile's k scales, 4 keys a copy
+      const int key = key0 + 4 * threadIdx.x;
+      const bool full = key < sk16;
+      cp_async16(st + kI8KBytes + kI8VtBytes + 16 * threadIdx.x, full ? ksg + key : ksg,
+                 full ? 16 : 0);
+    }
+    if (c.pass == 1) copy_i8_vt(st + kI8KBytes, vg, p.v_ss, key0, sk16, dpad);
+  };
 
-  float qmul[RQ], vs[CD], m[RQ], l[RQ], acc[RQ][CD];
+  Cursor cur{0, 0, 0};
+  copy_i8_rows<BQ>(qtile, qg, p.q_ss, q0, p.sq, dpad);
+  issue(0, cur);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  unsigned qf[DP / 32][4];  // the warp's 16 query rows as A fragments, 32 channels each
+  {
+    const int row = 16 * warp + (lane & 7) + (((lane >> 3) & 1) << 3);
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int row = q0 + ty + 16 * i;
+    for (int kk = 0; kk < DP / 32; ++kk)
+      ldmatrix_x4(qf[kk], qtile + row * kI8Row + 16 * i8_chunk(row, 2 * kk + (lane >> 4)));
+  }
+
+  // Per thread two rows: g (index 0) and g + 8 (index 1) of the warp's slab;
+  // acc(j, e) and pv[j][e] hold output columns 8j + 2t + (e & 1) of row e >> 1.
+  float qmul[2], m[2] = {kNegInf, kNegInf}, l[2] = {1e-20f, 1e-20f}, alpha[2] = {1.f, 1.f};
+  float rmax[2] = {kNegInf, kNegInf};
+  int qsum[2] = {0, 0};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + g + 8 * r;
     // qs * scale, as the TPU kernel forms it before scaling the scores
-    qmul[i] = row < p.sq
+    qmul[r] = row < p.sq
         ? __fmul_rn(p.qs[(static_cast<long long>(b) * p.sq + row) * p.heads + h], p.scale)
         : 0.f;
-    m[i] = kNegInf;
-    l[i] = 1e-20f;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
   }
+  float* acc_s = reinterpret_cast<float*>(smem_raw + 2 * kI8Stage);
+  auto acc = [&](int j, int e) -> float& { return acc_s[(4 * j + e) * kMmaThreads + threadIdx.x]; };
+  int pv[DP / 8][4];  // the chunk's int32 pq.v so far
 #pragma unroll
-  for (int c = 0; c < CD; ++c) {
-    const int col = tx + 16 * c;
-    vs[c] = col < p.d ? p.vs[(static_cast<long long>(b) * p.heads + h) * p.d + col] : 0.f;
-  }
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc(j, e) = 0.f;
+      pv[j][e] = 0;
+    }
 
-  for (int c0 = 0; c0 < p.sk; c0 += p.block_k) {
-    const int ncols = min(p.block_k, ((p.sk - c0 + KT - 1) / KT) * KT);
-    float mx[RQ];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) mx[i] = kNegInf;
+  int stage = 0;
+  while (cur.c0 < p.sk) {
+    const Cursor nxt = cur.next(p);
+    cp_async_wait<0>();
+    __syncthreads();  // the tile is in; no warp reads the other stage any more
+    if (nxt.c0 < p.sk) issue(stage ^ 1, nxt);  // lands while this tile is multiplied
+    cp_async_commit();
+    const unsigned char* st = ring + stage * kI8Stage;
+    const float* kss = reinterpret_cast<const float*>(st + kI8KBytes + kI8VtBytes);
 
-    // 1. the chunk's scores and their row max
-    for (int t0 = 0; t0 < ncols; t0 += KT) {
-      __syncthreads();
-      stage_i8_rows<KT>(kw, kg, p.k_ss, c0 + t0, p.sk, p.d);
-      __syncthreads();
-      int s[RQ][CT];
+    int si[8][4];
+    tile_scores_i8(si, qf, st, lane);
+    float s[8][4];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i)
+    for (int j = 0; j < 8; ++j) {
+      // s = f32(int32(qq.kq)) * (qs * scale) * ks
+      const float2 kscale = *reinterpret_cast<const float2*>(kss + score_key(j, 2 * t));
 #pragma unroll
-        for (int j = 0; j < CT; ++j) s[i][j] = 0;
-#pragma unroll 4
-      for (int w = 0; w < DP / 4; ++w) {
-        int qv[RQ], kv[CT];
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = __fmul_rn(__fmul_rn(static_cast<float>(si[j][e]), qmul[e >> 1]),
+                            e & 1 ? kscale.y : kscale.x);
+    }
+    if (cur.c0 + cur.t0 + KT > p.sk) {  // keys >= Sk at -1e30
 #pragma unroll
-        for (int i = 0; i < RQ; ++i) qv[i] = qw[(ty + 16 * i) * QW + w];
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int j = 0; j < CT; ++j) kv[j] = kw[(tx + 16 * j) * QW + w];
+        for (int e = 0; e < 4; ++e)
+          if (cur.c0 + cur.t0 + score_key(j, 2 * t + (e & 1)) >= p.sk) s[j][e] = kNegInf;
+    }
+
+    if (cur.pass == 0) {
+      if (cur.t0 == 0) rmax[0] = rmax[1] = kNegInf;
 #pragma unroll
-        for (int i = 0; i < RQ; ++i)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int j = 0; j < CT; ++j) s[i][j] = __dp4a(qv[i], kv[j], s[i][j]);
-      }
+        for (int e = 0; e < 4; ++e) rmax[e >> 1] = fmaxf(rmax[e >> 1], s[j][e]);
+      if (cur.last_tile(p)) {  // the chunk's max: m_new and alpha
 #pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        const int col = t0 + tx + 16 * j;
-        const bool valid = c0 + col < p.sk;
-        const float kscale = valid ? ksg[static_cast<long long>(c0 + col) * p.heads] : 0.f;
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) {
-          float x = __fmul_rn(__fmul_rn(static_cast<float>(s[i][j]), qmul[i]), kscale);
-          if (!valid) x = kNegInf;
-          sc[(ty + 16 * i) * lps + col] = x;
-          mx[i] = fmaxf(mx[i], x);
+        for (int r = 0; r < 2; ++r) {
+          float x = rmax[r];
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+          const float m_new = fmaxf(m[r], x);
+          alpha[r] = expf(__fsub_rn(m[r], m_new));
+          m[r] = m_new;
         }
       }
-    }
-
-    // 2. pq = rint(p * 127) against the chunk's max, l from the pq
-    float alpha[RQ];
+    } else {
+      // pq = rint(exp(s - m_new) * 127), half to even, summed in int32; the
+      // C registers of each 32-key group are its A fragment
+      int pq[8][4];
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const float m_new = fmaxf(m[i], row_max16(mx[i]));
-      alpha[i] = expf(__fsub_rn(m[i], m_new));
-      int qsum = 0;
-      for (int col = tx; col < ncols; col += 16) {
-        const float pr = expf(__fsub_rn(sc[(ty + 16 * i) * lps + col], m_new));
-        const int pq = static_cast<int>(rintf(__fmul_rn(pr, 127.f)));
-        qsum += pq;
-        pb[(ty + 16 * i) * pws * 4 + col] = static_cast<signed char>(pq);
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pr = expf(__fsub_rn(s[j][e], m[e >> 1]));
+          pq[j][e] = static_cast<int>(rintf(__fmul_rn(pr, 127.f)));
+          qsum[e >> 1] += pq[j][e];
+        }
+      unsigned pf[2][4];
+#pragma unroll
+      for (int kg2 = 0; kg2 < 2; ++kg2) {
+        const int j0 = 4 * kg2;
+        pf[kg2][0] = pack_s8(pq[j0][0], pq[j0][1], pq[j0 + 1][0], pq[j0 + 1][1]);
+        pf[kg2][1] = pack_s8(pq[j0][2], pq[j0][3], pq[j0 + 1][2], pq[j0 + 1][3]);
+        pf[kg2][2] = pack_s8(pq[j0 + 2][0], pq[j0 + 2][1], pq[j0 + 3][0], pq[j0 + 3][1]);
+        pf[kg2][3] = pack_s8(pq[j0 + 2][2], pq[j0 + 2][3], pq[j0 + 3][2], pq[j0 + 3][3]);
       }
-      const float l_part = __fmul_rn(static_cast<float>(row_sum16(qsum)), kInv127);
-      l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), l_part);
-      m[i] = m_new;
-    }
-
-    // 3. acc = acc * alpha + int32(pq . vq) * vs over the chunk
-    int pv[RQ][CD];
+      const unsigned char* vt = st + kI8KBytes;
+      const int ch = (lane & 7) + ((lane >> 4) << 3);
+      const int kb = ((lane >> 3) & 1) << 4;
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
+      for (int kg2 = 0; kg2 < 2; ++kg2)
 #pragma unroll
-      for (int c = 0; c < CD; ++c) pv[i][c] = 0;
-    for (int t0 = 0; t0 < ncols; t0 += KT) {
-      __syncthreads();  // pq written; the previous V tile is no longer read
-      stage_i8_vt(vt, vg, p.v_ss, c0 + t0, p.sk, p.d);
-      __syncthreads();
-#pragma unroll 4
-      for (int w = 0; w < KT / 4; ++w) {
-        int pvw[RQ], vvw[CD];
+        for (int jp = 0; jp < DP / 16; ++jp) {  // channels 16jp..16jp+15
+          unsigned bv[4];
+          ldmatrix_x4(bv, vt + (16 * jp + ch) * kI8VtRow + 32 * kg2 + kb);
+          mma_s8(pv[2 * jp], pf[kg2], bv[0], bv[1]);
+          mma_s8(pv[2 * jp + 1], pf[kg2], bv[2], bv[3]);
+        }
+      if (cur.last_tile(p)) {
+        // l = l * alpha + f32(sum pq) * (1/127); acc = acc * alpha + f32(pv) * vs
 #pragma unroll
-        for (int i = 0; i < RQ; ++i) pvw[i] = pw[(ty + 16 * i) * pws + t0 / 4 + w];
+        for (int r = 0; r < 2; ++r) {
+          int x = qsum[r];
+          x += __shfl_xor_sync(0xffffffffu, x, 1);
+          x += __shfl_xor_sync(0xffffffffu, x, 2);
+          l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), __fmul_rn(static_cast<float>(x), kInv127));
+          qsum[r] = 0;
+        }
 #pragma unroll
-        for (int c = 0; c < CD; ++c) vvw[c] = vt[(tx + 16 * c) * VW + w];
+        for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
-        for (int i = 0; i < RQ; ++i)
-#pragma unroll
-          for (int c = 0; c < CD; ++c) pv[i][c] = __dp4a(pvw[i], vvw[c], pv[i][c]);
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * t + (e & 1);
+            const float vs = col < p.d ? vsg[col] : 0.f;
+            acc(j, e) = __fadd_rn(__fmul_rn(acc(j, e), alpha[e >> 1]),
+                                  __fmul_rn(static_cast<float>(pv[j][e]), vs));
+            pv[j][e] = 0;
+          }
       }
     }
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int c = 0; c < CD; ++c)
-        acc[i][c] = __fadd_rn(__fmul_rn(acc[i][c], alpha[i]),
-                              __fmul_rn(static_cast<float>(pv[i][c]), vs[c]));
+    stage ^= 1;
+    cur = nxt;
   }
 
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + g + 8 * r;
     if (row >= p.sq) continue;
+    T* orow = og + row * p.o_ss;
 #pragma unroll
-    for (int c = 0; c < CD; ++c) {
-      const int col = tx + 16 * c;
-      if (col < p.d) og[row * p.o_ss + col] = from_float<T>(__fdiv_rn(acc[i][c], l[i]));
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col >= p.d) break;
+      orow[col] = from_float<T>(__fdiv_rn(acc(j, 2 * r), l[r]));
+      if (col + 1 < p.d) orow[col + 1] = from_float<T>(__fdiv_rn(acc(j, 2 * r + 1), l[r]));
     }
   }
 }
 
 constexpr int bf16_smem(int block_k) { return (BQ * LD + KT * LD + BQ * (block_k + 1)) * 4; }
-constexpr int int8_smem(int block_k) {
-  return (BQ * (block_k + 1) + BQ * QW + KT * QW + DP * VW + BQ * (block_k / 4 + 1)) * 4;
+
+template <typename T>
+int opt_in_imma() {
+  static std::atomic<unsigned long long> opted{0};
+  return opt_in_smem(int8_mma_kernel<T>, kI8Smem, opted);
 }
 
-// Each kernel opts in to the largest dynamic shared memory any block_k needs.
 template <typename T>
-int launch_int8(const Params& p, dim3 grid, cudaStream_t stream) {
-  static std::atomic<unsigned long long> opted{0};
-  auto kernel = int8_variant_kernel<T>;
-  if (int rc = opt_in_smem(kernel, int8_smem(kMaxBlockK), opted)) return rc;
-  kernel<<<grid, kThreads, int8_smem(p.block_k), stream>>>(p);
+int launch_imma(const Params& p, dim3 grid, cudaStream_t stream) {
+  if (int rc = opt_in_imma<T>()) return rc;
+  int8_mma_kernel<T><<<grid, kMmaThreads, kI8Smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int imma_blocks_per_sm(int* blocks) {
+  if (int rc = opt_in_imma<T>()) return rc;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, int8_mma_kernel<T>, kMmaThreads, kI8Smem));
 }
 
 template <typename T, bool kPrescaleQ>
@@ -700,10 +831,14 @@ int launch_mma(const Params& p, dim3 grid, cudaStream_t stream) {
 // Variants 0 and 1 take the tensor-core kernel for bfloat16 (any block_k
 // that is a multiple of 64; vec = 1 stages by cp.async and needs d % 8 == 0
 // and 16-byte aligned rows, vec = 0 stages element by element) and the FMA
-// kernel for float32 / float16; variant 2 takes the int8 kernel. The FMA
-// and int8 kernels take block_k up to 512. Strides are in elements; the head
-// dim must be contiguous. qs/ks/vs are read by variant 2 only ([B, S, H],
-// [B, S, H], [B, H, D], contiguous f32).
+// kernel for float32 / float16 (block_k up to 512). Strides are in elements;
+// the head dim must be contiguous. Variant 2 takes int8_mma_kernel on the
+// operands as flash_variants.py::int8_kernel_operands lays them out, with
+// vec = 1 and block_k up to 1024: q, k int8 [B, S, H, D16] (D16: d rounded
+// up to 16, zero-padded), v the transposed int8 V^T [B, H, D16, Sk16] with
+// (v_sb, v_ss, v_sh) its (batch, channel, head) strides, ks [B, H, Sk16]
+// f32, qs [B, Sq, H] and vs [B, H, d] f32, all contiguous; every row starts
+// on 16 bytes.
 extern "C" int consolver_flash_variant_forward(
     int variant, int dtype, const void* q, const void* k, const void* v, const void* qs,
     const void* ks, const void* vs, void* o, int batch, int heads, int sq, int sk, int d,
@@ -713,12 +848,19 @@ extern "C" int consolver_flash_variant_forward(
   if (variant < 0 || variant > 2 || d < 1 || d > DP || sq < 1 || sk < 1) return -1;
   if (dtype < 0 || dtype > 2) return -1;
   const bool mma = variant != 2 && dtype == 2;
-  if (block_k < KT || block_k % KT != 0 || (!mma && block_k > kMaxBlockK)) return -1;
-  if (variant == 2 && (qs == nullptr || ks == nullptr || vs == nullptr)) return -1;
-  if (vec && !(mma && d % 8 == 0 && rows_aligned(q, q_sb, q_ss, q_sh) &&
-               rows_aligned(k, k_sb, k_ss, k_sh) && rows_aligned(v, v_sb, v_ss, v_sh) &&
-               rows_aligned(o, o_sb, o_ss, o_sh)))
+  const int max_block_k = variant == 2 ? kMaxBlockKInt8 : mma ? block_k : kMaxBlockK;
+  if (block_k < KT || block_k % KT != 0 || block_k > max_block_k) return -1;
+  if (variant == 2) {
+    if (!vec || qs == nullptr || ks == nullptr || vs == nullptr ||
+        reinterpret_cast<unsigned long long>(ks) % 16 != 0 ||
+        !rows_aligned(q, q_sb, q_ss, q_sh, 1) || !rows_aligned(k, k_sb, k_ss, k_sh, 1) ||
+        !rows_aligned(v, v_sb, v_ss, v_sh, 1))
+      return -1;
+  } else if (vec && !(mma && d % 8 == 0 && rows_aligned(q, q_sb, q_ss, q_sh) &&
+                      rows_aligned(k, k_sb, k_ss, k_sh) && rows_aligned(v, v_sb, v_ss, v_sh) &&
+                      rows_aligned(o, o_sb, o_ss, o_sh))) {
     return -1;
+  }
   Params p{{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh},
            q, k, v, static_cast<const float*>(qs), static_cast<const float*>(ks),
            static_cast<const float*>(vs), o, heads, sq, sk, d, block_k, scale};
@@ -726,9 +868,9 @@ extern "C" int consolver_flash_variant_forward(
   const dim3 grid((sq + BQ - 1) / BQ, heads, batch);
   if (variant == 2) {
     switch (dtype) {
-      case 0: return launch_int8<float>(p, grid, s);
-      case 1: return launch_int8<__half>(p, grid, s);
-      default: return launch_int8<__nv_bfloat16>(p, grid, s);
+      case 0: return launch_imma<float>(p, grid, s);
+      case 1: return launch_imma<__half>(p, grid, s);
+      default: return launch_imma<__nv_bfloat16>(p, grid, s);
     }
   }
   if (mma) {
@@ -761,4 +903,17 @@ extern "C" int consolver_flash_mma_occupancy(int variant, int vec, int* smem_byt
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, vec ? bf16_mma_kernel<false, true> : bf16_mma_kernel<false, false>,
       kMmaThreads, kMmaSmem));
+}
+
+// int8_mma_kernel for output type dtype (0 = float32, 1 = float16, 2 =
+// bfloat16): its dynamic shared memory per block and how many blocks of it
+// fit on one SM.
+extern "C" int consolver_flash_imma_occupancy(int dtype, int* smem_bytes, int* blocks_per_sm) {
+  *smem_bytes = kI8Smem;
+  switch (dtype) {
+    case 0: return imma_blocks_per_sm<float>(blocks_per_sm);
+    case 1: return imma_blocks_per_sm<__half>(blocks_per_sm);
+    case 2: return imma_blocks_per_sm<__nv_bfloat16>(blocks_per_sm);
+    default: return -1;
+  }
 }

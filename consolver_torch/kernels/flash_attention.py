@@ -144,8 +144,11 @@ def rows_aligned(*tensors: torch.Tensor) -> bool:
 
 def staging(route: str, d: int, aligned: bool) -> str:
     """How a kernel brings tiles into shared memory: ``"cp.async"`` 16-byte
-    copies (tensor-core route, ``d % 8 == 0``, aligned rows), else
-    ``"elementwise"``."""
+    copies (bf16 tensor-core route "mma" with ``d % 8 == 0`` and aligned
+    rows; always on the int8 route "imma", whose operands the wrapper pads
+    to 16-byte rows), else ``"elementwise"``."""
+    if route == "imma":
+        return "cp.async"
     return "cp.async" if route == "mma" and d % 8 == 0 and aligned else "elementwise"
 
 

@@ -9,10 +9,12 @@ They replace the Pallas kernels of ``scripts/probe_flash_variants.py``:
   inputs and f32 sums, the KV mask, a chunked online softmax whose ``p`` is
   rounded to bf16 for the PV product while ``l`` sums the f32 ``p``;
 * :func:`flash_int8` (``flash_int8``, :148): per-token int8 q and k,
-  per-(batch, head, channel) int8 v, quantized here in plain torch; inside
-  the kernel int32 dot products, ``pq = round(p * 127)`` against the
-  current chunk's row max (round half to even), ``l`` from the quantized
-  probabilities, starting at 1e-20;
+  per-(batch, head, channel) int8 v, quantized here in plain torch
+  (:func:`quantize_int8`) and laid out for the kernel
+  (:func:`int8_kernel_operands`); inside the kernel (:func:`launch_int8`)
+  int32 dot products, ``pq = round(p * 127)`` against the current chunk's
+  row max (round half to even), ``l`` from the quantized probabilities,
+  starting at 1e-20;
 * :func:`flash_nomask` (``flash_nomask``, :307): :func:`flash_bf16` with q
   pre-scaled in f32 and rounded to bf16, and no KV mask (``Sq % block_q``
   and ``Sk % block_k`` must be 0).
@@ -36,7 +38,12 @@ launches in ``.launches`` and per route in ``.launches_by_route``):
 * ``"fma"``: f32 / f16 q/k/v in the same two wrappers (a bf16 MMA would
   round them): the first port's FMA kernel, which keeps a chunk's scores
   in shared memory, so ``block_k <= MAX_BLOCK_K``.
-* ``"dp4a"``: :func:`flash_int8`, likewise ``block_k <= MAX_BLOCK_K``.
+* ``"imma"``: :func:`flash_int8` for every output type, the int8
+  tensor-core kernel (``mma.sync`` m16n8k32 s8).  Like "mma" it walks each
+  chunk twice and keeps no scores in shared memory; it takes ``block_k`` in
+  multiples of 64 up to ``INT8_MAX_BLOCK_K`` (1024, where ``pq . v`` stays
+  exact in f32), on operands laid out by :func:`int8_kernel_operands`
+  (always cp.async).
 
 Layout: q ``[B, Sq, H, D]``, k/v ``[B, Sk, H, D]`` -> out in q's dtype.  A
 CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
@@ -48,7 +55,7 @@ nothing.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -62,7 +69,8 @@ _VARIANT_CODES = {"bf16": 0, "nomask": 1, "int8": 2}
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 SUB_TILE = 64  # keys per shared-memory tile inside a chunk
-MAX_BLOCK_K = 512  # FMA and dp4a routes: a chunk's scores stay in shared memory
+MAX_BLOCK_K = 512  # FMA route: a chunk's scores stay in shared memory
+INT8_MAX_BLOCK_K = 1024  # imma route: |pq . v| <= 1024 * 127^2 < 2^24
 
 _library = None
 
@@ -83,6 +91,9 @@ def build() -> ctypes.CDLL:
     occ.restype = ctypes.c_int
     occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                     ctypes.POINTER(ctypes.c_int)]
+    iocc = lib.consolver_flash_imma_occupancy
+    iocc.restype = ctypes.c_int
+    iocc.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     _library = lib
     return lib
 
@@ -228,41 +239,50 @@ def _check_divisible(q, k, block_q, block_k):
 
 
 def _check_int8_block(block_k):
-    if block_k > 1024:
-        raise ValueError(f"flash_int8 takes block_k <= 1024 (exact int sums in f32), got {block_k}")
+    if block_k > INT8_MAX_BLOCK_K:
+        raise ValueError(f"flash_int8 takes block_k <= {INT8_MAX_BLOCK_K} (exact int sums in f32), "
+                         f"got {block_k}")
 
 
 def kernel_route(dtype: torch.dtype, variant: str = "bf16") -> str:
-    """The kernel a CUDA call takes: ``"dp4a"`` for int8; for bf16 and
-    nomask, ``"mma"`` (tensor cores) on bf16 q/k/v and ``"fma"`` on f32 /
-    f16, which a bf16 MMA would round."""
+    """The kernel a CUDA call takes: ``"imma"`` (int8 tensor cores) for
+    int8, whatever the output type; for bf16 and nomask, ``"mma"`` (tensor
+    cores) on bf16 q/k/v and ``"fma"`` on f32 / f16, which a bf16 MMA would
+    round."""
     if variant == "int8":
-        return "dp4a"
+        return "imma"
     return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+_BLOCK_K_LIMITS = {"mma": None, "imma": INT8_MAX_BLOCK_K, "fma": MAX_BLOCK_K}
 
 
 def _check(q, k, v, block_k, route=None):
     """Raises unless the ``route`` kernel (by default the one q's dtype
-    takes) accepts these operands and ``block_k``: any multiple of 64 on
-    the tensor-core route, up to ``MAX_BLOCK_K`` on the others."""
+    takes) accepts these operands and ``block_k``: a multiple of 64, with
+    no upper limit on "mma", up to ``INT8_MAX_BLOCK_K`` on "imma" and up to
+    ``MAX_BLOCK_K`` on "fma"."""
     check_qkv(q, k, v, "the flash variant kernels", MAX_HEAD_DIM)
-    route = route or kernel_route(q.dtype)
-    limit = None if route == "mma" else MAX_BLOCK_K
+    _check_block_k(block_k, route or kernel_route(q.dtype))
+
+
+def _check_block_k(block_k, route):
+    limit = _BLOCK_K_LIMITS[route]
     if block_k % SUB_TILE or block_k < SUB_TILE or (limit is not None and block_k > limit):
         upto = f" up to {limit}" if limit else ""
         raise ValueError(f"the {route} flash variant kernel takes block_k in multiples of "
                          f"{SUB_TILE}{upto}, got {block_k}")
 
 
-def _launch(variant, q, k, v, out, block_k, route, scales=(None, None, None)):
+def _launch(variant, q, k, v, out, block_k, route):
+    """The bf16 / nomask kernels (routes "mma" and "fma")."""
     lib = build()
     b, sq, h, d = q.shape
-    qs, ks, vs = (0 if t is None else t.data_ptr() for t in scales)
     vec = staging(route, d, rows_aligned(q, k, v, out)) == "cp.async"
     _nvcc.call(
         lib.consolver_flash_variant_forward, f"flash_{variant}", q.device,
         _VARIANT_CODES[variant], _DTYPE_CODES[out.dtype],
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), qs, ks, vs, out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), 0, 0, 0, out.data_ptr(),
         b, h, sq, k.shape[1], d, block_k, int(vec), *_nvcc.bshd_strides(q, k, v, out),
         1.0 / (d**0.5),
     )
@@ -275,6 +295,18 @@ def mma_occupancy(variant: str = "bf16", vec: bool = True) -> Tuple[int, int]:
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
     rc = lib.consolver_flash_mma_occupancy(_VARIANT_CODES[variant], int(vec), ctypes.byref(smem),
                                            ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed (code {rc})")
+    return smem.value, blocks.value
+
+
+def imma_occupancy(dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
+    """``int8_mma_kernel``'s dynamic shared memory per block (bytes) and its
+    resident blocks per SM on the current card, for output type ``dtype``."""
+    lib = build()
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.consolver_flash_imma_occupancy(_DTYPE_CODES[dtype], ctypes.byref(smem),
+                                            ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed (code {rc})")
     return smem.value, blocks.value
@@ -312,20 +344,80 @@ def flash_nomask(q, k, v, block_q: int = 512, block_k: int = 512) -> torch.Tenso
     return out
 
 
+class Int8Operands(NamedTuple):
+    """The int8 kernel's operands (:func:`int8_kernel_operands`): ``qq``
+    ``[B, Sq, H, D16]`` and ``kq`` ``[B, Sk, H, D16]`` int8 with the head
+    dim zero-padded to a multiple of 16; ``vq_t`` ``[B, H, D16, Sk16]``
+    int8, V transposed with its keys zero-padded to a multiple of 16; ``ks_t``
+    ``[B, H, Sk16]`` f32; ``qs`` ``[B, Sq, H]`` and ``vs`` ``[B, H, D]`` f32
+    as :func:`quantize_int8` gives them.  All contiguous."""
+
+    qq: torch.Tensor
+    qs: torch.Tensor
+    kq: torch.Tensor
+    ks_t: torch.Tensor
+    vq_t: torch.Tensor
+    vs: torch.Tensor
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def int8_kernel_operands(qq, qs, kq, ks, vq, vs) -> Int8Operands:
+    """Lays :func:`quantize_int8`'s tensors out for the int8 tensor-core
+    kernel.  ``ldmatrix`` has no 8-bit transpose, and the ``pq . v`` MMA
+    wants 4 consecutive keys of one channel in a register, so V is handed
+    over transposed; zero padding of the head dim (to 16) adds nothing to
+    any integer product, and the padded keys are masked in the kernel.
+    Every row then starts on 16 bytes, so every tile arrives by cp.async."""
+    d, sk = qq.shape[-1], kq.shape[1]
+    dpad, skpad = _round16(d), _round16(sk)
+
+    def pad_d(x):
+        return torch.nn.functional.pad(x, (0, dpad - d)).contiguous()
+
+    vq_t = torch.nn.functional.pad(vq.permute(0, 2, 3, 1), (0, skpad - sk, 0, dpad - d))
+    ks_t = torch.nn.functional.pad(ks.permute(0, 2, 1), (0, skpad - sk))
+    return Int8Operands(pad_d(qq), qs.contiguous(), pad_d(kq), ks_t.contiguous(),
+                        vq_t.contiguous(), vs.contiguous())
+
+
+def launch_int8(ops: Int8Operands, dtype: torch.dtype, block_k: int = 512) -> torch.Tensor:
+    """``int8_mma_kernel`` on operands already quantized and laid out; the
+    output ``[B, Sq, H, D]`` in ``dtype``.  CUDA only: the CPU path of
+    :func:`flash_int8` is its plain version."""
+    if ops.qq.device.type != "cuda":
+        raise RuntimeError(f"launch_int8 runs on cuda only, not {ops.qq.device} (flash_int8 takes "
+                           "the plain version on the cpu)")
+    _check_block_k(block_k, "imma")
+    lib = build()
+    b, sq, h, _ = ops.qq.shape
+    d = ops.vs.shape[-1]
+    out = torch.empty((b, sq, h, d), dtype=dtype, device=ops.qq.device)
+    vt = ops.vq_t.stride()
+    _nvcc.call(
+        lib.consolver_flash_variant_forward, "flash_int8", out.device,
+        _VARIANT_CODES["int8"], _DTYPE_CODES[dtype],
+        ops.qq.data_ptr(), ops.kq.data_ptr(), ops.vq_t.data_ptr(), ops.qs.data_ptr(),
+        ops.ks_t.data_ptr(), ops.vs.data_ptr(), out.data_ptr(),
+        b, h, sq, ops.kq.shape[1], d, block_k, 1,
+        *_nvcc.bshd_strides(ops.qq, ops.kq), vt[0], vt[2], vt[1], *_nvcc.bshd_strides(out),
+        1.0 / (d**0.5),
+    )
+    _count(flash_int8, "imma")
+    return out
+
+
 def flash_int8(q, k, v, block_q: int = 512, block_k: int = 512) -> torch.Tensor:
-    """int8 flash attention: quantization in plain torch, then the kernel
-    on the int8 operands."""
+    """int8 flash attention: quantization and layout in plain torch, then
+    the kernel on the int8 operands (:func:`launch_int8`)."""
     _check_int8_block(block_k)
     if q.device.type == "cpu":
         return flash_int8_reference(q, k, v, block_q, block_k)
     _device_check(q, "flash_int8")
-    route = kernel_route(q.dtype, "int8")
-    _check(q, k, v, block_k, route)
-    qq, qs, kq, ks, vq, vs = quantize_int8(q, k, v)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("int8", qq, kq, vq, out, block_k, route, scales=(qs, ks, vs))
-    _count(flash_int8, route)
-    return out
+    _check(q, k, v, block_k, kernel_route(q.dtype, "int8"))
+    return launch_int8(int8_kernel_operands(*quantize_int8(q, k, v)), q.dtype, block_k)
 
 
 def _count(kernel, route):
@@ -340,7 +432,7 @@ def reset_counts() -> None:
     """Sets every wrapper's launch counts to 0."""
     for kernel in KERNELS:
         kernel.launches = 0
-        kernel.launches_by_route = ({"dp4a": 0} if kernel is flash_int8
+        kernel.launches_by_route = ({"imma": 0} if kernel is flash_int8
                                     else {"mma": 0, "fma": 0})
 
 

@@ -1,7 +1,8 @@
 """Ablations of the tensor-core kernels: ``flash_bf16`` / ``flash_nomask``
-(``csrc/flash_variants.cu``) and kernel #1 (``csrc/flash_attention.cu``).
+and ``flash_int8`` (``csrc/flash_variants.cu``) and kernel #1
+(``csrc/flash_attention.cu``).
 
-    python -m consolver_torch.probes.mma_ablation                    # both, on the card
+    python -m consolver_torch.probes.mma_ablation                    # all, on the card
     python -m consolver_torch.probes.mma_ablation --target kernel1   # kernel #1 only
 
 Builds altered copies of a source (one ``nvcc`` each, all at once, into a
@@ -22,6 +23,23 @@ phase.  The copies:
 * plant one fault (``mutant``, which the limits must catch): the max of the
   chunk's last 64-key tile in place of the chunk's; ``alpha`` left off
   ``l``.
+
+``--target int8`` times ``int8_mma_kernel`` alone (:func:`launch_int8` on
+operands quantized and laid out once) at the same shapes; each copy is held
+to the plain version with ``chip_smoke.py``'s int8 gates: one bf16 ulp +
+1e-5 + ``2 P max|v| / 127`` at every element, at most 1e-3 of the elements
+past one ulp and 1e-5 differing at all.  The copies:
+
+* undo one design choice (``design``): the f32 accumulator in registers
+  (2 blocks per SM) in place of shared memory (3 blocks); the int -> float
+  conversion of the scores and ``rint`` / float -> int of ``pq`` by exact
+  adds of 1.5 * 2^23 (full-rate FADD / IADD) in place of the conversion
+  instructions (I2F, FRND, F2I, a quarter of the FP32 rate);
+* drop one part of the work (``cost``, wrong on purpose): pass 1's MMAs;
+  ``exp2f`` in place of ``expf``;
+* plant one fault (``mutant``): the max of the chunk's last 64-key tile in
+  place of the chunk's; the K rows in natural order (the score permutation
+  dropped, so scores meet the wrong k scales and V rows).
 
 ``--target kernel1`` times :func:`flash_attention` on bf16 inputs (the
 "mma" route) at the FLUX joint shape and SD-1.5's L0 self-attention; each
@@ -131,10 +149,50 @@ KERNEL1_ABLATIONS = {
     "no_alpha_on_acc": ("mutant", [(_ACC_ALPHA_A, "")]),
 }
 
+_I8_EXP = "const float pr = expf(__fsub_rn(s[j][e], m[e >> 1]));"
+
+INT8_ABLATIONS = {
+    "acc_in_registers": ("design", [
+        ("constexpr int kI8Blocks = 3;", "constexpr int kI8Blocks = 2;"),
+        ("constexpr int kI8AccBytes = BQ * DP * 4;", "constexpr int kI8AccBytes = 0;"),
+        ("  auto acc = [&](int j, int e) -> float& { return acc_s[(4 * j + e) * kMmaThreads + "
+         "threadIdx.x]; };",
+         "  float acc_r[DP / 8][4];\n"
+         "  auto acc = [&](int j, int e) -> float& { return acc_r[j][e]; };"),
+    ]),
+    # exact for |x| < 2^22 and 0 <= y < 2^22: 1.5 * 2^23 + x is a float, and
+    # y + 1.5 * 2^23 rounds half to even at 1, as rintf; pack_s8 takes the low byte
+    "magic_conversions": ("design", [
+        ("__fmul_rn(__fmul_rn(static_cast<float>(si[j][e]), qmul[e >> 1]),",
+         "__fmul_rn(__fmul_rn(__fsub_rn(__int_as_float(0x4B400000 + si[j][e]), 12582912.f), "
+         "qmul[e >> 1]),"),
+        ("          pq[j][e] = static_cast<int>(rintf(__fmul_rn(pr, 127.f)));\n"
+         "          qsum[e >> 1] += pq[j][e];",
+         "          pq[j][e] = __float_as_int(__fadd_rn(__fmul_rn(pr, 127.f), 12582912.f));\n"
+         "          qsum[e >> 1] += pq[j][e] - 0x4B400000;"),
+    ]),
+    "no_pass1_mma": ("cost", [
+        ("    tile_scores_i8(si, qf, st, lane);",
+         "    if (cur.pass == 1) tile_scores_i8(si, qf, st, lane);\n"
+         "    else for (auto& r : si) r[0] = r[1] = r[2] = r[3] = 0;"),
+    ]),
+    "exp2f": ("cost", [(_I8_EXP, "const float pr = exp2f(__fsub_rn(s[j][e], m[e >> 1]) * "
+                                 "1.44269504f);")]),
+    "max_per_tile": ("mutant", [("      if (cur.t0 == 0) rmax[0] = rmax[1] = kNegInf;",
+                                 "      rmax[0] = rmax[1] = kNegInf;")]),
+    "no_k_permutation": ("mutant", [
+        ("  const int key = 4 * ((lane >> 1) & 3) + 2 * (lane >> 4) + (lane & 1);",
+         "  const int key = (lane & 7) + ((lane >> 4) << 3);"),
+    ]),
+}
+
+_VARIANT_ENTRIES = ("consolver_flash_variant_forward", "consolver_flash_mma_occupancy",
+                    "consolver_flash_imma_occupancy")
+
 # target -> (wrapper module, ablations of its source, the library's entry points)
 TARGETS = {
-    "variants": (fv, ABLATIONS,
-                 ("consolver_flash_variant_forward", "consolver_flash_mma_occupancy")),
+    "variants": (fv, ABLATIONS, _VARIANT_ENTRIES),
+    "int8": (fv, INT8_ABLATIONS, _VARIANT_ENTRIES),
     "kernel1": (fa, KERNEL1_ABLATIONS,
                 ("consolver_flash_attention_forward", "consolver_flash_attention_mma_info")),
 }
@@ -171,18 +229,25 @@ def _build(workdir: Path, name: str, source: str, filename: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def _within_limits(out, ref, q, k, v):
-    """chip_smoke's variant limits: the worst element over its limit (one
-    bf16 ulp + 1e-5 + one flip of the heaviest p) and the share of elements
-    past one ulp."""
+def _heaviest(q, k):
     heaviest = 0.0
     for h in range(q.shape[2]):
         s = torch.einsum("bqd,bkd->bqk", q[:, :, h].float(), k[:, :, h].float()) / q.shape[-1] ** 0.5
         heaviest = max(heaviest, torch.exp(s.amax(-1) - torch.logsumexp(s, -1)).max().item())
-    flip = 2.0**-7 * heaviest * v.float().abs().max().item()
+    return heaviest
+
+
+def _within_limits(out, ref, q, k, v, int8=False):
+    """chip_smoke's variant limits: the worst element over its limit (one
+    bf16 ulp + 1e-5 + one flip of the heaviest p: ``2^-7 P max|v|``, int8
+    ``2 P max|v| / 127``), the share of elements past one ulp and the share
+    differing at all."""
+    vmax = v.float().abs().max().item()
+    flip = (2.0 / 127 if int8 else 2.0**-7) * _heaviest(q, k) * vmax
     diff = (out.float() - ref.float()).abs()
     ulp = 2.0**-7 * ref.float().abs() + 1e-5
-    return (diff / (ulp + flip)).max().item(), (diff > ulp).float().mean().item()
+    return ((diff / (ulp + flip)).max().item(), (diff > ulp).float().mean().item(),
+            (diff > 0).float().mean().item())
 
 
 def run(iters: int = 10, seed: int = 0, log=print, target: str = "variants") -> dict:
@@ -204,6 +269,8 @@ def run(iters: int = 10, seed: int = 0, log=print, target: str = "variants") -> 
         try:
             if target == "variants":
                 return _run_variants(libs, real, iters, gen, log)
+            if target == "int8":
+                return _run_int8(libs, real, iters, gen, log)
             return _run_kernel1(libs, iters, gen, log)
         finally:
             module._library = real
@@ -219,7 +286,7 @@ def _run_variants(libs, real, iters, gen, log) -> dict:
         for name, lib in libs.items():
             fv._library = lib
             out = fv.flash_bf16(q, k, v, block_k=BLOCK_K)
-            worst, past = _within_limits(out, ref, q, k, v)
+            worst, past, _ = _within_limits(out, ref, q, k, v)
             del out
             ms = _time_ms(lambda: fv.flash_bf16(q, k, v, block_k=BLOCK_K), iters)
             kind = ABLATIONS[name][0] if name in ABLATIONS else "kernel"
@@ -229,6 +296,35 @@ def _run_variants(libs, real, iters, gen, log) -> dict:
             results[f"{shape_name}/{name}"] = row
             log(json.dumps(row))
         del q, k, v, ref
+    return results
+
+
+def _run_int8(libs, real, iters, gen, log) -> dict:
+    """The int8 kernel's copies: the launch alone on operands quantized and
+    laid out once, against flash_int8_reference with the int8 gates."""
+    results = {}
+    for shape_name, shape in SHAPES.items():
+        q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        ref = fv.flash_int8_reference(q, k, v, block_k=BLOCK_K)
+        ops = fv.int8_kernel_operands(*fv.quantize_int8(q, k, v))
+        for name, lib in libs.items():
+            fv._library = lib
+            out = fv.launch_int8(ops, q.dtype, BLOCK_K)
+            worst, past, differing = _within_limits(out, ref, q, k, v, int8=True)
+            del out
+            ms = _time_ms(lambda: fv.launch_int8(ops, q.dtype, BLOCK_K), iters)
+            kind = INT8_ABLATIONS[name][0] if name in INT8_ABLATIONS else "kernel"
+            b, s, h, d = shape
+            row = {"target": "int8", "ablation": name, "kind": kind, "shape": shape_name, "ms": ms,
+                   "tops": 4.0 * b * h * s * s * d / (ms * 1e9), "err_over_limit": worst,
+                   "share_past_one_ulp": past, "share_differing": differing,
+                   "passes_limits": worst <= 1.0 and past <= 1e-3 and differing <= 1e-5}
+            results[f"{shape_name}/{name}"] = row
+            log(json.dumps(row))
+        fv._library = real
+        del q, k, v, ref, ops
+        torch.cuda.empty_cache()
     return results
 
 

@@ -17,7 +17,12 @@ large scores.  The variants (kernels #2-#4) add one rounding flip of the
 heaviest probability and bound the share of elements past one ulp.  Their
 bf16 cases take the tensor-core route ("mma": ragged Sk and Sq, d = 80 / 72
 / 40 on cp.async copies, d = 76 and unaligned packed views staged element
-by element, block_k = 1024); f32 and f16 take the FMA route.
+by element, block_k = 1024); f32 and f16 take the FMA route.  flash_int8
+takes the int8 tensor-core route ("imma") for every output type, with a
+rounding flip of ``2 P max|v| / 127`` and at most 1e-5 of its elements
+differing at all (it repeats its plain version's f32 steps on exact integer
+products): ragged Sk 37 / 77 / 200 / 1000 x block_k 64 / 512 / 1024, d = 80
+/ 72 (the head dim padded to 16), f32 / f16 / bf16 outputs.
 """
 
 import copy
@@ -152,12 +157,15 @@ def _variant_within_limits(name, q, k, v, block_q, block_k):
     heaviest = torch.exp(s.amax(-1) - torch.logsumexp(s, -1)).max().item()
     rtol = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10, torch.float32: 0.0}[q.dtype]
     atol = 1e-4 if q.dtype == torch.float32 else 1e-5
-    flip = 2.0**-7 * heaviest * v.float().abs().max().item()
+    int8 = name == "flash_int8"
+    flip = (2.0 / 127 if int8 else 2.0**-7) * heaviest * v.float().abs().max().item()
     diff = (out.float() - ref).abs()
     ulp_limit = rtol * ref.abs() + atol
     assert torch.isfinite(out).all()
     assert (diff <= ulp_limit + flip).all(), (diff / (ulp_limit + flip)).max().item()
     assert (diff > ulp_limit).float().mean().item() <= 1e-3
+    if int8:
+        assert (diff > 0).float().mean().item() <= 1e-5
     return taken[0]
 
 
@@ -231,6 +239,46 @@ def test_f32_and_f16_stay_on_the_fma_route(cuda, monkeypatch, name, dtype):
     q, k, v = (torch.randn((1, 256, 2, 128), device=cuda, generator=g).to(dtype)
                for _ in range(3))
     assert _variant_within_limits(name, q, k, v, 128, 128) == "fma"
+
+
+@pytest.mark.parametrize("block_k", [64, 512, 1024])
+@pytest.mark.parametrize("sk", [37, 77, 200, 1000])
+def test_imma_route_ragged_keys(cuda, monkeypatch, sk, block_k):
+    """flash_int8 on the int8 tensor cores with Sk below one tile, a partial
+    tile inside a chunk, and across chunks, Sq = 100."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _bf16_qkv((2, 100, 3, 128), sk, 20, cuda)
+    assert _variant_within_limits("flash_int8", q, k, v, 64, block_k) == "imma"
+
+
+@pytest.mark.parametrize("d", [80, 72])
+def test_imma_route_narrow_heads(cuda, monkeypatch, d):
+    """d < 128: the wrapper pads q / k / V^T to a multiple of 16 channels."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _bf16_qkv((1, 130, 2, d), 300, 21, cuda)
+    assert _variant_within_limits("flash_int8", q, k, v, 64, 128) == "imma"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_imma_route_output_types(cuda, monkeypatch, dtype):
+    """The output takes q's type; every type runs int8_mma_kernel."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=cuda).manual_seed(22)
+    q, k, v = (torch.randn((1, 256, 2, 128), device=cuda, generator=g).to(dtype)
+               for _ in range(3))
+    assert _variant_within_limits("flash_int8", q, k, v, 128, 256) == "imma"
+
+
+def test_imma_route_rejects_what_it_cannot_take(cuda):
+    from consolver_torch.kernels import flash_variants as fv
+
+    q = torch.zeros((1, 64, 2, 128), device=cuda, dtype=torch.bfloat16)
+    for block_k in (96, 1088):
+        with pytest.raises(ValueError, match="block_k"):
+            fv.flash_int8(q, q, q, block_k=block_k)
+    wide = torch.zeros((1, 64, 2, 160), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        fv.flash_int8(wide, wide, wide, block_k=64)
 
 
 KERNEL1_TOL = {torch.bfloat16: (2.0**-7, 1e-5), torch.float16: (2.0**-10, 1e-5),

@@ -22,7 +22,14 @@ must be bit-equal to what XLA compiles the JAX wrapper's quantization into
 (it turns each division by 127 into a multiply by the f32 reciprocal, and
 the port does the same);
 with them the int8 outputs here are bit-equal but for the rare exp flip.
+The int8 kernel's walk (64-key tiles, two passes per chunk, the permuted K
+rows whose scores land in the ``pq . v`` A fragment in natural key order,
+int32 ``pq . v`` on the transposed V) is emulated in integers here and must
+give the plain version's bits.
 """
+
+import re
+
 
 import jax
 import jax.numpy as jnp
@@ -104,18 +111,19 @@ def test_plain_matches_pallas_at_block_k_1024(name, s):
 @pytest.mark.parametrize("dtype,variant,route", [
     (torch.bfloat16, "bf16", "mma"), (torch.bfloat16, "nomask", "mma"),
     (torch.float32, "bf16", "fma"), (torch.float16, "nomask", "fma"),
-    (torch.bfloat16, "int8", "dp4a"), (torch.float32, "int8", "dp4a"),
+    (torch.bfloat16, "int8", "imma"), (torch.float32, "int8", "imma"),
 ])
 def test_route_follows_dtype(dtype, variant, route):
     """bf16 q/k/v take the tensor cores; f32 / f16 stay on FMAs, which a
-    bf16 MMA would round; int8 is its own kernel."""
+    bf16 MMA would round; int8 takes the int8 tensor cores for every output
+    type."""
     assert fv.kernel_route(dtype, variant) == route
 
 
 @pytest.mark.parametrize("route,d,aligned,want", [
     ("mma", 128, True, "cp.async"), ("mma", 80, True, "cp.async"), ("mma", 72, True, "cp.async"),
     ("mma", 76, True, "elementwise"), ("mma", 128, False, "elementwise"),
-    ("fma", 128, True, "elementwise"), ("dp4a", 128, True, "elementwise"),
+    ("fma", 128, True, "elementwise"), ("imma", 128, True, "cp.async"),
 ])
 def test_staging_follows_route_d_and_alignment(route, d, aligned, want):
     assert fv.staging(route, d, aligned) == want
@@ -133,17 +141,19 @@ def test_rows_aligned_reads_pointers_and_strides():
 @pytest.mark.parametrize("dtype,route,block_k,accepted", [
     (torch.bfloat16, None, 1024, True), (torch.bfloat16, None, 4096, True),
     (torch.bfloat16, "mma", 576, True), (torch.float32, None, 1024, False),
-    (torch.float16, None, 576, False), (torch.bfloat16, "dp4a", 1024, False),
-    (torch.bfloat16, "dp4a", 512, True),
+    (torch.float16, None, 576, False), (torch.bfloat16, "imma", 1024, True),
+    (torch.bfloat16, "imma", 1088, False),
 ])
 def test_block_k_past_512_only_on_the_tensor_core_route(dtype, route, block_k, accepted):
-    """The tensor-core kernel keeps no chunk in shared memory, so any
-    multiple of 64 goes; the FMA and int8 kernels keep theirs to 512."""
+    """The tensor-core kernels keep no chunk in shared memory: "mma" takes
+    any multiple of 64, "imma" any up to 1024 (where ``pq . v`` stays exact
+    in f32); the FMA kernel keeps its chunk to 512."""
     q = torch.zeros((1, 64, 2, 128), dtype=dtype)
     if accepted:
         fv._check(q, q, q, block_k, route)
     else:
-        with pytest.raises(ValueError, match="up to 512"):
+        limit = 1024 if route == "imma" else 512
+        with pytest.raises(ValueError, match=f"up to {limit}"):
             fv._check(q, q, q, block_k, route)
 
 
@@ -153,10 +163,13 @@ def test_mma_ablations_apply_to_the_current_source(monkeypatch):
     card."""
     from consolver_torch.probes import mma_ablation
 
-    sources = mma_ablation.altered_sources()
-    assert set(sources) == {"kernel", *mma_ablation.ABLATIONS}
-    assert len({sources[name] for name in sources}) == len(sources)
-    assert {kind for kind, _ in mma_ablation.ABLATIONS.values()} == {"design", "cost", "mutant"}
+    for target, ablations in (("variants", mma_ablation.ABLATIONS),
+                              ("int8", mma_ablation.INT8_ABLATIONS)):
+        sources = mma_ablation.altered_sources(target)
+        assert set(sources) == {"kernel", *ablations}
+        assert len({sources[name] for name in sources}) == len(sources)
+        assert {kind for kind, _ in ablations.values()} == {"design", "cost", "mutant"}
+    assert {"max_per_tile", "no_k_permutation"} <= set(mma_ablation.INT8_ABLATIONS)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         mma_ablation.run()
@@ -290,3 +303,183 @@ def test_probe_entry_point_runs_on_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):  # no card: it points at --device cpu --tiny
         probe.main([])
+
+
+# ---------------------------------------------------------------------------
+# The int8 tensor-core kernel's walk, emulated in integers
+# ---------------------------------------------------------------------------
+
+_CU = fv._SOURCE.read_text()
+
+
+def _c_function(name):
+    """A one-line integer function of ``flash_variants.cu`` as a Python
+    function: C and Python agree on ``* + >> & ^ |`` and their precedence."""
+    found = re.search(rf"int {name}\(int (\w+), int (\w+)\) {{\n  return (.+);\n}}", _CU)
+    a, b, body = found.groups()
+    return eval(f"lambda {a}, {b}: {body}")  # noqa: S307 - the repository's own source
+
+
+def _lane_key():
+    """The K row a lane addresses in ``tile_scores_i8``'s ldmatrix, per
+    16-key group (the permutation as the kernel applies it)."""
+    body = _CU[_CU.index("void tile_scores_i8("):]
+    expr = re.search(r"const int key = (.+);", body).group(1)
+    return eval(f"lambda lane: {expr}")  # noqa: S307
+
+
+SCORE_KEY = _c_function("score_key")
+I8_CHUNK = _c_function("i8_chunk")
+
+
+def _a_index(j, c):
+    """Where the kernel's packing puts the score of n-tile j, column c
+    (lane t = c // 2) in its pq . v A fragment: ``pf[j // 4]`` register
+    ``2 ((j & 3) >> 1) + row``, byte ``2 (j & 1) + (c & 1)``, i.e. k index
+    ``16 ((j & 3) >> 1) + 4 t + 2 (j & 1) + (c & 1)`` of its 32-key group."""
+    return 32 * (j >> 2) + 16 * ((j & 3) >> 1) + 4 * (c >> 1) + 2 * (j & 1) + (c & 1)
+
+
+def test_int8_score_permutation_is_a_bijection():
+    """On each 32-key group the permutation maps the 4 n-tiles x 8 columns
+    onto its 32 keys once each; the packing puts every score at its own key
+    (natural order in the A fragment); and the ldmatrix lane addresses are
+    that permutation."""
+    for group in range(2):
+        keys = [SCORE_KEY(j, c) for j in range(4 * group, 4 * group + 4) for c in range(8)]
+        assert sorted(keys) == list(range(32 * group, 32 * group + 32))
+    assert all(_a_index(j, c) == SCORE_KEY(j, c) for j in range(8) for c in range(8))
+    lane_key = _lane_key()
+    for lane in range(32):
+        m, r = lane >> 3, lane & 7  # lane 8m + r addresses row r of matrix m
+        for jp in range(4):
+            assert 16 * jp + lane_key(lane) == SCORE_KEY(2 * jp + (m >> 1), r)
+    assert [lane_key(l) for l in range(8)] != list(range(8))  # not the natural order
+
+
+def test_int8_swizzle_spreads_every_ldmatrix_over_all_banks():
+    """Each ldmatrix matrix reads 8 rows of 16 bytes; on 128-byte rows the
+    swizzled chunks must fall on 8 distinct 16-byte bank groups, for the Q
+    fragments (8 consecutive rows) and for the permuted K rows."""
+    lane_key = _lane_key()
+    for kk_half in range(8):
+        for base in range(0, 64, 8):  # Q: rows base..base+7
+            assert len({I8_CHUNK(base + r, kk_half) for r in range(8)}) == 8
+        for jp in range(4):
+            for m in range(4):  # K: the 8 lanes of matrix m
+                rows = [16 * jp + lane_key(8 * m + r) for r in range(8)]
+                assert len({I8_CHUNK(row, kk_half) for row in rows}) == 8
+        assert sorted(I8_CHUNK(r, c) for r in (0,) for c in range(8)) == list(range(8))
+
+
+@pytest.mark.parametrize("d,sk", [(128, 77), (72, 200), (80, 64)])
+def test_int8_kernel_operands_lose_nothing(d, sk):
+    """Un-padding and un-transposing the kernel's operands gives back
+    quantize_int8's tensors; the padding is zeros and every row is a
+    multiple of 16 bytes."""
+    q, k, v = map(_to_torch, _qkv(2, sk, 3, d, seed=d + sk))
+    qq, qs, kq, ks, vq, vs = fv.quantize_int8(q[:, :50], k, v)
+    ops = fv.int8_kernel_operands(qq, qs, kq, ks, vq, vs)
+    dpad, skpad = -(-d // 16) * 16, -(-sk // 16) * 16
+    assert ops.qq.shape == (2, 50, 3, dpad) and ops.kq.shape == (2, sk, 3, dpad)
+    assert ops.vq_t.shape == (2, 3, dpad, skpad) and ops.ks_t.shape == (2, 3, skpad)
+    assert all(t.is_contiguous() for t in ops)
+    assert torch.equal(ops.qq[..., :d], qq) and torch.equal(ops.kq[..., :d], kq)
+    assert torch.equal(ops.vq_t[:, :, :d, :sk].permute(0, 3, 1, 2), vq)
+    assert torch.equal(ops.ks_t[..., :sk].permute(0, 2, 1), ks)
+    assert torch.equal(ops.qs, qs) and torch.equal(ops.vs, vs)
+    for t, tail in ((ops.qq, ops.qq[..., d:]), (ops.kq, ops.kq[..., d:]),
+                    (ops.vq_t, ops.vq_t[:, :, d:]), (ops.vq_t, ops.vq_t[..., sk:]),
+                    (ops.ks_t, ops.ks_t[..., sk:])):
+        assert not tail.any()
+
+
+def _emulate_int8_kernel(q, k, v, block_k):
+    """``int8_mma_kernel``'s walk in torch on the laid-out operands: per
+    ``block_k`` chunk, 64-key tiles; each tile's integer scores with the K
+    rows permuted (column 8j + c scores key ``score_key(j, c)``), scaled and
+    masked as the kernel does; pass 1 keeps the running row max; pass 2
+    recomputes the tiles, forms ``pq`` against the chunk's max, sums it in
+    integers, packs each column at its A-fragment index and adds the int
+    ``pq . v`` of the transposed V tile.  The f32 steps repeat the kernel's
+    (and the plain version's) order; ``exp`` runs on the chunk in natural
+    key order, the shape the plain version gives it, so that the CPU's
+    vectorised exp sees the same elements."""
+    ops = fv.int8_kernel_operands(*fv.quantize_int8(q, k, v))
+    b, sq, h, _ = ops.qq.shape
+    d, sk = q.shape[-1], k.shape[1]
+    qi = ops.qq.permute(0, 2, 1, 3).long()
+    ki = ops.kq.permute(0, 2, 1, 3).long()
+    q_mul = ops.qs.permute(0, 2, 1) * (1.0 / d**0.5)
+    col_key = torch.tensor([SCORE_KEY(j, c) for j in range(8) for c in range(8)])
+    a_pos = torch.tensor([_a_index(j, c) for j in range(8) for c in range(8)])
+
+    def tile_scores(t0):
+        keys = t0 + col_key
+        valid = keys < sk
+        kt = ki[:, :, keys.clamp(max=sk - 1)] * valid[:, None]
+        si = torch.einsum("bhqd,bhkd->bhqk", qi, kt)
+        kscale = ops.ks_t[:, :, keys.clamp(max=ops.ks_t.shape[-1] - 1)]
+        s = si.float() * q_mul[..., None] * kscale[:, :, None, :]
+        return torch.where(valid, s, torch.tensor(fv.NEG_INF))
+
+    m = torch.full((b, h, sq), fv.NEG_INF)
+    l = torch.full((b, h, sq), 1e-20)
+    acc = torch.zeros((b, h, sq, d))
+    for c0 in range(0, sk, block_k):
+        n = min(block_k, sk - c0)
+        tiles = range(c0, c0 + n, 64)
+        rmax = torch.full((b, h, sq), fv.NEG_INF)
+        for t0 in tiles:  # pass 1
+            rmax = torch.maximum(rmax, tile_scores(t0).amax(dim=-1))
+        m_new = torch.maximum(m, rmax)
+        alpha = torch.exp(m - m_new)
+        s_nat = torch.empty((b, h, sq, len(tiles) * 64))
+        for i, t0 in enumerate(tiles):  # pass 2: the same integers again
+            s_nat[..., 64 * i + col_key] = tile_scores(t0)
+        pq = fv.int8_chunk_probs(s_nat[..., :n].contiguous(), m_new)
+        pq = torch.nn.functional.pad(pq, (0, s_nat.shape[-1] - n)).long()
+        pv = torch.zeros((b, h, sq, ops.vq_t.shape[2]), dtype=torch.long)
+        for i, t0 in enumerate(tiles):
+            c_regs = pq[..., 64 * i + col_key]  # the C registers of the tile
+            a_frag = torch.zeros_like(c_regs)
+            a_frag[..., a_pos] = c_regs  # packed: natural key order
+            vt = ops.vq_t[..., t0:t0 + 64].long()
+            vt = torch.nn.functional.pad(vt, (0, 64 - vt.shape[-1]))
+            pv += torch.einsum("bhqk,bhdk->bhqd", a_frag, vt)
+        l = l * alpha + pq.sum(dim=-1).float() * fv.INV127
+        acc = acc * alpha[..., None] + pv[..., :d].float() * ops.vs[:, :, None, :]
+        m = m_new
+    return (acc / l[..., None]).permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("block_k", [64, 512, 1024])
+@pytest.mark.parametrize("s", [77, 200])
+def test_int8_kernel_walk_is_bit_equal_to_the_plain_version(s, block_k):
+    """The emulated kernel walk gives flash_int8_reference's bits, and both
+    lie within the int8 limits of the Pallas kernel in interpret mode."""
+    q, k, v = _qkv(1, s, 2, 128, seed=s + block_k)
+    tq, tk, tv = map(_to_torch, (q, k, v))
+    emulated = _emulate_int8_kernel(tq, tk, tv, block_k)
+    plain = fv.flash_int8_reference(tq, tk, tv, block_k=block_k)
+    assert torch.equal(emulated, plain)
+    ref = flash_int8(q, k, v, block_q=128, block_k=block_k, interpret=True)
+    worst, past_ulp = _over_limit(emulated, ref, _flip_atol(q, k, v, int8=True))
+    assert worst <= 1.0 and past_ulp <= 1e-3, (worst, past_ulp)
+
+
+def test_int8_walk_without_the_k_permutation_fails():
+    """The emulation with natural K rows (the ``no_k_permutation`` mutant's
+    edit): the scores meet the wrong k scales and V rows, far past the
+    limits."""
+    global SCORE_KEY
+    q, k, v = map(_to_torch, _qkv(1, 200, 2, 128, seed=40))
+    plain = fv.flash_int8_reference(q, k, v, block_k=128)
+    keep = SCORE_KEY
+    try:
+        SCORE_KEY = lambda j, c: 8 * j + c  # noqa: E731
+        natural_rows = _emulate_int8_kernel(q, k, v, 128)
+    finally:
+        SCORE_KEY = keep
+    assert (natural_rows.float() - plain.float()).abs().max().item() > 0.1
+
