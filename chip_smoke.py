@@ -49,6 +49,22 @@ non-zero, printing nothing on stdout, without them.  Phases:
    times, all on the "mma" route; print s/edit, peak memory, the kernel's
    share of device time and the idle share.
 8. The tiny FLUX stack in f32 on the card and on the CPU, TF32 off, as in 6.
+9. PPO training of the SD-1.5 FactorNet at full width with the settings of
+   ``ExperimentConfig.sd15_ppo()`` (batch 80, CFG 3, steps in [2, 16),
+   decode chunks of 8), rewarded by ``image_psnr`` against teacher latents
+   that the port's own plain DDIM made (8 samples, 20 steps): two steps
+   through ``PPOTrainer.fit`` with a checkpoint, a fresh trainer resumed
+   from it bit-equal, kernel #1's launches against the count the step
+   counts imply (all "mma"), s/step, peak memory and one profiled step.
+10. PPO training of the FLUX-Kontext FactorNet at full width with the
+   settings of ``ExperimentConfig.flux_ppo()`` for one rank's group (batch
+   10, 4 PPO epochs, guidance 2.5, steps in [2, 6)), against one teacher
+   edit from the port's Euler solver at 8 steps: one ``train_step``
+   (policy and Euler-baseline rollouts, three decodes), its launches, then
+   one profiled step.
+11. The tiny f32 SD stack, TF32 off: the PPO update on one flattened batch
+   on the card and on the CPU, two train steps on the card, and a
+   checkpoint-and-resume run on the card bit-equal to a straight one.
 
 The line before the last is a JSON object listing each kernel (launches on
 its main path, worst error, times); the last line is
@@ -83,6 +99,7 @@ HBM_TBPS = 3.35
 F32_RTOL, F32_ATOL = 0.0, 1e-4
 BF16_RTOL, BF16_ATOL = 2.0**-7, 1e-5
 SLICE_TOL = 5e-4  # f32 tiny stack, card vs CPU through 3 CFG-3 steps
+TRAIN_TOL = 1e-5  # f32 PPO updates of the policy, card vs CPU, on one batch
 # The tiny FLUX stack, f32 card vs CPU through 3 steps: its guidance
 # embedding takes sin/cos of guidance * 1000 = 2500 rad, where one f32 ulp
 # of the argument is 2.4e-4, and the two devices' sin/cos and sums differ.
@@ -132,6 +149,49 @@ FLUX_CASES = [
     ("flux_vae_mid", (1, 16384, 1, 512), 16384, 2),  # encode + decode
 ]
 LAUNCHES_PER_EDIT = sum(c[3] for c in FLUX_CASES)
+
+# Kernel #1 per model call, from the cases above: per CFG-batched UNet
+# forward (32), per VAE decode call of the SD path (1) and per DiT forward
+# (57) or FLUX VAE encode / decode call (1).
+UNET_LAUNCHES = sum(c[3] for c in MAIN_PATH_CASES if c[0].startswith("unet")) // STEPS
+SD_VAE_LAUNCHES = sum(c[3] for c in MAIN_PATH_CASES if c[0].startswith("vae"))
+DIT_LAUNCHES = sum(c[3] for c in FLUX_CASES if c[0] == "flux_joint") // FLUX_STEPS
+FLUX_VAE_LAUNCHES = sum(c[3] for c in FLUX_CASES if c[0] == "flux_vae_mid") // 2
+
+# SD-1.5 PPO: ExperimentConfig.sd15_ppo(), consolver_tpu/configs/config.py:79-107
+# (the reward there is depth, whose backbone waits for ROADMAP Queue A.12).
+PPO_SEED = 453645634
+SD_PPO_BATCH = 80
+SD_PPO_STEP_RANGE = (2, 16)
+SD_PPO_LR, SD_PPO_WD, SD_PPO_ADV_SCALE, SD_PPO_EPOCHS = 1e-4, 1e-3, 10.0, 1
+SD_PPO_DECODE_CHUNK = 8
+SD_PPO_TRAIN_STEPS = 2
+SD_TEACHER_SAMPLES, SD_TEACHER_STEPS = 8, 20
+
+# FLUX-Kontext PPO: ExperimentConfig.flux_ppo(), config.py:110-142, for ONE
+# rank's group of 10 (the preset runs 8 ranks: ROADMAP Queue A.15); its dino
+# reward waits for A.12.  The teacher runs 8 Euler steps, not the reference's
+# 28, to save card time.
+FLUX_PPO_BATCH = 10
+FLUX_PPO_STEP_RANGE = (2, 6)
+FLUX_PPO_LR, FLUX_PPO_WD, FLUX_PPO_EPOCHS = 1e-3, 1e-3, 4
+FLUX_TEACHER_STEPS = 8
+
+
+def sd_ppo_launches(num_inference, batch=SD_PPO_BATCH, chunk=SD_PPO_DECODE_CHUNK):
+    """Kernel #1 launches of one SD PPO step: a CFG-batched UNet call per
+    inference step, and the decodes of the policy's and the teacher's
+    latents in chunks."""
+    return UNET_LAUNCHES * num_inference + 2 * -(-batch // chunk) * SD_VAE_LAUNCHES
+
+
+def flux_ppo_launches(num_inference, batch=FLUX_PPO_BATCH, chunk=None):
+    """Kernel #1 launches of one FLUX PPO step: a DiT forward per inference
+    step of the policy and of the Euler-baseline rollout; VAE encodes of the
+    reference for both; decodes of the policy's and the teacher's latents
+    (chunked) and of the baseline's."""
+    decodes = 2 * (1 if chunk is None else -(-batch // chunk)) + 1
+    return DIT_LAUNCHES * 2 * num_inference + (2 + decodes) * FLUX_VAE_LAUNCHES
 
 # Kernels #2-#4: (name, shape, block_q, block_k, variants).  The serving and
 # training shapes of the probe, a ragged case for the masked variants, and
@@ -256,25 +316,67 @@ def _random_fill_(module, gen, std=0.02):
     return module
 
 
-def phase_main_path(fa):
-    """Full-width SD-1.5 preview: 8 prompts, 512^2, 8 steps, CFG 3, bf16."""
+def _sd15_models(gen):
+    """The SD-1.5 UNet, CLIP text encoder and VAE in bf16, built on ``meta``
+    and filled on the card with random-normal x0.02 weights."""
     import torch
 
-    from consolver_torch.core.schedules import DiffusionSchedule
-    from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
     from consolver_torch.models.clip_text import ClipTextConfig, ClipTextEncoder
     from consolver_torch.models.unet_2d import UNet2DCondition, UNetConfig
     from consolver_torch.models.vae import AutoencoderKL, VaeConfig
-    from consolver_torch.pipelines.t2i import TextToImagePipeline
-    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     bf16 = torch.bfloat16
     unet = UNet2DCondition(UNetConfig.sd15(), device="meta", dtype=bf16).to_empty(device="cuda")
     text = ClipTextEncoder(ClipTextConfig.sd15(), device="meta", dtype=bf16).to_empty(device="cuda")
     vae = AutoencoderKL(VaeConfig.sd15(), device="meta", dtype=bf16).to_empty(device="cuda")
     for m in (unet, text, vae):
         _random_fill_(m, gen)
+    return unet, text, vae
+
+
+def _device_profile(fn):
+    """Runs ``fn`` once under the profiler; returns its result and the run's
+    wall ms, the device's busy ms, kernel #1's ms and share, the idle share
+    and the top 10 kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_us = kernel_us = 0.0
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.device_time_total if hasattr(evt, "device_time_total") else evt.cuda_time_total
+        device_us += us
+        if KERNEL1_SYMBOL in evt.name:
+            kernel_us += us
+        by_name[evt.name[:80]] = by_name.get(evt.name[:80], 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return out, {
+        "profiled_wall_ms": wall_ms, "device_busy_ms": device_us / 1e3,
+        "flash_kernel_ms": kernel_us / 1e3,
+        "flash_share_of_device_time": kernel_us / device_us if device_us else None,
+        "device_idle_share": 1 - device_us / 1e3 / wall_ms if device_us else None,
+        "top_device_ms": {name: us / 1e3 for name, us in top},
+    }
+
+
+def phase_main_path(fa):
+    """Full-width SD-1.5 preview: 8 prompts, 512^2, 8 steps, CFG 3, bf16."""
+    import torch
+
+    from consolver_torch.core.schedules import DiffusionSchedule
+    from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
+    from consolver_torch.pipelines.t2i import TextToImagePipeline
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    unet, text, vae = _sd15_models(gen)
     policy = FactorNet(
         FactorNetConfig(order_dim=4, scaler_dim=0, num_actions=11, family="sd"), device="cuda"
     )
@@ -317,35 +419,12 @@ def phase_main_path(fa):
         run_s.append(time.perf_counter() - t0)
     elapsed = sum(run_s)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        generate(SEED + 10)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device_us = kernel_us = 0.0
-    by_name = {}
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = evt.device_time_total if hasattr(evt, "device_time_total") else evt.cuda_time_total
-        device_us += us
-        if KERNEL1_SYMBOL in evt.name:
-            kernel_us += us
-        by_name[evt.name[:80]] = by_name.get(evt.name[:80], 0.0) + us
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    _, profiled = _device_profile(lambda: generate(SEED + 10))
     result = {
         "phase": "main_path", "batch": BATCH, "steps": STEPS, "cfg": CFG, "resolution": 512,
         "launches": launches, "launches_by_route": by_route, "img_per_s": BATCH * runs / elapsed,
         "s_per_generation": elapsed / runs, "run_s": run_s, "peak_mem_gib": peak_gib,
-        "image_min": lo, "image_max": hi,
-        "profiled_wall_ms": wall_ms, "device_busy_ms": device_us / 1e3,
-        "flash_kernel_ms": kernel_us / 1e3,
-        "flash_share_of_device_time": kernel_us / device_us if device_us else None,
-        "device_idle_share": 1 - device_us / 1e3 / wall_ms if device_us else None,
-        "top_device_ms": {name: us / 1e3 for name, us in top},
+        "image_min": lo, "image_max": hi, **profiled,
     }
     print(json.dumps(result), flush=True)
     del pipe, unet, text, vae, images
@@ -790,36 +869,13 @@ def phase_flux(fa):
         torch.cuda.synchronize()
         run_s.append(time.perf_counter() - t0)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        edit(SEED + 60)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device_us = kernel_us = 0.0
-    by_name = {}
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = evt.device_time_total if hasattr(evt, "device_time_total") else evt.cuda_time_total
-        device_us += us
-        if KERNEL1_SYMBOL in evt.name:
-            kernel_us += us
-        by_name[evt.name[:80]] = by_name.get(evt.name[:80], 0.0) + us
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    _, profiled = _device_profile(lambda: edit(SEED + 60))
     result = {
         "phase": "flux_edit", "resolution": 1024, "steps": FLUX_STEPS, "guidance": FLUX_GUIDANCE,
         "joint_tokens": 8704, "launches": launches, "launches_by_route": by_route,
         "models_build_s": build_s,
         "first_edit_s": first_s, "run_s": run_s, "s_per_edit": sum(run_s) / len(run_s),
-        "peak_mem_gib": peak_gib, "image_min": lo, "image_max": hi,
-        "profiled_wall_ms": wall_ms, "device_busy_ms": device_us / 1e3,
-        "flash_kernel_ms": kernel_us / 1e3,
-        "flash_share_of_device_time": kernel_us / device_us if device_us else None,
-        "device_idle_share": 1 - device_us / 1e3 / wall_ms if device_us else None,
-        "top_device_ms": {name: us / 1e3 for name, us in top},
+        "peak_mem_gib": peak_gib, "image_min": lo, "image_max": hi, **profiled,
     }
     print(json.dumps(result), flush=True)
     del pipe, transformer, t5, clip, vae, images
@@ -870,12 +926,372 @@ def phase_tiny_flux(fa):
     return out
 
 
+def _trainer_state(trainer):
+    """The policy's parameters and its optimizer's whole state, as tensors."""
+    import torch
+
+    opt = trainer.optimizer
+    state = [p.detach() for p in trainer.factor_net.parameters()]
+    state += [v if torch.is_tensor(v) else torch.tensor(v)
+              for p in opt.params for _, v in sorted(opt.adamw.state[p].items())]
+    return state + list(opt.acc_grads) + [torch.tensor(opt.mini_step)]
+
+
+def _bit_equal(a, b):
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def _check_metrics(metrics, names):
+    import math
+
+    for name in names:
+        if not math.isfinite(metrics[name]):
+            raise AssertionError(f"non-finite {name}: {metrics}")
+
+
+def phase_sd_ppo(fa):
+    """SD-1.5 PPO at full width: 2 steps of batch 80 through
+    ``PPOTrainer.fit`` with the ``sd15_ppo()`` settings, ``image_psnr``
+    against the port's own 20-step DDIM teacher latents, a checkpoint at
+    step 2 and a fresh trainer resumed from it."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from consolver_torch.core.schedules import DiffusionSchedule
+    from consolver_torch.data.group import TeacherDataset
+    from consolver_torch.data.teacher_gen import generate_teacher_set
+    from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch, uncond_input_ids
+    from consolver_torch.pipelines.t2i import TextToImagePipeline, make_denoise_fn
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+    from consolver_torch.rewards.registry import make_reward_fn
+    from consolver_torch.rl.ppo import PPOConfig
+    from consolver_torch.rl.train import PPOTrainer, TrainConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    unet, text, vae = _sd15_models(gen)
+    policy_cfg = FactorNetConfig(order_dim=4, scaler_dim=0, num_actions=11, hidden_dim=256,
+                                 family="sd")
+
+    def pipeline():
+        return TextToImagePipeline(unet, text, vae, DiffusionSchedule.sd15(),
+                                   factor_net=FactorNet(policy_cfg, device="cuda"),
+                                   tokenizer=HashTokenizer(), device="cuda")
+
+    pipe = pipeline()
+    teacher_denoise = make_denoise_fn(unet, pipe.schedule, None, SD_TEACHER_STEPS, CFG,
+                                      pipe.timestep_spacing, pipe.steps_offset,
+                                      record_trajectory=False)
+
+    def teacher(generator, noise, ids):
+        context, uncond_context = pipe._encode(ids, pipe.uncond_ids_for(ids))
+        return teacher_denoise(generator, noise, context, uncond_context)[0]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        written = generate_teacher_set(
+            teacher, tokenize_batch(HashTokenizer(), PROMPTS[:SD_TEACHER_SAMPLES], 77),
+            f"{tmp}/teacher", (64, 64, 4), batch_size=SD_TEACHER_SAMPLES, seed=PPO_SEED,
+            save_sanity_images=0, uncond_ids=uncond_input_ids(HashTokenizer(), 1, 77),
+            device="cuda")
+        torch.cuda.synchronize()
+        teacher_s = time.perf_counter() - t0
+        if written != SD_TEACHER_SAMPLES:
+            raise AssertionError(f"the teacher wrote {written} of {SD_TEACHER_SAMPLES} samples")
+        samples = next(TeacherDataset(f"{tmp}/teacher").batches(SD_TEACHER_SAMPLES))
+        reps = SD_PPO_BATCH // SD_TEACHER_SAMPLES
+        batch = {k: np.concatenate([v] * reps) for k, v in samples.items()}
+
+        config = TrainConfig(
+            max_train_steps=SD_PPO_TRAIN_STEPS, guidance_scale=CFG,
+            min_inference_steps=SD_PPO_STEP_RANGE[0], max_inference_steps=SD_PPO_STEP_RANGE[1],
+            seed=PPO_SEED, output_dir=f"{tmp}/run", checkpointing_steps=SD_PPO_TRAIN_STEPS,
+            log_every=1, decode_chunk=SD_PPO_DECODE_CHUNK,
+            ppo=PPOConfig(ppo_epochs=SD_PPO_EPOCHS, learning_rate=SD_PPO_LR,
+                          weight_decay=SD_PPO_WD, advantage_scale=SD_PPO_ADV_SCALE))
+        psnr = make_reward_fn("image_psnr")
+        rewards_seen = []
+
+        def reward_fn(pred, target):  # records the rewards' dtype and ties
+            r = psnr(pred, target)
+            rewards_seen.append({"dtype": str(r.dtype).replace("torch.", ""),
+                                 "distinct": int(torch.unique(r).numel()),
+                                 "std": float(r.float().std(correction=0))})
+            return r
+
+        trainer = PPOTrainer(pipe, reward_fn, config)
+        before = [p.detach().clone() for p in pipe.factor_net.parameters()]
+        steps = []
+
+        def log(step, metrics):
+            torch.cuda.synchronize()
+            steps.append({"step": step, "s": time.perf_counter() - t0, **metrics})
+
+        def batches():
+            while True:
+                yield batch
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        trainer.fit(batches(), log_fn=log)
+        torch.cuda.synchronize()
+        global_step = trainer.global_step
+        launches = fa.flash_attention.launches
+        by_route = dict(fa.flash_attention.launches_by_route)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        for i in range(len(steps) - 1, 0, -1):
+            steps[i]["s"] -= steps[i - 1]["s"]
+
+        resumed = PPOTrainer(pipeline(), make_reward_fn("image_psnr"), config)
+        if not resumed.resume_from_checkpoint("latest") or resumed.global_step != global_step:
+            raise AssertionError("no checkpoint to resume from")
+        resume_bit_equal = _bit_equal(_trainer_state(resumed), _trainer_state(trainer))
+        profile_step = trainer.global_step
+        profiled_metrics, profiled = _device_profile(lambda: trainer.train_step(batch))
+
+    num_inference = [s["num_inference"] for s in steps]
+    want = sum(sd_ppo_launches(n) for n in num_inference)
+    result = {
+        "phase": "sd_ppo", "batch": SD_PPO_BATCH, "cfg": CFG, "resolution": 512,
+        "decode_chunk": SD_PPO_DECODE_CHUNK, "reward": "image_psnr",
+        "teacher": {"samples": written, "steps": SD_TEACHER_STEPS, "s": teacher_s},
+        "steps": steps, "num_inference": num_inference,
+        "s_per_step": [s["s"] for s in steps], "peak_mem_gib": peak_gib,
+        "rewards": rewards_seen,
+        "launches": launches, "launches_by_route": by_route, "launches_want": want,
+        "global_step": global_step, "resume_bit_equal": resume_bit_equal,
+        "profiled_step": {"step": profile_step, "num_inference": profiled_metrics["num_inference"],
+                          "launches_want": sd_ppo_launches(profiled_metrics["num_inference"]),
+                          **profiled},
+    }
+    print(json.dumps(result), flush=True)
+    if len(steps) != SD_PPO_TRAIN_STEPS or global_step != SD_PPO_TRAIN_STEPS:
+        raise AssertionError(f"fit ran {len(steps)} steps")
+    for metrics in steps + [profiled_metrics]:
+        _check_metrics(metrics, ("loss", "reward", "grad_norm"))
+    if _bit_equal(before, [p.detach() for p in pipe.factor_net.parameters()]):
+        raise AssertionError("the policy did not move")
+    if launches != want or by_route.get("mma") != want:
+        raise AssertionError(f"flash_attention launched {launches} times ({by_route}), want "
+                             f"{want} on mma for num_inference {num_inference}")
+    if not resume_bit_equal:
+        raise AssertionError("the resumed trainer's policy or optimizer differs from the writer's")
+    del trainer, resumed, pipe, unet, text, vae
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_flux_ppo(fa):
+    """FLUX-Kontext PPO at full width: one rank's group of the ``flux_ppo()``
+    preset (batch 10; the preset's 8 data-parallel ranks wait for ROADMAP
+    Queue A.15), ``image_psnr`` (its dino reward waits for A.12) against one
+    teacher edit of the port's Euler solver at 8 steps (the reference's
+    teacher runs 28), one ``train_step`` and one profiled step."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from consolver_torch.data.group import TeacherDataset
+    from consolver_torch.data.teacher_gen import generate_edit_teacher_set
+    from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
+    from consolver_torch.pipelines.edit import FluxKontextPipeline
+    from consolver_torch.rewards.registry import make_reward_fn
+    from consolver_torch.rl.ppo import PPOConfig
+    from consolver_torch.rl.train import TrainConfig
+    from consolver_torch.rl.train_edit import EditPPOTrainer
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    t0 = time.perf_counter()
+    transformer, t5, clip, vae, policy = _flux_models("cuda", torch.bfloat16, False, gen, 0.02)
+    pipe = FluxKontextPipeline(transformer, t5, clip, vae, factor_net=policy, device="cuda")
+    build_s = time.perf_counter() - t0
+
+    def tokenize(texts):
+        return (tokenize_batch(HashTokenizer(vocab_size=32128, max_length=512), texts, 512),
+                tokenize_batch(HashTokenizer(), texts, 77))
+
+    def teacher(generator, noise, t5_ids, clip_ids, ref_image):
+        return pipe.rollout(generator, t5_ids, clip_ids, ref_image, noise,
+                            num_inference_steps=FLUX_TEACHER_STEPS, guidance_scale=FLUX_GUIDANCE,
+                            solver="euler", decode=False, record=False)[0]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        Path(tmp, "prepared").mkdir()
+        ref = np.random.default_rng(SEED + 91).uniform(-1, 1, (1024, 1024, 3)).astype(np.float32)
+        np.savez(f"{tmp}/prepared/000000.npz", ref_image=ref,
+                 instruction=np.asarray("make the sky a sunset orange"))
+        t0 = time.perf_counter()
+        written = generate_edit_teacher_set(teacher, tokenize, f"{tmp}/prepared", f"{tmp}/teacher",
+                                            (128, 128, 16), seed=PPO_SEED, save_sanity_images=0,
+                                            device="cuda")
+        torch.cuda.synchronize()
+        teacher_s = time.perf_counter() - t0
+        if written != 1:
+            raise AssertionError(f"the edit teacher wrote {written} samples")
+        sample = next(TeacherDataset(f"{tmp}/teacher").batches(1))
+        batch = {k: np.repeat(v, FLUX_PPO_BATCH, axis=0) for k, v in sample.items()}
+        config = TrainConfig(
+            max_train_steps=1, guidance_scale=FLUX_GUIDANCE,
+            min_inference_steps=FLUX_PPO_STEP_RANGE[0], max_inference_steps=FLUX_PPO_STEP_RANGE[1],
+            seed=PPO_SEED, output_dir=f"{tmp}/run",
+            ppo=PPOConfig(ppo_epochs=FLUX_PPO_EPOCHS, learning_rate=FLUX_PPO_LR,
+                          weight_decay=FLUX_PPO_WD, advantage_scale=1.0))
+        trainer = EditPPOTrainer(pipe, make_reward_fn("image_psnr"), config)
+
+    before = [p.detach().clone() for p in policy.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    by_route = dict(fa.flash_attention.launches_by_route)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = flux_ppo_launches(metrics["num_inference"])
+    moved = not _bit_equal(before, [p.detach() for p in policy.parameters()])
+    profiled_metrics, profiled = _device_profile(lambda: trainer.train_step(batch))
+
+    result = {
+        "phase": "flux_ppo", "batch": FLUX_PPO_BATCH, "resolution": 1024,
+        "guidance": FLUX_GUIDANCE, "ppo_epochs": FLUX_PPO_EPOCHS, "reward": "image_psnr",
+        "models_build_s": build_s,
+        "teacher": {"samples": written, "steps": FLUX_TEACHER_STEPS, "s": teacher_s},
+        "metrics": metrics, "num_inference": metrics["num_inference"], "s_per_step": step_s,
+        "peak_mem_gib": peak_gib, "launches": launches, "launches_by_route": by_route,
+        "launches_want": want, "policy_moved": moved,
+        "profiled_step": {"num_inference": profiled_metrics["num_inference"],
+                          "launches_want": flux_ppo_launches(profiled_metrics["num_inference"]),
+                          **profiled},
+    }
+    print(json.dumps(result), flush=True)
+    for m in (metrics, profiled_metrics):
+        _check_metrics(m, ("loss", "reward", "baseline_reward", "grad_norm"))
+    if not moved:
+        raise AssertionError("the policy did not move")
+    if launches != want or by_route.get("mma") != want:
+        raise AssertionError(f"flash_attention launched {launches} times ({by_route}), want "
+                             f"{want} on mma for num_inference {metrics['num_inference']}")
+    del trainer, pipe, transformer, t5, clip, vae, policy
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_tiny_train(fa):
+    """The tiny f32 SD stack, TF32 off: the PPO update on one flattened batch
+    on the card and the CPU (loss, aux and parameters after 2 updates within
+    TRAIN_TOL), two train steps on the card, and kill / resume on the card:
+    2 steps straight against 1 step, a checkpoint, a fresh trainer resumed
+    from it and 1 step, bit-equal in the policy and the optimizer."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from consolver_torch.models.clip_text import ClipTextConfig, ClipTextEncoder
+    from consolver_torch.models.unet_2d import UNet2DCondition, UNetConfig
+    from consolver_torch.models.vae import AutoencoderKL, VaeConfig
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+    from consolver_torch.rewards.registry import make_reward_fn
+    from consolver_torch.rl import ppo
+    from consolver_torch.rl.train import PPOTrainer, TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 100)
+    models = [
+        _random_fill_(UNet2DCondition(UNetConfig.tiny(), device="cpu"), gen, 0.1),
+        _random_fill_(ClipTextEncoder(ClipTextConfig.tiny(), device="cpu"), gen, 0.1),
+        _random_fill_(AutoencoderKL(VaeConfig.tiny(), device="cpu"), gen, 0.1),
+        _random_fill_(FactorNet(FactorNetConfig(order_dim=4, scaler_dim=0, num_actions=11),
+                                device="cpu"), gen, 0.3),
+    ]
+
+    def batch(i):
+        rng = np.random.default_rng(SEED + 110 + i)
+        return {"noise": rng.standard_normal((4, 8, 8, 4)).astype(np.float32),
+                "latent": rng.standard_normal((4, 8, 8, 4)).astype(np.float32),
+                "prompt_ids": rng.integers(1, 1000, (4, 77))}
+
+    def batches():
+        i = 0
+        while True:
+            yield batch(i)
+            i += 1
+
+    def trainer(device, out, max_steps, ckpt_steps=100):
+        config = TrainConfig(max_train_steps=max_steps, min_inference_steps=2,
+                             max_inference_steps=5, seed=SEED + 120, output_dir=out,
+                             checkpointing_steps=ckpt_steps, log_every=1,
+                             ppo=ppo.PPOConfig(learning_rate=1e-3))
+        return PPOTrainer(_tiny_pipeline(device, models), make_reward_fn("image_psnr"), config)
+
+    out = {"phase": "tiny_train", "tol": TRAIN_TOL}
+    with tempfile.TemporaryDirectory() as tmp:
+        # one flattened batch from a CPU rollout, updated on both devices
+        cpu = trainer("cpu", f"{tmp}/cpu", 1)
+        pipe, data = cpu.pipe, batch(0)
+        with torch.no_grad():
+            ids = torch.as_tensor(data["prompt_ids"])
+            context, uncond_context = pipe._encode(ids, pipe.uncond_ids_for(ids))
+            latents, traj = pipe.denoise_fn(3, CFG)(torch.Generator().manual_seed(SEED + 130),
+                                                   torch.as_tensor(data["noise"]), context,
+                                                   uncond_context)
+            _, advantages = cpu._decode_and_reward(latents, torch.as_tensor(data["latent"]))
+        conds, *rest = ppo.flatten_trajectory(traj, advantages)
+        updates = {}
+        for device in ("cpu", "cuda"):
+            net = copy.deepcopy(models[3]).to(device)
+            config = cpu.config.ppo
+            update = ppo.make_update_fn(net, ppo.make_optimizer(net, config), config)
+            args = [{k: v.to(device) for k, v in conds.items()}] + [t.to(device) for t in rest]
+            auxes = [{k: float(v) for k, v in update(*args).items()} for _ in range(2)]
+            updates[device] = (auxes, [p.detach().cpu() for p in net.parameters()])
+        aux_err = max(abs(a[k] - b[k]) / max(1.0, abs(a[k]))
+                      for a, b in zip(updates["cpu"][0], updates["cuda"][0]) for k in a)
+        param_err = max((a - b).abs().max().item()
+                        for a, b in zip(updates["cpu"][1], updates["cuda"][1]))
+        out["update"] = {"aux_max_rel_err": aux_err, "param_max_abs_err": param_err,
+                         "aux_cuda": updates["cuda"][0]}
+
+        before = fa.flash_attention.launches
+        straight = trainer("cuda", f"{tmp}/straight", 2)
+        straight.fit(batches(), log_fn=lambda step, m: out.setdefault("steps", []).append(m))
+        out["launches"] = fa.flash_attention.launches - before
+        killed = trainer("cuda", f"{tmp}/resume", 1, ckpt_steps=1)
+        killed.fit(batches())
+        resumed = trainer("cuda", f"{tmp}/resume", 2)
+        if not resumed.resume_from_checkpoint("latest") or resumed.global_step != 1:
+            raise AssertionError("no checkpoint to resume from")
+        resumed.fit(batches())
+        out["resume_bit_equal"] = _bit_equal(_trainer_state(resumed), _trainer_state(straight))
+    print(json.dumps(out), flush=True)
+    if not (aux_err <= TRAIN_TOL and param_err <= TRAIN_TOL):
+        raise AssertionError(f"PPO update card vs cpu: {out['update']}")
+    if len(out.get("steps", [])) != 2 or out["launches"] == 0:
+        raise AssertionError(f"tiny train steps on the card: {out}")
+    for metrics in out["steps"]:
+        _check_metrics(metrics, ("loss", "reward", "grad_norm"))
+    if not out["resume_bit_equal"]:
+        raise AssertionError("the resumed run differs from the straight one on the card")
+    return out
+
+
 def _kernel1_entry(rows, runs_by_path):
     """Kernel #1's line.  Its top-level numbers are per SD-1.5 generation
     (batch 8, 8 steps): the launches of that run, and each of its shapes
     timed alone times its launches there.  ``by_path`` has the same numbers
     for the SD-1.5 generation and for one FLUX-Kontext edit, with the
-    launches per route ("mma" or "fma") of that run."""
+    launches per route ("mma" or "fma") of that run, and for the PPO runs
+    (SD: the two ``fit`` steps; FLUX: one step) their launches per route and
+    the kernel's device time in one profiled step."""
     per_run = [r for r in rows if r["dtype"] == "bfloat16" and r["per_generation"]]
     by_path = {}
     for path, key in (("sd", "sd15_generation"), ("flux", "flux_kontext_edit")):
@@ -892,6 +1308,15 @@ def _kernel1_entry(rows, runs_by_path):
         entry["ms_over_library"] = entry["ms"] / entry["library_ms"]
         entry["ms_over_bound"] = entry["ms"] / entry["bound_ms"]
         by_path[key] = entry
+    for path, key in (("sd_ppo", "sd_ppo_step"), ("flux_ppo", "flux_ppo_step")):
+        run = runs_by_path[path]
+        by_path[key] = {
+            "launches": run["launches"], "launches_by_route": run["launches_by_route"],
+            "num_inference": run["num_inference"], "batch": run["batch"],
+            "profiled_step": {k: run["profiled_step"][k] for k in (
+                "num_inference", "launches_want", "flash_kernel_ms", "flash_share_of_device_time",
+                "device_busy_ms", "device_idle_share")},
+        }
     sd = by_path["sd15_generation"]
     return {
         "name": "flash_attention", "route": "cuda",
@@ -976,6 +1401,9 @@ def main() -> int:
     phase_tiny_slice(fa)
     runs_by_path["flux"] = phase_flux(fa)
     phase_tiny_flux(fa)
+    runs_by_path["sd_ppo"] = phase_sd_ppo(fa)
+    runs_by_path["flux_ppo"] = phase_flux_ppo(fa)
+    phase_tiny_train(fa)
 
     kernels = [_kernel1_entry(rows, runs_by_path)]
     kernels += [_variant_entry(k.__name__, variant_rows, probe["launches"][k.__name__],

@@ -170,8 +170,12 @@ class FluxKontextPipeline:
             )
         return self._denoise_cache[key]
 
-    @torch.inference_mode()
-    def __call__(
+    def __call__(self, *args, **kwargs):
+        """Serving: :meth:`rollout` under ``torch.inference_mode()``."""
+        with torch.inference_mode():
+            return self.rollout(*args, **kwargs)
+
+    def rollout(
         self,
         generator: Optional[torch.Generator],
         t5_ids,
@@ -190,6 +194,9 @@ class FluxKontextPipeline:
         padded_max_steps: Optional[int] = None,
     ):
         """ref_image ``[B, H, W, 3]`` in [-1, 1]; noise ``[B, h, w, 16]``.
+        Runs in the caller's grad mode: a trainer calls it under
+        ``torch.no_grad()``, so the trajectory's tensors are normal ones that
+        the FactorNet's backward may save (inference-mode tensors may not be).
         Returns (edited images in [0, 1], or the final latents when
         ``decode=False``; the trajectory, or None when ``record=False`` or
         for a baseline solver).

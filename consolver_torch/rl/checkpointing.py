@@ -1,0 +1,122 @@
+"""Trainer checkpointing with the reference's "latest" semantics:
+``checkpoint-{step}`` directories, total-limit pruning by step number, and a
+resume that restores the policy, the optimizer (with its accumulation
+buffer) and ``global_step``.
+
+Port of ``consolver_tpu/rl/checkpointing.py`` with ``torch.save`` /
+``torch.load`` in place of orbax.  The port trains in one process, so every
+save (the periodic ones and the failure / interrupt save) is its own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import warnings
+
+import torch
+
+STATE_FILE = "state.pt"
+
+
+class CheckpointMixin:
+    """Requires ``self.config`` (output_dir, checkpoints_total_limit,
+    checkpointing_steps, max_train_steps, log_every), ``self.factor_net``,
+    ``self.optimizer`` (:class:`~consolver_torch.rl.ppo.PolicyOptimizer`),
+    ``self.global_step`` and ``train_step``."""
+
+    def fit(self, batches, log_fn=None):
+        """The training loop: ``train_step`` over the host batches, with the
+        periodic checkpoints and, every 10th log interval, ``param_sum``.
+
+        A resumed run first skips the batches the interrupted run consumed
+        (one per step), so it replays the uninterrupted run.  On a failure or
+        an interrupt the current state is checkpointed before re-raising, so
+        ``resume_from_checkpoint('latest')`` restarts from the failed step."""
+        batches = iter(batches)
+        for _ in range(self.global_step):
+            next(batches, None)
+        try:
+            for batch in batches:
+                if self.global_step >= self.config.max_train_steps:
+                    break
+                metrics = self.train_step(batch)
+                if self.global_step % self.config.checkpointing_steps == 0:
+                    self.save_checkpoint()
+                if log_fn and self.global_step % self.config.log_every == 0:
+                    if self.global_step % (self.config.log_every * 10) == 0:
+                        metrics["param_sum"] = self.param_sum()
+                    log_fn(self.global_step, metrics)
+        except KeyboardInterrupt:
+            self.save_checkpoint()
+            raise
+        except Exception:
+            try:
+                self.save_checkpoint()
+            except (OSError, RuntimeError) as save_error:  # report the step's own error
+                warnings.warn(f"the failure checkpoint was not written: {save_error}")
+            raise
+        return self.factor_net
+
+    def param_sum(self) -> float:
+        """The sum of the policy's parameters (the reference's DDP param-sum
+        print; one process here)."""
+        return float(sum(p.detach().double().sum() for p in self.factor_net.parameters()))
+
+    def save_checkpoint(self) -> str:
+        path = os.path.abspath(
+            os.path.join(self.config.output_dir, f"checkpoint-{self.global_step}")
+        )
+        os.makedirs(path, exist_ok=True)
+        payload = {
+            "policy": self.factor_net.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "global_step": self.global_step,
+        }
+        tmp = os.path.join(path, STATE_FILE + ".tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, os.path.join(path, STATE_FILE))
+        self._enforce_total_limit()
+        return path
+
+    def _enforce_total_limit(self):
+        limit = getattr(self.config, "checkpoints_total_limit", None)
+        if not limit:
+            return
+        for d in self._checkpoint_dirs()[:-limit]:
+            shutil.rmtree(os.path.join(self.config.output_dir, d), ignore_errors=True)
+
+    def _checkpoint_dirs(self):
+        if not os.path.isdir(self.config.output_dir):
+            return []
+        dirs = [d for d in os.listdir(self.config.output_dir) if d.startswith("checkpoint-")]
+        return sorted(dirs, key=lambda d: int(d.split("-")[1]))
+
+    def resume_from_checkpoint(self, which: str = "latest") -> bool:
+        """Restore ``which`` ("latest" or a checkpoint directory); False when
+        "latest" finds none."""
+        if which == "latest":
+            dirs = self._checkpoint_dirs()
+            if not dirs:
+                return False
+            path = os.path.join(self.config.output_dir, dirs[-1])
+        else:
+            path = which
+        state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+        self.factor_net.load_state_dict(state["policy"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.global_step = int(state["global_step"])
+        return True
+
+    def save_pretrained(self, output_dir: str) -> str:
+        """The final policy: ``factor_net.pt`` (its ``state_dict``) and
+        ``factor_net_config.json``, loadable as
+        ``FactorNet(FactorNetConfig(**json)).load_state_dict(torch.load(...))``."""
+        os.makedirs(output_dir, exist_ok=True)
+        path = os.path.abspath(os.path.join(output_dir, "factor_net.pt"))
+        torch.save(self.factor_net.state_dict(), path)
+        with open(os.path.join(output_dir, "factor_net_config.json"), "w") as f:
+            json.dump(dataclasses.asdict(self.factor_net.config), f, indent=2)
+        return path

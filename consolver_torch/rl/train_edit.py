@@ -1,0 +1,96 @@
+"""FLUX-Kontext editing PPO trainer.
+
+Port of ``consolver_tpu/rl/train_edit.py``.  Deltas from the SD trainer:
+
+  * an extra BASELINE rollout with the naive Euler FM solver on one sample
+    per group, whose reward clips that group's mean from below in the
+    advantage (``baseline_clipped_advantages``, no scale);
+  * the baseline and the policy rollouts draw from two generators, both
+    keyed by ``(seed, global_step)``;
+  * the rollouts go through :meth:`FluxKontextPipeline.rollout` under
+    ``torch.no_grad()`` (its ``__call__`` is the serving entry, in
+    ``inference_mode``, whose tensors the FactorNet's backward cannot save).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from consolver_torch.data.group import repeat_random_sample_groups
+from consolver_torch.pipelines.edit import FluxKontextPipeline
+from consolver_torch.rl import ppo
+from consolver_torch.rl.checkpointing import CheckpointMixin
+from consolver_torch.rl.train import PPOStepMixin, TrainConfig, _check_single_process
+
+
+class EditPPOTrainer(PPOStepMixin, CheckpointMixin):
+    def __init__(
+        self,
+        pipeline: FluxKontextPipeline,
+        reward_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+        config: TrainConfig,
+        mesh=None,
+        dump_samples_to: Optional[str] = None,
+    ):
+        if pipeline.factor_net is None:
+            raise ValueError("EditPPOTrainer needs a pipeline with a factor_net")
+        _check_single_process(mesh)
+        if dump_samples_to is not None:
+            raise NotImplementedError(
+                "per-step sample dumps need eval.gen_sweep.save_png, not ported yet "
+                "(ROADMAP Queue A.10)"
+            )
+        self.pipe = pipeline
+        self.reward_fn = reward_fn
+        self.config = config
+        self.device = pipeline.device
+        self.num_groups = config.num_groups or 1
+        self.optimizer = ppo.make_optimizer(self.factor_net, config.ppo)
+        self.global_step = 0
+        self._update = ppo.make_update_fn(self.factor_net, self.optimizer, config.ppo)
+
+    @property
+    def factor_net(self):
+        return self.pipe.factor_net
+
+    def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
+        """Host batch keys: ``noise`` ``[B, h, w, 16]`` latent noise,
+        ``latent`` (the teacher's final latents) ``[B, h, w, 16]``,
+        ``ref_image`` ``[B, H, W, 3]`` in [-1, 1], ``t5_ids`` ``[B, S]``,
+        ``clip_ids`` ``[B, S]``."""
+        cfg = self.config
+        batch = repeat_random_sample_groups(batch, self._group_rng(), self.num_groups)
+        num_inference = self._num_inference_for_step(self.global_step)
+        base_gen, policy_gen = self._generator("baseline"), self._generator("rollout")
+        t5_ids, clip_ids, ref_image, noise, target = (
+            torch.as_tensor(batch[k], device=self.device)
+            for k in ("t5_ids", "clip_ids", "ref_image", "noise", "latent"))
+        # Row g * gs is every row of group g: the strided slice is one
+        # sample per group for the Euler baseline.
+        gs = noise.shape[0] // self.num_groups
+        padded = (cfg.max_inference_steps - 1) if cfg.padded_rollout else None
+        steps = dict(num_inference_steps=num_inference, guidance_scale=cfg.guidance_scale,
+                     decode=False, padded_max_steps=padded)
+        with torch.no_grad():
+            base_latents, _ = self.pipe.rollout(
+                base_gen, t5_ids[::gs], clip_ids[::gs], ref_image[::gs], noise[::gs],
+                solver="euler", record=False, **steps)
+            latents, traj = self.pipe.rollout(
+                policy_gen, t5_ids, clip_ids, ref_image, noise, solver="fmppo", **steps)
+            chunk = cfg.decode_chunk
+            pred_img = self.pipe.decode_latents(latents, chunk=chunk)
+            target_img = self.pipe.decode_latents(target, chunk=chunk)
+            base_img = self.pipe.decode_latents(base_latents)
+            rewards = self.reward_fn(pred_img, target_img).reshape(-1)
+            base_reward = self.reward_fn(base_img, target_img[::gs]).reshape(-1)
+            advantages = ppo.baseline_clipped_advantages(rewards, base_reward,
+                                                         num_groups=self.num_groups)
+
+        out = self._run_updates(traj, advantages)
+        self.global_step += 1
+        out.update(reward=float(rewards.mean()), baseline_reward=float(base_reward.mean()),
+                   num_inference=num_inference)
+        return out

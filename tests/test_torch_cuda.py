@@ -285,10 +285,11 @@ KERNEL1_TOL = {torch.bfloat16: (2.0**-7, 1e-5), torch.float16: (2.0**-10, 1e-5),
                torch.float32: (0.0, 1e-4)}
 
 
-def _kernel1_route(q, k, v):
+def _kernel1_route(q, k, v, ref_rows=None):
     """Runs kernel #1 on the card, holds it to one ulp of its output type +
     atol against the f32 plain version at every element, and returns the
-    route it took."""
+    route it took.  ``ref_rows`` computes the plain version that many batch
+    rows at a time (its f32 score matrix would not fit at once)."""
     before = dict(fa.flash_attention.launches_by_route)
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
@@ -296,11 +297,29 @@ def _kernel1_route(q, k, v):
     assert len(taken) == 1
     assert fa.flash_attention.launches_by_route[taken[0]] == before[taken[0]] + 1
     assert out.dtype == q.dtype and out.shape == q.shape and torch.isfinite(out).all()
-    ref = fa.flash_attention_reference(q.float(), k.float(), v.float())
     rtol, atol = KERNEL1_TOL[q.dtype]
-    over = ((out.float() - ref).abs() / (rtol * ref.abs() + atol)).max().item()
+    rows = ref_rows or q.shape[0]
+    over = 0.0
+    for i in range(0, q.shape[0], rows):
+        part = slice(i, i + rows)
+        ref = fa.flash_attention_reference(q[part].float(), k[part].float(), v[part].float())
+        over = max(over, ((out[part].float() - ref).abs() / (rtol * ref.abs() + atol)).max().item())
+        del ref
     assert over <= 1.0, over
     return taken[0]
+
+
+@pytest.mark.parametrize("shape,sk,ref_rows", [
+    ((160, 4096, 8, 40), 4096, 16),  # SD-1.5 PPO rollout: 80 prompts under CFG, L0 self
+    ((160, 4096, 8, 40), 77, 160),  # and its cross-attention
+    ((10, 8704, 24, 128), 8704, 1),  # FLUX-Kontext PPO: one rank's group of 10, joint
+], ids=["sd_ppo_l0_self", "sd_ppo_l0_cross", "flux_ppo_joint"])
+def test_kernel1_at_the_training_batches(cuda, monkeypatch, shape, sk, ref_rows):
+    """The PPO rollouts' largest launches (up to 2.7e8 elements per operand,
+    64-bit strides in the kernel) on the tensor-core route."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _bf16_qkv(shape, sk, 12, cuda)
+    assert _kernel1_route(q, k, v, ref_rows=ref_rows) == "mma"
 
 
 @pytest.mark.parametrize("d", [20, 24, 40, 80, 128, 160, 256, 300, 512])
@@ -357,3 +376,93 @@ def test_kernel1_f32_and_f16_stay_on_the_fma_route(cuda, monkeypatch, dtype, d):
     g = torch.Generator(device=cuda).manual_seed(14)
     q, k, v = (torch.randn((1, 130, 2, d), device=cuda, generator=g).to(dtype) for _ in range(3))
     assert _kernel1_route(q, k, v) == "fma"
+
+
+def _tiny_policy_and_batch(seed):
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+
+    g = torch.Generator().manual_seed(seed)
+    net = FactorNet(FactorNetConfig(order_dim=4, scaler_dim=0, num_actions=11, family="sd"),
+                    device="cpu")
+    with torch.no_grad():
+        for p in net.parameters():
+            p.normal_(0.0, 0.3, generator=g)
+        conds = {"x": torch.rand((24, 2), generator=g) * 999}
+        actions, probs = net.sample_action(conds, g)
+    old = probs * (0.6 + 0.8 * torch.rand(probs.shape, generator=g))
+    adv = torch.randn((24, 1), generator=g) * (torch.rand((24, 3), generator=g) > 0.2)
+    valid = (torch.rand((24, 1), generator=g) > 0.3).float()
+    return net, (conds, actions, old, adv, valid)
+
+
+def test_ppo_update_card_matches_cpu(cuda, monkeypatch):
+    """Two PPO updates (loss, gradient, clip, AdamW) of one policy on one
+    flattened batch, on the card and on the CPU (f32, TF32 off): aux and the
+    clipped gradients within 1e-5, and the parameters within 1e-5 wherever
+    the gradient is clear of Adam's eps.  Near 0 Adam's step is
+    ``lr * g / eps``: a gradient that cancels over the rows to ~1e-9 carries
+    ~1e-10 of summation-order difference, which that step multiplies by
+    ``lr / eps = 1e5``; such elements are held to the ``2 lr`` a step can
+    move at most."""
+    from consolver_torch.rl import ppo
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    net, batch = _tiny_policy_and_batch(13)
+    config = ppo.PPOConfig(learning_rate=1e-3)
+    results = []
+    for device in ("cpu", cuda):
+        policy = copy.deepcopy(net).to(device)
+        update = ppo.make_update_fn(policy, ppo.make_optimizer(policy, config), config)
+        args = [{"x": batch[0]["x"].to(device)}] + [t.to(device) for t in batch[1:]]
+        auxes, grads = [], []
+        for _ in range(2):
+            auxes.append({k: float(v) for k, v in update(*args).items()})
+            grads.append([p.grad.detach().cpu() for p in policy.parameters()])
+        results.append((auxes, grads, [p.detach().cpu() for p in policy.parameters()]))
+    (cpu_aux, cpu_grads, cpu_params), (card_aux, card_grads, card_params) = results
+    for a, b in zip(cpu_aux, card_aux):
+        for name in a:
+            assert abs(a[name] - b[name]) <= 1e-5 * max(1.0, abs(a[name])), name
+    for step_a, step_b in zip(cpu_grads, card_grads):
+        for a, b in zip(step_a, step_b):
+            assert (a - b).abs().max().item() <= 1e-5
+    for i, (a, b) in enumerate(zip(cpu_params, card_params)):
+        clear = torch.minimum(cpu_grads[0][i].abs(), cpu_grads[1][i].abs()) >= 1e-6
+        assert torch.where(clear, a - b, 0.0).abs().max().item() <= 1e-5
+        assert (a - b).abs().max().item() <= 2 * 2 * config.learning_rate
+
+
+def test_tiny_ppo_train_step_on_the_card(cuda, monkeypatch):
+    """Two train_steps of the tiny f32 SD stack on the card: finite, the
+    policy moved, kernel #1 launched in the rollouts and decodes."""
+    from consolver_torch.core.schedules import DiffusionSchedule
+    from consolver_torch.models.clip_text import ClipTextConfig, ClipTextEncoder
+    from consolver_torch.models.unet_2d import UNet2DCondition, UNetConfig
+    from consolver_torch.models.vae import AutoencoderKL, VaeConfig
+    from consolver_torch.pipelines.t2i import TextToImagePipeline
+    from consolver_torch.rewards.registry import make_reward_fn
+    from consolver_torch.rl.train import PPOTrainer, TrainConfig
+
+    net, _ = _tiny_policy_and_batch(14)
+    g = torch.Generator().manual_seed(14)
+    models = [UNet2DCondition(UNetConfig.tiny(), device="cpu"),
+              ClipTextEncoder(ClipTextConfig.tiny(), device="cpu"),
+              AutoencoderKL(VaeConfig.tiny(), device="cpu")]
+    with torch.no_grad():
+        for m in models:
+            for p in m.parameters():
+                p.normal_(0.0, 0.1, generator=g)
+    pipe = TextToImagePipeline(*(m.to(cuda) for m in models), DiffusionSchedule.sd15(),
+                               factor_net=net.to(cuda), device=cuda)
+    trainer = PPOTrainer(pipe, make_reward_fn("image_psnr"),
+                         TrainConfig(min_inference_steps=2, max_inference_steps=4, seed=1))
+    before = [p.detach().clone() for p in net.parameters()]
+    launches = fa.flash_attention.launches
+    batch = {"noise": torch.randn((4, 8, 8, 4), generator=g).numpy(),
+             "latent": torch.randn((4, 8, 8, 4), generator=g).numpy(),
+             "prompt_ids": torch.randint(1, 50, (4, 4), generator=g).numpy()}
+    for _ in range(2):
+        metrics = trainer.train_step(dict(batch))
+        assert all(torch.isfinite(torch.tensor(metrics[k])) for k in ("loss", "reward", "grad_norm"))
+    assert trainer.global_step == 2 and fa.flash_attention.launches > launches
+    assert any(not torch.equal(a, b) for a, b in zip(before, net.parameters()))

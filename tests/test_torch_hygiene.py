@@ -1,7 +1,7 @@
 """Boundaries of the PyTorch port, checked on a machine without a GPU.
 
-* No file of ``consolver_torch/`` or ``chip_smoke.py`` imports jax, flax or
-  consolver_tpu, or calls ``torch.compile``.
+* No file of ``consolver_torch/`` or ``chip_smoke.py`` imports jax, flax,
+  optax, orbax, PIL or consolver_tpu, or calls ``torch.compile``.
 * The port never calls ``scaled_dot_product_attention``; ``chip_smoke.py``
   times it as a yardstick inside ``_library_ms`` only.
 * ``device=None`` means the GPU and raises without one; importing the
@@ -20,7 +20,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "consolver_torch").rglob("*.py"))
 SMOKE = ROOT / "chip_smoke.py"
-BANNED_IMPORTS = ("jax", "flax", "consolver_tpu")
+BANNED_IMPORTS = ("jax", "flax", "optax", "orbax", "PIL", "consolver_tpu")
 YARDSTICK_FUNCTION = "_library_ms"
 
 
@@ -47,7 +47,7 @@ def _is_torch_compile(name, owner):
 
 
 def test_port_files_exist():
-    assert len(PORT_FILES) >= 12 and SMOKE.exists()
+    assert len(PORT_FILES) >= 39 and SMOKE.exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [SMOKE], ids=lambda p: str(p.relative_to(ROOT)))
