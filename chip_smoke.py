@@ -65,6 +65,19 @@ non-zero, printing nothing on stdout, without them.  Phases:
 11. The tiny f32 SD stack, TF32 off: the PPO update on one flattened batch
    on the card and on the CPU, two train steps on the card, and a
    checkpoint-and-resume run on the card bit-equal to a straight one.
+12. Serving at full width through one ``ServeServer`` on 127.0.0.1 with both
+   engines (SD-1.5: batch shapes 1 and 8; FLUX-Kontext: 1024^2, 128 T5
+   tokens): prewarm, 3 rounds of 8 concurrent ``/v1/generate`` (one batch
+   of 8 each, 0 pad rows; served img/s, p50 / p95 latency), the 9 zoo
+   solvers (kernel #1 launches 32 x model calls + 1, all "mma", distinct
+   images), a deterministic request alone and in full batches (bit-equal at
+   its own slot, within 1 uint8 level at another), ``/v1/generate`` and
+   ``/v1/refine`` bit-equal to direct ``TextToImagePipeline.__call__``, a
+   hot reload (the image changes and equals the new net's direct call;
+   other dims return 409), a ``PreviewSession``, and ``/v1/edit`` (fmppo,
+   Euler) and ``/v1/edit/refine`` from a 1024x768 PNG (57 x steps + 2
+   launches); peak memory with both engines resident.  Phase 2 also gates
+   kernel #1 at the shapes serving adds (UNet batch 2, 8320 joint tokens).
 
 The line before the last is a JSON object listing each kernel (launches on
 its main path, worst error, times); the last line is
@@ -74,6 +87,7 @@ its main path, worst error, times); the last line is
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import re
 import shutil
@@ -149,6 +163,22 @@ FLUX_CASES = [
     ("flux_vae_mid", (1, 16384, 1, 512), 16384, 2),  # encode + decode
 ]
 LAUNCHES_PER_EDIT = sum(c[3] for c in FLUX_CASES)
+
+# Shapes the serving path adds, gated with 0 counted launches: a lone SD-1.5
+# request under CFG (UNet batch 2) and the edit engine's 128 T5 tokens
+# (4096 + 4096 + 128 joint tokens).
+SERVE_T5_TOKENS = 128
+SERVE_CASES = [
+    ("serve_unet_l0_self", (2, 4096, 8, 40), 4096, 0),
+    ("serve_unet_l0_cross", (2, 4096, 8, 40), 77, 0),
+    ("serve_unet_l1_self", (2, 1024, 8, 80), 1024, 0),
+    ("serve_unet_l1_cross", (2, 1024, 8, 80), 77, 0),
+    ("serve_unet_l2_self", (2, 256, 8, 160), 256, 0),
+    ("serve_unet_l2_cross", (2, 256, 8, 160), 77, 0),
+    ("serve_unet_mid_self", (2, 64, 8, 160), 64, 0),
+    ("serve_unet_mid_cross", (2, 64, 8, 160), 77, 0),
+    ("serve_flux_joint", (1, 8192 + SERVE_T5_TOKENS, 24, 128), 8192 + SERVE_T5_TOKENS, 0),
+]
 
 # Kernel #1 per model call, from the cases above: per CFG-batched UNet
 # forward (32), per VAE decode call of the SD path (1) and per DiT forward
@@ -255,7 +285,7 @@ def phase_kernel(fa):
     rows = []
     for dtype, rtol, atol, want_route in ((torch.bfloat16, BF16_RTOL, BF16_ATOL, "mma"),
                                           (torch.float32, F32_RTOL, F32_ATOL, "fma")):
-        for name, q_shape, sk, per_gen in MAIN_PATH_CASES + FLUX_CASES + EXTRA_CASES:
+        for name, q_shape, sk, per_gen in MAIN_PATH_CASES + FLUX_CASES + SERVE_CASES + EXTRA_CASES:
             b, sq, h, d = q_shape
             if name == "large_scores":
                 q = torch.full(q_shape, 10.0, device="cuda", dtype=dtype)
@@ -279,7 +309,7 @@ def phase_kernel(fa):
             heavy = b * h * sq * sk * d > 1e10
             row = {
                 "case": name, "dtype": str(dtype).replace("torch.", ""), "q": list(q_shape),
-                "sk": sk, "path": "flux" if name.startswith("flux") else "sd",
+                "sk": sk, "path": "flux" if "flux" in name else "sd",
                 "route": route[0] if len(route) == 1 else route,
                 "design": fa.mma_design(d) if want_route == "mma" else None,
                 "padded_d": fa.padded_width(d, want_route),
@@ -1284,6 +1314,416 @@ def phase_tiny_train(fa):
     return out
 
 
+SERVE_BATCH_SIZES = (1, BATCH)
+SERVE_FLUSH_MS = 250.0  # the window in which concurrent requests join one batch
+SERVE_ROUNDS = 3
+REFINE_STEPS = 40  # /v1/refine's default (multistep-dpm)
+EDIT_REFINE_STEPS = 28  # /v1/edit/refine's default (Euler, guidance 2.5)
+EDIT_REF_SHAPE = (768, 1024, 3)  # a landscape reference: a real crop to do
+
+
+def _post(opener, url, payload, timeout=900):
+    """(status, JSON body, seconds) of one POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(), method="POST")
+    t0 = time.perf_counter()
+    try:
+        with opener.open(req, timeout=timeout) as r:
+            return r.status, json.load(r), time.perf_counter() - t0
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read() or b"{}"), time.perf_counter() - t0
+
+
+def _image(body):
+    import base64
+
+    from consolver_torch.utils import png
+
+    return png.decode_png(base64.b64decode(body["image_png_b64"]))
+
+
+def _ok(code, body, what):
+    if code != 200:
+        raise AssertionError(f"{what}: HTTP {code} {body}")
+    return body
+
+
+def _check_image(img, side, what):
+    import numpy as np
+
+    if img.shape != (side, side, 3) or img.dtype != np.uint8:
+        raise AssertionError(f"{what}: image {img.shape} {img.dtype}")
+
+
+def _counts(fa):
+    return fa.flash_attention.launches, dict(fa.flash_attention.launches_by_route)
+
+
+def _check_launches(fa, want, what):
+    launches, by_route = _counts(fa)
+    if launches != want or by_route.get("mma") != want:
+        raise AssertionError(f"{what}: flash_attention launched {launches} times ({by_route}), "
+                             f"want {want} on mma")
+    return launches, by_route
+
+
+def _percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))]
+
+
+def phase_serve(fa, runs_by_path):
+    """The serving path at full width through its HTTP server: one
+    ``ServeServer`` on 127.0.0.1 carrying an SD-1.5 ``InferenceEngine``
+    (batch shapes 1 and 8) and a FLUX-Kontext ``EditInferenceEngine`` (1024^2,
+    batch 1, 128 T5 tokens).  Throughput of 8 concurrent generates (3
+    rounds), the 9 zoo solvers with their kernel #1 launches, batch-slot
+    independence, HTTP against direct pipeline calls, refine, the hot
+    reload (and a 409 on other dims), a PreviewSession, and the edit,
+    Euler edit and edit refine from a 1024x768 PNG."""
+    import base64
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from consolver_torch.core.schedules import DiffusionSchedule
+    from consolver_torch.data.edit_prep import center_crop_resize
+    from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
+    from consolver_torch.pipelines.edit import FluxKontextPipeline
+    from consolver_torch.pipelines.preview import PreviewSession
+    from consolver_torch.pipelines.solver_zoo import SOLVERS, make_solver
+    from consolver_torch.pipelines.t2i import TextToImagePipeline
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+    from consolver_torch.policy.io import save_factor_net
+    from consolver_torch.serve import (EditInferenceEngine, EditRequest, GenerationRequest,
+                                       InferenceEngine, make_server)
+    from consolver_torch.serve.engine import _uint8_in_program, seed_noise
+    from consolver_torch.utils import png
+
+    gc.collect()  # the earlier phases' models, if a reference cycle still holds them
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    baseline_gib = torch.cuda.memory_allocated() / 2**30
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 140)
+    t0 = time.perf_counter()
+    unet, text, vae = _sd15_models(gen)
+    policy_cfg = FactorNetConfig(order_dim=4, scaler_dim=0, num_actions=11, family="sd")
+    schedule = DiffusionSchedule.sd15()
+    pipe = TextToImagePipeline(unet, text, vae, schedule, factor_net=FactorNet(policy_cfg, device="cuda"),
+                               tokenizer=HashTokenizer(), device="cuda")
+    sd = InferenceEngine(pipe, batch_size=BATCH, batch_sizes=SERVE_BATCH_SIZES, latent_size=64,
+                         flush_ms=SERVE_FLUSH_MS)
+    transformer, t5, clip, fvae, fpolicy = _flux_models("cuda", torch.bfloat16, False, gen, 0.02)
+    edit_pipe = FluxKontextPipeline(transformer, t5, clip, fvae, factor_net=fpolicy, device="cuda")
+    edit = EditInferenceEngine(edit_pipe, resolution=1024, batch_size=1,
+                               t5_max_length=SERVE_T5_TOKENS)
+    build_s = time.perf_counter() - t0
+    resident_gib = torch.cuda.memory_allocated() / 2**30
+    server = make_server(sd, host="127.0.0.1", port=0, edit_engine=edit)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # no proxy for localhost
+    out = {"phase": "serve", "models_build_s": build_s, "baseline_gib": baseline_gib,
+           "resident_gib": resident_gib}
+
+    def post(path, payload):
+        return _post(opener, base + path, payload)
+
+    def gen_body(i, **kw):
+        return {"prompt": PROMPTS[i % len(PROMPTS)], "seed": 1000 + i, "num_inference_steps": STEPS,
+                "guidance_scale": CFG, **kw}
+
+    def concurrent(bodies):
+        barrier = threading.Barrier(len(bodies))
+
+        def one(body):
+            barrier.wait()
+            return post("/v1/generate", body)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+            results = list(pool.map(one, bodies))
+        return results, time.perf_counter() - t0
+
+    def stats_delta(before):
+        after = sd.stats()
+        return {k: after[k] - before[k] for k in ("batches", "batched_rows", "padded_rows")}
+
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:  # noqa: S310 - localhost
+            if json.load(r) != {"ok": True}:
+                raise AssertionError("healthz")
+        # 1. prewarm every SD signature used below, at each batch shape
+        t0 = time.perf_counter()
+        warm = [GenerationRequest("warm", num_inference_steps=STEPS, guidance_scale=CFG),
+                GenerationRequest("warm", num_inference_steps=STEPS, guidance_scale=CFG,
+                                  deterministic=True),
+                GenerationRequest("warm", num_inference_steps=REFINE_STEPS, guidance_scale=CFG,
+                                  solver="multistep-dpm")]
+        warm += [GenerationRequest("warm", num_inference_steps=STEPS, guidance_scale=CFG,
+                                   solver=name) for name in SOLVERS]
+        out["prewarmed"] = sd.prewarm(*warm, timeout=600)
+        out["prewarm_s"] = time.perf_counter() - t0
+
+        # 2. throughput: 8 concurrent requests per round, one batch of 8 each
+        rounds, latencies = [], []
+        fa.reset_counts()
+        for r in range(SERVE_ROUNDS):
+            before = sd.stats()
+            results, wall = concurrent([gen_body(r * BATCH + i) for i in range(BATCH)])
+            for code, body, sec in results:
+                _check_image(_image(_ok(code, body, "generate")), 512, "generate")
+                latencies.append(sec)
+            delta = stats_delta(before)
+            rounds.append({"wall_s": wall, **delta})
+            if delta != {"batches": 1, "batched_rows": BATCH, "padded_rows": 0}:
+                raise AssertionError(f"round {r} did not form one batch of {BATCH}: {delta}")
+        torch.cuda.synchronize()
+        serve_sd = dict(zip(("launches", "launches_by_route"),
+                            _check_launches(fa, SERVE_ROUNDS * LAUNCHES_PER_GENERATION, "serve rounds")))
+        stats = sd.stats()
+        out["throughput"] = {
+            "rounds": rounds, "img_per_s": SERVE_ROUNDS * BATCH / sum(x["wall_s"] for x in rounds),
+            "pipeline_img_per_s": runs_by_path["sd"]["img_per_s"],
+            "latency_p50_s": _percentile(latencies, 0.5), "latency_p95_s": _percentile(latencies, 0.95),
+            "occupancy": stats["mean_batch_occupancy"],
+            "engine_ms": {k: stats.get(k) for k in ("queue_wait_ms_p50", "execute_ms_p50",
+                                                    "execute_ms_p95", "dispatch_ms_p50")},
+        }
+        print(json.dumps({"phase": "serve_throughput", **out["throughput"]}), flush=True)
+
+        # dispatch / fetch overlap: two batches submitted back to back
+        before = sd.stats()
+        t0 = time.perf_counter()
+        futs = [sd.submit(GenerationRequest(PROMPTS[i % BATCH], seed=1500 + i)) for i in range(2 * BATCH)]
+        for f in futs:
+            f.result(timeout=600)
+        two_s = time.perf_counter() - t0
+        with sd._lock:
+            dispatch_ms, exec_ms = list(sd._dispatch_ms)[-2:], list(sd._exec_ms)[-2:]
+        out["overlap"] = {"two_batches_s": two_s, "dispatch_ms": dispatch_ms, "execute_ms": exec_ms,
+                          "one_batch_s": sum(x["wall_s"] for x in rounds) / SERVE_ROUNDS,
+                          **stats_delta(before)}
+
+        # 3. the zoo: one lone request per solver (batch shape 1)
+        zoo, images = {}, {}
+        for name in SOLVERS:
+            entries = len(make_solver(name, schedule, STEPS, noise_fn=lambda i, shape: None).timesteps)
+            want = UNET_LAUNCHES * entries + SD_VAE_LAUNCHES
+            fa.reset_counts()
+            code, body, sec = post("/v1/generate", gen_body(0, solver=name, seed=2000))
+            images[name] = _image(_ok(code, body, name))
+            _check_image(images[name], 512, name)
+            torch.cuda.synchronize()
+            _check_launches(fa, want, f"zoo {name}")
+            zoo[name] = {"latency_s": sec, "model_calls": entries, "launches": want}
+        for i, a in enumerate(SOLVERS):
+            for b in SOLVERS[i + 1:]:
+                if np.array_equal(images[a], images[b]):
+                    raise AssertionError(f"zoo solvers {a} and {b} gave the same image")
+        out["zoo"] = zoo
+        serve_sd["zoo"] = {name: z["launches"] for name, z in zoo.items()}
+
+        # 4. batch-slot independence: a deterministic request (pinned to
+        # shape 8) alone, then in full batches of other deterministic
+        # requests at slot 0 and at slot 3 (engine.submit in order: the
+        # arrival order is the slot)
+        def max_diff(a, b):
+            return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+        def det(i, seed):
+            return GenerationRequest(PROMPTS[i % len(PROMPTS)], seed=seed, num_inference_steps=STEPS,
+                                     guidance_scale=CFG, deterministic=True)
+
+        target = det(3, 3000)
+        before = sd.stats()
+        solo = sd.generate(target, timeout=600)
+
+        def in_batch(slot):
+            others = [det(10 + i, 3100 + 10 * slot + i) for i in range(BATCH - 1)]
+            futs = [sd.submit(r) for r in others[:slot] + [target] + others[slot:]]
+            return [f.result(timeout=600) for f in futs][slot]
+
+        at = {slot: in_batch(slot) for slot in (0, 3)}
+        delta = stats_delta(before)
+        out["slots"] = {f"slot_{k}": {"max_diff": max_diff(solo, img),
+                                      "share_differing": float((solo != img).mean())}
+                        for k, img in at.items()}
+        print(json.dumps({"phase": "serve_slots", **out["slots"], **delta}), flush=True)
+        if delta != {"batches": 3, "batched_rows": 1 + 2 * BATCH, "padded_rows": BATCH - 1}:
+            raise AssertionError(f"deterministic solo + two full batches: {delta}")
+        # at its own slot the request must not see its batch-mates; across
+        # slots cuDNN's bf16 3x3 convs with large inputs at 16x16 reduce the
+        # first rows of a batch in another order than the rest (PERF.md)
+        if out["slots"]["slot_0"]["max_diff"] != 0:
+            raise AssertionError(f"a deterministic request depends on its batch-mates: {out['slots']}")
+        if out["slots"]["slot_3"]["max_diff"] > 1:
+            raise AssertionError(f"a deterministic request moved more than 1 level by slot: "
+                                 f"{out['slots']}")
+
+        # 5. HTTP equals a direct call, 6. refine from the preview's seed
+        def direct(prompt, seed, rows=1, pipeline=pipe, **kw):
+            """The engine's first row, by TextToImagePipeline.__call__ on
+            the engine's inputs for ``rows`` copies of one request."""
+            ids = tokenize_batch(HashTokenizer(), [prompt] * rows, 77,
+                                 vocab_size=pipeline.text_encoder.cfg.vocab_size)
+            noise = seed_noise([seed] * rows, (64, 64, 4)).cuda()
+            images, _ = pipeline(torch.Generator("cuda").manual_seed(seed), ids, noise,
+                                 guidance_scale=CFG, record=False, **kw)
+            return _uint8_in_program(images)[0].cpu().numpy()
+
+        code, body, gen_s = post("/v1/generate", gen_body(5, seed=4000))
+        http_gen = _image(_ok(code, body, "generate"))
+        code, body, refine_s = post("/v1/refine", {"prompt": PROMPTS[5], "seed": 4000})
+        http_refine = _image(_ok(code, body, "refine"))
+        torch.cuda.synchronize()
+        equal = {
+            "generate": max_diff(http_gen, direct(PROMPTS[5], 4000, num_inference_steps=STEPS)),
+            "refine": max_diff(http_refine, direct(PROMPTS[5], 4000, num_inference_steps=REFINE_STEPS,
+                                                   solver="multistep-dpm")),
+        }
+        out["http_vs_direct_max_diff"] = equal
+        out["refine"] = {"latency_s": refine_s, "steps": REFINE_STEPS, "generate_latency_s": gen_s}
+        if max(equal.values()) != 0:
+            raise AssertionError(f"HTTP images differ from direct calls: {equal}")
+
+        # 7. hot reload of a differently seeded export; 409 on other dims
+        hot = gen_body(6, seed=5000, deterministic=True)
+        before_reload = _image(_ok(*post("/v1/generate", hot)[:2], "before reload"))
+        new_net = _random_fill_(FactorNet(policy_cfg, device="cuda"),
+                                torch.Generator(device="cuda").manual_seed(SEED + 141), 0.3)
+        with tempfile.TemporaryDirectory() as tmp:
+            save_factor_net(new_net, f"{tmp}/good")
+            save_factor_net(FactorNet(FactorNetConfig(order_dim=4, scaler_dim=0, num_actions=21),
+                                      device="cuda"), f"{tmp}/bad")
+            code, body, reload_s = post("/v1/admin/reload_factor",
+                                        {"path": f"{tmp}/good", "engine": "generate"})
+            _ok(code, body, "reload")
+            bad_code = post("/v1/admin/reload_factor", {"path": f"{tmp}/bad", "engine": "generate"})[0]
+        after_reload = _image(_ok(*post("/v1/generate", hot)[:2], "after reload"))
+        new_pipe = TextToImagePipeline(unet, text, vae, schedule, factor_net=new_net,
+                                       tokenizer=HashTokenizer(), device="cuda")
+        want_after = direct(PROMPTS[6], 5000, rows=BATCH, pipeline=new_pipe, num_inference_steps=STEPS,
+                            deterministic_policy=True)
+        out["hot_reload"] = {"reload_s": reload_s, "changed": not np.array_equal(before_reload, after_reload),
+                             "max_diff_vs_direct_new_net": max_diff(after_reload, want_after),
+                             "other_dims_status": bad_code}
+        if not out["hot_reload"]["changed"]:
+            raise AssertionError("the reloaded policy did not change a deterministic request")
+        if not np.array_equal(after_reload, want_after):
+            raise AssertionError(f"after the reload: {out['hot_reload']} (stale denoise cache?)")
+        if bad_code != 409:
+            raise AssertionError(f"an export with other dims returned {bad_code}, want 409")
+
+        # 8. PreviewSession at full width: 4 candidates, then refine one
+        session = PreviewSession(pipe)
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        previews = session.preview(torch.Generator("cuda").manual_seed(6000),
+                                   tokenize_batch(HashTokenizer(), [PROMPTS[7]], 77,
+                                                  vocab_size=text.cfg.vocab_size)[0],
+                                   num_candidates=4)
+        torch.cuda.synchronize()
+        preview_s = time.perf_counter() - t0
+        _check_launches(fa, LAUNCHES_PER_GENERATION, "preview session")
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        refined = session.refine(previews[1])
+        torch.cuda.synchronize()
+        session_refine_s = time.perf_counter() - t0
+        _check_launches(fa, UNET_LAUNCHES * REFINE_STEPS + SD_VAE_LAUNCHES, "session refine")
+        for img in [p.image for p in previews] + [refined]:
+            if tuple(img.shape) != (512, 512, 3) or not bool(torch.isfinite(img).all()):
+                raise AssertionError(f"preview session image {tuple(img.shape)}")
+        out["preview_session"] = {"candidates": 4, "preview_s": preview_s, "refine_s": session_refine_s}
+
+        # the host's PNG work per 512^2 image, at the server's zlib level 1 and at 6
+        for level in (1, 6):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                size = len(png.encode_png(http_gen, level=level))
+            out[f"png_encode_512_level{level}"] = {"ms": (time.perf_counter() - t0) / 5 * 1e3,
+                                                   "bytes": size}
+        print(json.dumps({"phase": "serve_sd", **{k: v for k, v in out.items() if k != "throughput"}}),
+              flush=True)
+
+        # edits from a 1024x768 reference PNG
+        ref = np.random.default_rng(SEED + 142).integers(0, 256, EDIT_REF_SHAPE, np.uint8)
+        t0 = time.perf_counter()
+        ref_png = png.encode_png(ref, level=1)
+        host = {"png_encode_ref_ms": (time.perf_counter() - t0) * 1e3}
+        t0 = time.perf_counter()
+        png.decode_png(ref_png)
+        host["png_decode_ref_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        center_crop_resize(ref, 1024)
+        host["center_crop_resize_ms"] = (time.perf_counter() - t0) * 1e3
+        ref_b64 = base64.b64encode(ref_png).decode()
+        instruction = "make the sky a sunset orange"
+
+        def edit_body(**kw):
+            return {"instruction": instruction, "image_png_b64": ref_b64, "seed": 7000, **kw}
+
+        t0 = time.perf_counter()
+        edit.prewarm(EditRequest(instruction, ref, num_inference_steps=FLUX_STEPS,
+                                 guidance_scale=FLUX_GUIDANCE), timeout=900)
+        edit_prewarm_s = time.perf_counter() - t0
+        edits = {}
+        for name, path, body, steps in (
+                ("edit", "/v1/edit", edit_body(num_inference_steps=FLUX_STEPS), FLUX_STEPS),
+                ("edit_euler", "/v1/edit", edit_body(num_inference_steps=FLUX_STEPS, solver="euler"),
+                 FLUX_STEPS),
+                ("edit_refine", "/v1/edit/refine", edit_body(), EDIT_REFINE_STEPS)):
+            fa.reset_counts()
+            code, resp, sec = post(path, body)
+            img = _image(_ok(code, resp, name))
+            _check_image(img, 1024, name)
+            torch.cuda.synchronize()
+            launches = _check_launches(fa, DIT_LAUNCHES * steps + 2 * FLUX_VAE_LAUNCHES, name)
+            edits[name] = {"latency_s": sec, "steps": steps, "launches": launches[0]}
+            if name == "edit":
+                serve_edit = dict(zip(("launches", "launches_by_route"), launches))
+        det = [_image(_ok(*post("/v1/edit", edit_body(seed=7001, deterministic=True,
+                                                      num_inference_steps=FLUX_STEPS))[:2],
+                          "deterministic edit")) for _ in range(2)]
+        if not np.array_equal(*det):
+            raise AssertionError("a deterministic edit served twice differs")
+        out_edit = {
+            "phase": "serve_edit", "resolution": 1024, "t5_tokens": SERVE_T5_TOKENS,
+            "joint_tokens": 8192 + SERVE_T5_TOKENS, "ref_shape": list(EDIT_REF_SHAPE),
+            "prewarm_s": edit_prewarm_s, "edits": edits,
+            "s_per_edit_http": edits["edit"]["latency_s"],
+            "pipeline_s_per_edit": runs_by_path["flux"]["s_per_edit"],
+            "deterministic_bit_equal": True, **host,
+            "edit_stats": {k: edit.stats().get(k) for k in ("completed", "execute_ms_p50",
+                                                           "dispatch_ms_p50", "queue_wait_ms_p50")},
+        }
+        out["edit"] = out_edit
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out_edit["peak_mem_gib"] = out["peak_mem_gib"]
+        print(json.dumps(out_edit), flush=True)
+        with urllib.request.urlopen(base + "/v1/stats", timeout=30) as r:  # noqa: S310 - localhost
+            final_stats = json.load(r)
+        if set(final_stats) != {"generate", "edit"} or final_stats["generate"]["errors"]:
+            raise AssertionError(f"server stats: {final_stats}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        sd.shutdown()
+        edit.shutdown()
+    out["serve_sd"], out["serve_edit"] = serve_sd, serve_edit
+    del sd, edit, pipe, edit_pipe, unet, text, vae, transformer, t5, clip, fvae, fpolicy
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel1_entry(rows, runs_by_path):
     """Kernel #1's line.  Its top-level numbers are per SD-1.5 generation
     (batch 8, 8 steps): the launches of that run, and each of its shapes
@@ -1317,6 +1757,9 @@ def _kernel1_entry(rows, runs_by_path):
                 "num_inference", "launches_want", "flash_kernel_ms", "flash_share_of_device_time",
                 "device_busy_ms", "device_idle_share")},
         }
+    serve = runs_by_path["serve"]
+    by_path["serve_sd"] = {**serve["serve_sd"], "per": f"{SERVE_ROUNDS} batches of {BATCH} requests"}
+    by_path["serve_edit"] = {**serve["serve_edit"], "per": "one /v1/edit (fmppo, 5 steps)"}
     sd = by_path["sd15_generation"]
     return {
         "name": "flash_attention", "route": "cuda",
@@ -1404,6 +1847,7 @@ def main() -> int:
     runs_by_path["sd_ppo"] = phase_sd_ppo(fa)
     runs_by_path["flux_ppo"] = phase_flux_ppo(fa)
     phase_tiny_train(fa)
+    runs_by_path["serve"] = phase_serve(fa, runs_by_path)
 
     kernels = [_kernel1_entry(rows, runs_by_path)]
     kernels += [_variant_entry(k.__name__, variant_rows, probe["launches"][k.__name__],

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from consolver_torch.device import resolve_device
+from consolver_torch.eval.gen_sweep import save_png
 
 
 def example_noise(seed: int, index: int, shape: Sequence[int]) -> torch.Tensor:
@@ -32,12 +33,18 @@ def _teacher_generator(device: torch.device, seed: int, start: int) -> torch.Gen
         random.Random(f"{seed}-teacher-{start}").getrandbits(63))
 
 
-def _check_no_sanity_images(decode_fn, save_sanity_images: int):
-    if decode_fn is not None and save_sanity_images > 0:
-        raise NotImplementedError(
-            "sanity PNGs need eval.gen_sweep.save_png, not ported yet (ROADMAP Queue A.10); "
-            "pass save_sanity_images=0"
-        )
+def _sanity_images(decode_fn, latents: torch.Tensor, written: int, limit: int):
+    """The decoded images of a batch while fewer than ``limit`` samples are
+    written, else None."""
+    if decode_fn is None or written >= limit:
+        return None
+    with torch.no_grad():
+        return decode_fn(latents).float().cpu().numpy()
+
+
+def _save_sanity(output_dir: str, images, idx: int, j: int, limit: int):
+    if images is not None and idx < limit:
+        save_png(os.path.join(output_dir, f"sanity_{idx:03d}.png"), images[j])
 
 
 def _batch_noise(seed: int, start: int, count: int, shape, device) -> torch.Tensor:
@@ -64,7 +71,6 @@ def generate_teacher_set(
     ``uncond_ids`` is the tokenized empty prompt ``[S]`` (or ``[1, S]``) of
     the CFG negative branch; stored in every sample, so the trainer
     conditions that branch on the ids the teacher used."""
-    _check_no_sanity_images(decode_fn, save_sanity_images)
     device = resolve_device(device)
     os.makedirs(output_dir, exist_ok=True)
     if uncond_ids is not None:
@@ -83,6 +89,7 @@ def generate_teacher_set(
         with torch.no_grad():
             latents = denoise_fn(_teacher_generator(device, seed, start), noise,
                                  torch.as_tensor(ids, device=device))
+        images = _sanity_images(decode_fn, latents, written, save_sanity_images)
         latents = latents.float().cpu().numpy()
         noise = noise.cpu().numpy()
         for j in range(len(ids)):
@@ -92,6 +99,7 @@ def generate_teacher_set(
             if uncond_ids is not None:
                 sample["uncond_ids"] = uncond_ids
             np.savez(os.path.join(output_dir, f"{start + j:06d}.npz"), **sample)
+            _save_sanity(output_dir, images, start + j, j, save_sanity_images)
             written += 1
     return written
 
@@ -116,7 +124,6 @@ def generate_edit_teacher_set(
     trainer reads: noise / latent / ref_image / t5_ids / clip_ids /
     instruction.  ``tokenize(instructions) -> (t5_ids, clip_ids)``.  NaN
     samples are dropped.  Returns the number of samples written."""
-    _check_no_sanity_images(decode_fn, save_sanity_images)
     device = resolve_device(device)
     os.makedirs(output_dir, exist_ok=True)
     files = sorted(f for f in os.listdir(prepared_dir) if f.endswith(".npz"))[:max_samples]
@@ -136,6 +143,7 @@ def generate_edit_teacher_set(
             latents = denoise_fn(
                 _teacher_generator(device, seed, start), noise,
                 *(torch.as_tensor(a, device=device) for a in (t5_ids, clip_ids, np.stack(refs))))
+        images = _sanity_images(decode_fn, latents, written, save_sanity_images)
         latents = latents.float().cpu().numpy()
         noise = noise.cpu().numpy()
         for j in range(len(chunk)):
@@ -150,5 +158,6 @@ def generate_edit_teacher_set(
                 clip_ids=clip_ids[j],
                 instruction=np.asarray(instructions[j]),
             )
+            _save_sanity(output_dir, images, start + j, j, save_sanity_images)
             written += 1
     return written

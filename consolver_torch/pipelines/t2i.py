@@ -6,7 +6,8 @@ history, lets the FactorNet pick an action from that history, combines the
 history and applies the DDIM x0-form update; the RL trajectory (conds,
 actions, probs, masks) is recorded per step and step 0 is dropped, as in the
 JAX package's scan.  The plain-DDIM baseline is ``factor_net=None``
-(``order_dim=1``, passthrough combine).
+(``order_dim=1``, passthrough combine); the baseline solver zoo runs
+through ``pipelines/solver_zoo.py``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from consolver_torch.core import schedules, solver
 from consolver_torch.data.tokenizer import HashTokenizer, uncond_input_ids
 from consolver_torch.device import resolve_device
 from consolver_torch.models.vae import decode_latents as _decode_latents
+from consolver_torch.pipelines import solver_zoo
 from consolver_torch.policy.factor_net import FactorNet
 
 UNetApply = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -205,15 +207,6 @@ def make_padded_denoise_fn(
     return denoise
 
 
-def encode_prompt_fn(text_encoder_apply: Callable[[torch.Tensor], torch.Tensor]):
-    """(prompt_ids, uncond_ids) -> (context, uncond_context)."""
-
-    def encode(prompt_ids, uncond_ids):
-        return text_encoder_apply(prompt_ids), text_encoder_apply(uncond_ids)
-
-    return encode
-
-
 class TextToImagePipeline:
     """The models, schedule and policy of one text-to-image deployment, with
     cached denoise functions per (steps, cfg) program."""
@@ -240,7 +233,10 @@ class TextToImagePipeline:
         self.steps_offset = steps_offset
         self.tokenizer = tokenizer
         self._denoise_cache = {}
-        self._encode = encode_prompt_fn(self.text_encoder)
+
+    def _encode(self, prompt_ids, uncond_ids):
+        """(context, uncond_context) of the prompt and the empty prompt."""
+        return self.text_encoder(prompt_ids), self.text_encoder(uncond_ids)
 
     def decode_latents(self, latents: torch.Tensor, chunk: Optional[int] = None) -> torch.Tensor:
         """Scaled latents -> [0, 1] images."""
@@ -267,17 +263,27 @@ class TextToImagePipeline:
         solver: str = "consistencysolver",
         deterministic_policy: bool = False,
     ):
+        """``solver='consistencysolver'`` is the learnable LMM (plain DDIM
+        without a factor net); any other name is a baseline zoo solver
+        (:data:`solver_zoo.SOLVERS`), whose function returns ``(latents,
+        None)`` and draws any per-step noise from the generator."""
         if solver != "consistencysolver":
-            raise NotImplementedError(
-                f"solver {solver!r}: the baseline solver zoo is not ported yet (ROADMAP Queue A.10)"
-            )
-        key = (num_inference_steps, float(guidance_scale), record, deterministic_policy)
+            deterministic_policy = False  # no policy: do not fork programs
+        key = (num_inference_steps, float(guidance_scale), record, solver, deterministic_policy)
         if key not in self._denoise_cache:
-            self._denoise_cache[key] = make_denoise_fn(
-                self.unet, self.schedule, self.factor_net, num_inference_steps,
-                guidance_scale, self.timestep_spacing, self.steps_offset,
-                record_trajectory=record, deterministic_policy=deterministic_policy,
-            )
+            if solver == "consistencysolver":
+                fn = make_denoise_fn(
+                    self.unet, self.schedule, self.factor_net, num_inference_steps,
+                    guidance_scale, self.timestep_spacing, self.steps_offset,
+                    record_trajectory=record, deterministic_policy=deterministic_policy,
+                )
+            else:
+                base = solver_zoo.make_baseline_denoise_fn(
+                    self.unet, self.schedule, solver, num_inference_steps, guidance_scale)
+
+                def fn(generator, noise, context, uncond_context):
+                    return base(generator, noise, context, uncond_context), None
+            self._denoise_cache[key] = fn
         return self._denoise_cache[key]
 
     def padded_denoise_fn(
@@ -314,8 +320,9 @@ class TextToImagePipeline:
         """Returns (images NHWC in [0, 1], or the final latents when
         ``decode=False``; the trajectory, or None when ``record=False``).
 
-        ``generator`` drives the policy's sampling (it must live on the
-        pipeline's device); ``padded_max_steps`` routes through the
+        ``generator`` drives the policy's sampling and a stochastic zoo
+        solver's noise (it must live on the pipeline's device);
+        ``padded_max_steps`` routes through the
         pad-to-max program."""
         prompt_ids = torch.as_tensor(prompt_ids, device=self.device)
         noise = torch.as_tensor(noise, device=self.device)

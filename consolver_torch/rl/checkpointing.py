@@ -10,15 +10,14 @@ save (the periodic ones and the failure / interrupt save) is its own.
 
 from __future__ import annotations
 
-import dataclasses
-import json
 import os
 import shutil
 import warnings
 
 import torch
 
-STATE_FILE = "state.pt"
+from consolver_torch.policy.io import TRAINER_STATE_FILE as STATE_FILE
+from consolver_torch.policy.io import save_factor_net
 
 
 class CheckpointMixin:
@@ -113,10 +112,6 @@ class CheckpointMixin:
     def save_pretrained(self, output_dir: str) -> str:
         """The final policy: ``factor_net.pt`` (its ``state_dict``) and
         ``factor_net_config.json``, loadable as
-        ``FactorNet(FactorNetConfig(**json)).load_state_dict(torch.load(...))``."""
-        os.makedirs(output_dir, exist_ok=True)
-        path = os.path.abspath(os.path.join(output_dir, "factor_net.pt"))
-        torch.save(self.factor_net.state_dict(), path)
-        with open(os.path.join(output_dir, "factor_net_config.json"), "w") as f:
-            json.dump(dataclasses.asdict(self.factor_net.config), f, indent=2)
-        return path
+        ``FactorNet(FactorNetConfig(**json)).load_state_dict(torch.load(...))``
+        or :func:`consolver_torch.policy.io.load_factor_ckpt`."""
+        return save_factor_net(self.factor_net, output_dir)

@@ -9,17 +9,21 @@ Port of ``consolver_tpu/rl/train_edit.py``.  Deltas from the SD trainer:
     keyed by ``(seed, global_step)``;
   * the rollouts go through :meth:`FluxKontextPipeline.rollout` under
     ``torch.no_grad()`` (its ``__call__`` is the serving entry, in
-    ``inference_mode``, whose tensors the FactorNet's backward cannot save).
+    ``inference_mode``, whose tensors the FactorNet's backward cannot save);
+  * ``dump_samples_to`` writes each step's first policy images as PNGs named
+    by their advantage.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from consolver_torch.data.group import repeat_random_sample_groups
+from consolver_torch.eval.gen_sweep import save_png
 from consolver_torch.pipelines.edit import FluxKontextPipeline
 from consolver_torch.rl import ppo
 from consolver_torch.rl.checkpointing import CheckpointMixin
@@ -38,11 +42,7 @@ class EditPPOTrainer(PPOStepMixin, CheckpointMixin):
         if pipeline.factor_net is None:
             raise ValueError("EditPPOTrainer needs a pipeline with a factor_net")
         _check_single_process(mesh)
-        if dump_samples_to is not None:
-            raise NotImplementedError(
-                "per-step sample dumps need eval.gen_sweep.save_png, not ported yet "
-                "(ROADMAP Queue A.10)"
-            )
+        self.dump_samples_to = dump_samples_to
         self.pipe = pipeline
         self.reward_fn = reward_fn
         self.config = config
@@ -90,7 +90,16 @@ class EditPPOTrainer(PPOStepMixin, CheckpointMixin):
                                                          num_groups=self.num_groups)
 
         out = self._run_updates(traj, advantages)
+        if self.dump_samples_to:
+            self._dump_samples(pred_img, advantages)
         self.global_step += 1
         out.update(reward=float(rewards.mean()), baseline_reward=float(base_reward.mean()),
                    num_inference=num_inference)
         return out
+
+    def _dump_samples(self, images, advantages, limit: int = 4):
+        """The step's first policy images as PNGs named by their advantage."""
+        out_dir = os.path.join(self.dump_samples_to, f"step_{self.global_step}")
+        os.makedirs(out_dir, exist_ok=True)
+        for i, (img, a) in enumerate(zip(images[:limit], advantages[:limit].tolist())):
+            save_png(os.path.join(out_dir, f"sample_{i}_adv_{a:.3f}.png"), img)

@@ -1,0 +1,889 @@
+"""Micro-batching inference engines for serving.
+
+Port of ``consolver_tpu/serve/engine.py``.  A resident worker thread takes
+requests from a queue, coalesces those that share a program key
+(``(steps, cfg, solver, deterministic)``) into one batch padded to a
+configured batch shape, and runs the whole hot path of the batch on the
+device: per-seed noise -> prompt encode -> denoise -> decode -> uint8.  A
+second thread fetches finished batches to the host and resolves the
+requests' futures, so batch N's readback overlaps batch N+1's dispatch (at
+most 2 batches in flight).
+
+:class:`InferenceEngine` serves text-to-image (SD family) and
+:class:`EditInferenceEngine` FLUX-Kontext instructional editing;
+:class:`ReplicaGroup` puts one engine on each of several devices.
+
+Determinism contract: a request's initial noise comes from its ``seed``
+alone (drawn on the CPU, so the same on every device), and every model op is
+per sample, so a request's bits never depend on its batch-mates.  On an
+H100 they can depend on its slot: cuDNN's bf16 3x3 convolutions with large
+inputs at 16x16 (the UNet's 1280-channel level) reduce the first rows of a
+batch in another order than the rest, which moves a few pixels by one uint8
+level between slots 0-1 and the others.  Two stochastic exceptions remain
+when sampling is on:
+
+- the learnable solvers (``consistencysolver`` / ``fmppo``) *sample* policy
+  actions from one batch-shared generator, so a request's actions depend on
+  its batch slot.  ``deterministic=True`` takes mode actions instead, and
+  the output is then a pure function of (prompt, seed, program key) and, on
+  the card, its slot, served always at the largest batch shape (see
+  :meth:`_BatchingEngine._pick_size`);
+- the ``sde-*`` solvers draw their per-step noise from that generator too.
+
+The batch generator is seeded from the first row's seed.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import copy
+import dataclasses
+import heapq
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import Any, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from consolver_torch.data.edit_prep import center_crop_resize
+from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
+from consolver_torch.policy import io as policy_io
+
+# solvers with a policy whose actions the deterministic knob affects; for
+# zoo solvers the knob is a no-op and must not fork programs or batches
+LEARNABLE_SOLVERS = frozenset({"consistencysolver", "fmppo"})
+MESH_NOT_PORTED = "mesh serving is not ported yet (ROADMAP Queue A.15)"
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationRequest:
+    """One text-to-image request.  The engine batches only requests with
+    equal ``program_key``; ``deterministic`` takes mode policy actions."""
+
+    prompt: str
+    seed: int = 0
+    num_inference_steps: int = 8
+    guidance_scale: float = 3.0
+    solver: str = "consistencysolver"
+    deterministic: bool = False
+
+    @property
+    def program_key(self) -> Tuple:
+        return (
+            int(self.num_inference_steps),
+            float(self.guidance_scale),
+            str(self.solver),
+            bool(self.deterministic) and self.solver in LEARNABLE_SOLVERS,
+        )
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class EditRequest:
+    """One instructional-edit request (FLUX-Kontext family).  ``image`` is
+    the reference as ``[H, W, 3]`` uint8 RGB; the engine center-crop-resizes
+    it to its resolution."""
+
+    instruction: str
+    image: np.ndarray
+    seed: int = 0
+    num_inference_steps: int = 5
+    guidance_scale: float = 2.5
+    solver: str = "fmppo"
+    deterministic: bool = False
+
+    @property
+    def program_key(self) -> Tuple:
+        return (
+            int(self.num_inference_steps),
+            float(self.guidance_scale),
+            str(self.solver),
+            bool(self.deterministic) and self.solver in LEARNABLE_SOLVERS,
+        )
+
+
+class EngineShutDown(RuntimeError):
+    pass
+
+
+class RequestExpired(RuntimeError):
+    """Set on a request's future when it sat queued longer than the engine's
+    ``max_wait_s`` before a batch slot opened (load shedding)."""
+
+
+def _uint8_in_program(images: torch.Tensor) -> torch.Tensor:
+    """[0, 1] float images -> uint8 on the device.  ``torch.round`` rounds
+    half to even, as ``jnp.round`` and ``np.round`` do."""
+    return torch.round(images.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def seed_noise(seeds: Sequence[int], shape: Tuple[int, ...]) -> torch.Tensor:
+    """``[len(seeds), *shape]`` f32 noise, row ``i`` drawn on the CPU from a
+    generator seeded with ``seeds[i]``: the same on every device."""
+    return torch.stack([torch.randn(shape, generator=torch.Generator().manual_seed(int(s)))
+                        for s in seeds])
+
+
+def _check_no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(MESH_NOT_PORTED)
+
+
+class _BatchingEngine:
+    """Resident worker thread that coalesces requests into padded batches.
+
+    Subclasses implement :meth:`_dispatch` (list of requests -> on-device
+    uint8 image batch).  Partial batches are padded by repeating the last
+    row (pad rows are computed and discarded).
+
+    The worker dispatches a batch (the host launches its kernels; it may
+    block where the pipeline synchronises), records a CUDA event after it
+    and hands both to the fetcher thread, which waits on the event and
+    copies the uint8 batch to the host on a stream of its own.  The fetch
+    queue holds at most 2 batches (backpressure on the worker).
+
+    Parameters
+    ----------
+    batch_size : int
+        The largest batch shape.
+    flush_ms : float
+        How long the worker waits for more same-program requests after the
+        first arrives before dispatching a partial batch.
+    max_wait_s : float, optional
+        Request deadline: a request still queued this long after submit is
+        failed with :class:`RequestExpired` when the worker next forms a
+        batch.  ``None`` (default) = never expire.
+    batch_sizes : tuple of int, optional
+        Additional (smaller) batch shapes: a partial batch pads to the
+        SMALLEST listed size that fits.  Defaults to ``(batch_size,)``.
+        Batches holding a ``deterministic`` request always pad to the max
+        shape (see :meth:`_pick_size`).
+    adaptive_flush : bool
+        Scale the flush window with the observed arrival rate: wait
+        ``min(flush_ms, (batch_size - pending) * EMA inter-arrival gap)``,
+        dispatch early at a shape boundary the next shape will not fill in
+        time, split an off-boundary batch at window expiry, and keep
+        collecting while the fetch queue is full.
+    """
+
+    def __init__(self, batch_size: int = 8, flush_ms: float = 30.0,
+                 max_queue: int = 256, max_wait_s: Optional[float] = None,
+                 batch_sizes: Optional[Tuple[int, ...]] = None,
+                 adaptive_flush: bool = False, device=None):
+        sizes = sorted({int(s) for s in (batch_sizes or (batch_size,))})
+        if sizes[0] < 1:
+            raise ValueError(f"batch sizes must be >= 1, got {sizes}")
+        self.batch_sizes = tuple(sizes)
+        self.batch_size = sizes[-1]
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self._adaptive = bool(adaptive_flush)
+        self._ema_gap_s: Optional[float] = None
+        self._last_submit: Optional[float] = None
+        self._flush_s = float(flush_ms) / 1e3
+        self._max_wait_s = None if max_wait_s is None else float(max_wait_s)
+        self._queue: queue.Queue = queue.Queue(maxsize=max_queue)
+        self._pending: collections.deque = collections.deque()
+        self._lock = threading.Lock()
+        self._stats = {
+            "requests": 0,
+            "completed": 0,
+            "errors": 0,
+            "expired": 0,
+            "batches": 0,
+            "batched_rows": 0,
+            "padded_rows": 0,
+            # (program, batch shape) pairs run by prewarm; prewarm batches
+            # bypass the queue and count in no other field
+            "prewarmed": 0,
+        }
+        # ring buffers of the last 512 per-request queue waits, per-batch
+        # execute times (dispatch start -> host images) and per-batch
+        # dispatch times (the worker's host time), in ms
+        self._wait_ms: collections.deque = collections.deque(maxlen=512)
+        self._exec_ms: collections.deque = collections.deque(maxlen=512)
+        self._dispatch_ms: collections.deque = collections.deque(maxlen=512)
+        self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                             else None)
+        self._stop = threading.Event()
+        self._fetch_queue: queue.Queue = queue.Queue(maxsize=2)
+        self._fetcher = threading.Thread(target=self._fetch_loop, name="consolver-serve-fetcher",
+                                         daemon=True)
+        self._fetcher.start()
+        self._worker = threading.Thread(target=self._run, name="consolver-serve-worker",
+                                        daemon=True)
+        self._worker.start()
+
+    # ------------------------------------------------------------- public
+    def submit(self, request) -> Future:
+        """Enqueue; the Future resolves to an ``[H, W, 3]`` uint8 image."""
+        if self._stop.is_set():
+            raise EngineShutDown("engine is shut down")
+        fut: Future = Future()
+        now = time.monotonic()
+        self._queue.put((request, fut, now))  # blocks when max_queue deep
+        with self._lock:
+            self._stats["requests"] += 1
+            # the inter-arrival EMA feeds the adaptive flush window; idle
+            # gaps are clamped at the window, so that an hour-long idle gap
+            # does not chop the next burst into smallest-shape batches
+            if self._last_submit is not None:
+                gap = min(now - self._last_submit, self._flush_s)
+                self._ema_gap_s = gap if self._ema_gap_s is None else (
+                    0.8 * self._ema_gap_s + 0.2 * gap)
+            self._last_submit = now
+        if self._stop.is_set():
+            # shutdown raced the enqueue: the worker's final drain may have
+            # passed this item already (a future resolved first wins)
+            with contextlib.suppress(Exception):
+                fut.set_exception(EngineShutDown("engine is shut down"))
+        return fut
+
+    def generate(self, request, timeout: Optional[float] = None) -> np.ndarray:
+        """Blocking convenience wrapper around :meth:`submit`."""
+        return self.submit(request).result(timeout)
+
+    def prewarm(self, *requests, timeout: Optional[float] = None) -> int:
+        """Run one padded dummy batch per distinct ``program_key`` at EVERY
+        configured batch size (deterministic signatures at the max shape
+        only, the one they are served at), outside the queue, before
+        traffic.  ``timeout`` bounds EACH program's warm time: a dispatch
+        that hangs raises ``TimeoutError`` to the caller (and is
+        abandoned on a daemon thread).  Returns the number of (signature,
+        batch size) programs warmed."""
+        unique = {}
+        for r in requests:
+            unique.setdefault(r.program_key, r)
+        n = 0
+        for r in unique.values():
+            sizes = (self.batch_sizes[-1],) if self._wants_pinned_shape([r]) else self.batch_sizes
+            for size in sizes:
+                self._bounded(lambda: self._fetch(self._run_batch([r] * size)[0], 1), timeout)
+                n += 1
+        with self._lock:
+            self._stats["prewarmed"] += n
+        return n
+
+    def _bounded(self, fn, timeout: Optional[float]):
+        if timeout is None:
+            return self._on_device(fn)
+        box: dict = {}
+        done = threading.Event()
+
+        def runner():
+            try:
+                box["out"] = self._on_device(fn)
+            except BaseException as exc:  # surfaced on the caller below
+                box["err"] = exc
+            finally:
+                done.set()
+
+        threading.Thread(target=runner, daemon=True, name="consolver-prewarm").start()
+        if not done.wait(timeout):
+            raise TimeoutError(f"a prewarm program exceeded {timeout:.0f}s")
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    def stats(self) -> dict:
+        with self._lock:
+            s = dict(self._stats)
+            rings = {"queue_wait_ms": sorted(self._wait_ms), "execute_ms": sorted(self._exec_ms),
+                     "dispatch_ms": sorted(self._dispatch_ms)}
+        total_rows = s["batched_rows"] + s["padded_rows"]
+        s["mean_batch_occupancy"] = s["batched_rows"] / total_rows if total_rows else 0.0
+        # the share of computed rows that were padding
+        s["pad_waste_pct"] = round(100.0 * s["padded_rows"] / total_rows, 2) if total_rows else 0.0
+        s["batch_size"] = self.batch_size
+        s["batch_sizes"] = list(self.batch_sizes)
+        for name, xs in rings.items():
+            if xs:
+                s[f"{name}_p50"] = round(xs[len(xs) // 2], 1)
+                s[f"{name}_p95"] = round(xs[int(len(xs) * 0.95)], 1)
+        return s
+
+    def shutdown(self, timeout: float = 10.0) -> None:
+        """Stop accepting work, fail queued requests, join the threads.
+
+        The worker owns ``_pending`` and drains it (and the queue) itself
+        when it sees the stop flag, so a join that times out while a batch
+        is in flight is safe: that batch completes through the fetcher and
+        the worker fails the leftovers on its way out.  Only after the
+        worker has exited does shutdown drain the queue again, to catch a
+        submit that raced past the stop check."""
+        self._stop.set()
+        deadline = time.monotonic() + timeout
+        self._worker.join(timeout)
+        if not self._worker.is_alive():
+            self._fetcher.join(max(0.0, deadline - time.monotonic()))
+            self._drain_on_stop()
+
+    def _drain_on_stop(self) -> None:
+        """Fail everything still pending or queued with EngineShutDown."""
+        drained = list(self._pending)
+        self._pending = collections.deque()
+        while True:
+            try:
+                drained.append(self._queue.get_nowait())
+            except queue.Empty:
+                break
+        for item in drained:
+            if not item[1].done():
+                with contextlib.suppress(Exception):
+                    item[1].set_exception(EngineShutDown("engine shut down"))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()
+
+    # ------------------------------------------------------------- worker
+    def _on_device(self, fn):
+        """``fn()`` in inference mode, with the engine's device current
+        (both are per thread)."""
+        ctx = torch.cuda.device(self.device) if self.device.type == "cuda" else (
+            contextlib.nullcontext())
+        with ctx, torch.inference_mode():
+            return fn()
+
+    def _run(self) -> None:
+        self._on_device(self._loop)
+        # stop flag observed: this thread owns _pending, so the final drain
+        # happens here; the sentinel lets the fetcher finish what was
+        # dispatched, then exit
+        self._drain_on_stop()
+        self._fetch_queue.put(None)
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self._pending.append(self._queue.get(timeout=0.05))
+            except queue.Empty:
+                if not self._pending:
+                    continue
+            # flush window: give same-program stragglers a chance to join
+            deadline = time.monotonic() + self._flush_window()
+            while len(self._pending) < self.batch_size:
+                remain = deadline - time.monotonic()
+                # adaptive boundary stop: pending sits on a smaller batch
+                # shape that the arrival rate says will not grow to the next
+                # one in time: dispatch now at zero pad rows.  Never for
+                # pinned (deterministic) traffic, never while the device is
+                # backlogged (waiting is free then).
+                if (self._boundary_stop(len(self._pending), remain)
+                        and not self._fetch_queue.full()
+                        and not self._wants_pinned_shape(it[0] for it in self._pending)):
+                    break
+                if remain > 0:
+                    try:
+                        self._pending.append(self._queue.get(timeout=remain))
+                        continue
+                    except queue.Empty:
+                        pass
+                # window elapsed: take what already sits in the queue first,
+                # so that an instantaneous burst is not chopped
+                while len(self._pending) < self.batch_size:
+                    try:
+                        self._pending.append(self._queue.get_nowait())
+                    except queue.Empty:
+                        break
+                # adaptive mode: keep collecting while the device already has
+                # the most batches in flight (dispatching would only block)
+                if (self._adaptive and self._fetch_queue.full() and not self._stop.is_set()
+                        and len(self._pending) < self.batch_size):
+                    deadline = time.monotonic() + self._flush_s
+                    continue
+                break
+            now = time.monotonic()
+            key, batch, rest, expired = None, [], collections.deque(), 0
+            for item in self._pending:
+                if self._max_wait_s is not None and now - item[2] > self._max_wait_s:
+                    expired += 1
+                    if not item[1].done():
+                        item[1].set_exception(RequestExpired(
+                            f"request queued {now - item[2]:.1f}s > max_wait_s={self._max_wait_s}"))
+                    continue
+                if key is None:
+                    key = item[0].program_key
+                if item[0].program_key == key and len(batch) < self.batch_size:
+                    batch.append(item)
+                else:
+                    rest.append(item)
+            self._pending = rest
+            if expired:
+                with self._lock:
+                    self._stats["expired"] += expired
+            if batch:
+                # split flush: a window that expired off a shape boundary
+                # dispatches the largest shape that fits and returns the
+                # remainder to pending, merged back by ARRIVAL time so that
+                # it cannot front-run an earlier request of another program
+                keep = len(batch)
+                if not self._wants_pinned_shape(it[0] for it in batch):
+                    keep = self._expiry_trim(keep)
+                if keep < len(batch):
+                    self._pending = collections.deque(heapq.merge(
+                        batch[keep:], self._pending, key=lambda it: it[2]))
+                    batch = batch[:keep]
+                self._serve_batch(batch)
+
+    def _run_batch(self, requests):
+        """Dispatch, then an event recorded after the batch's work on a
+        CUDA device (None elsewhere)."""
+        images = self._dispatch(requests)
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        return images, ready
+
+    def _serve_batch(self, batch) -> None:
+        t0 = time.monotonic()
+        size = self._pick_size(len(batch), self._wants_pinned_shape([it[0] for it in batch]))
+        try:
+            images, ready = self._run_batch([item[0] for item in batch])
+        except Exception as exc:  # surface to every caller in the batch
+            with self._lock:
+                self._stats["errors"] += len(batch)
+                self._stats["batches"] += 1
+            for item in batch:
+                item[1].set_exception(exc)
+            return
+        with self._lock:
+            self._dispatch_ms.append((time.monotonic() - t0) * 1e3)
+        # blocks at 2 batches in flight: device-memory backpressure
+        self._fetch_queue.put((batch, images, ready, t0, size))
+
+    def _fetch_loop(self) -> None:
+        """Fetcher thread: wait for each dispatched batch, copy it to the
+        host and resolve its futures, overlapping the worker's next
+        dispatch."""
+        while True:
+            item = self._fetch_queue.get()
+            if item is None:
+                return
+            batch, images, ready, t0, size = item
+            try:
+                if ready is not None:
+                    ready.synchronize()
+                stream = (torch.cuda.stream(self._copy_stream) if self._copy_stream is not None
+                          else contextlib.nullcontext())
+                with stream:
+                    host = self._fetch(images, len(batch))
+            except Exception as exc:  # runtime errors surface at readback
+                with self._lock:
+                    self._stats["errors"] += len(batch)
+                    self._stats["batches"] += 1
+                for it in batch:
+                    if not it[1].done():
+                        it[1].set_exception(exc)
+                continue
+            t1 = time.monotonic()
+            with self._lock:
+                self._stats["batches"] += 1
+                self._stats["batched_rows"] += len(batch)
+                self._stats["padded_rows"] += size - len(batch)
+                self._stats["completed"] += len(batch)
+                self._exec_ms.append((t1 - t0) * 1e3)
+                self._wait_ms.extend((t0 - it[2]) * 1e3 for it in batch)
+            for (_, fut, _), img in zip(batch, host):
+                fut.set_result(img)
+
+    def _dispatch(self, requests):
+        """list of requests -> on-device uint8 image batch."""
+        raise NotImplementedError
+
+    # ------------------------------------------------------------ helpers
+    def _flush_window(self) -> float:
+        """Fixed ``flush_ms``, or in adaptive mode the EMA estimate of the
+        time a full batch of arrivals needs, capped at ``flush_ms``."""
+        if not self._adaptive:
+            return self._flush_s
+        with self._lock:
+            gap = self._ema_gap_s
+        if gap is None:
+            return self._flush_s
+        need = max(0, self.batch_size - len(self._pending)) * gap
+        return min(self._flush_s, need)
+
+    def _boundary_stop(self, n: int, remain_s: float) -> bool:
+        """Adaptive early dispatch: ``n`` pending rows sit on a smaller
+        configured batch shape and the EMA inter-arrival gap says the next
+        shape will not fill within the remaining window."""
+        if not self._adaptive or n not in self.batch_sizes or n >= self.batch_sizes[-1]:
+            return False
+        # requests already in the queue disprove any rate estimate
+        if not self._queue.empty():
+            return False
+        with self._lock:
+            gap = self._ema_gap_s
+        if gap is None:
+            return False
+        nxt = min(s for s in self.batch_sizes if s > n)
+        return (nxt - n) * gap > max(remain_s, 0.0)
+
+    def _expiry_trim(self, n: int) -> int:
+        """How many of ``n`` rows to dispatch when the window expires off a
+        shape boundary: in adaptive mode the largest shape that fits (rows
+        below the smallest shape still pad)."""
+        if not self._adaptive:
+            return n
+        fit = [s for s in self.batch_sizes if s <= n]
+        return max(fit) if fit else n
+
+    def _pick_size(self, n: int, deterministic: bool = False) -> int:
+        """Smallest configured batch shape that fits ``n`` rows.
+
+        Batches holding a ``deterministic`` request ALWAYS pad to the max
+        shape: cuBLAS and cuDNN pick their kernels per shape, so the same
+        row may differ in its last bits between two batch shapes.  Pinning
+        deterministic traffic to one shape keeps its output a pure function
+        of (prompt, seed, program); sampled traffic takes the smallest."""
+        if deterministic:
+            return self.batch_sizes[-1]
+        for s in self.batch_sizes:
+            if s >= n:
+                return s
+        return self.batch_sizes[-1]
+
+    @staticmethod
+    def _wants_pinned_shape(requests) -> bool:
+        return any(getattr(r, "deterministic", False) for r in requests)
+
+    def _pad(self, items: list, requests) -> list:
+        """Pad ``items`` (one per request) to the picked batch shape.
+        ``requests`` carries the request objects for the deterministic pin
+        (the items are derived values without the flag)."""
+        size = self._pick_size(len(items), self._wants_pinned_shape(requests))
+        return items + [items[-1]] * (size - len(items))
+
+    # --------------------------------------------------------- hot reload
+    def update_factor_params(self, state) -> None:
+        """Swap the resident policy for one with the parameters ``state``.
+
+        The pipeline's cached denoise functions hold the FactorNet they were
+        built with, and a batch in flight reads the resident net, so the new
+        parameters go into a NEW net (a copy of the resident one), which
+        replaces the pipeline by a shallow copy with an empty denoise cache:
+        one attribute assignment, atomic for the worker thread.  Batches
+        already dispatched finish on the old policy."""
+        old = getattr(self.pipeline, "factor_net", None)
+        if old is None:
+            raise ValueError("engine has no resident policy (factor_net is None)")
+        want = {k: tuple(v.shape) for k, v in old.state_dict().items()}
+        got = {k: tuple(v.shape) for k, v in state.items()}
+        if set(got) != set(want):
+            raise ValueError(f"factor state tree mismatch: {sorted(got)} != resident {sorted(want)}")
+        if got != want:
+            raise ValueError(f"factor param shape mismatch: {got} != resident {want}; the policy "
+                             "dims are a serving-program property, restart to change them")
+        net = copy.deepcopy(old)
+        with torch.no_grad():
+            net.load_state_dict(state)
+        p2 = copy.copy(self.pipeline)
+        p2.factor_net = net
+        p2._denoise_cache = {}
+        self.pipeline = p2
+
+    def load_factor_ckpt(self, path: str) -> dict:
+        """Hot-reload the policy from a trainer ``checkpoint-{step}`` or a
+        ``save_pretrained`` export (``policy/io.py``).  A config sidecar that
+        differs from the resident net's config raises ``ValueError``."""
+        net = getattr(self.pipeline, "factor_net", None)
+        if net is None:
+            raise ValueError("engine pipeline has no factor_net")
+        cfg, state = policy_io.load_factor_ckpt(path, net.config)
+        if cfg != net.config:
+            raise ValueError(f"checkpoint FactorNetConfig {cfg} != engine's {net.config}; the "
+                             "dims are a serving-program property: restart the server to change them")
+        self.update_factor_params(state)
+        return {"path": path, "factor_net_config": dataclasses.asdict(cfg)}
+
+    @staticmethod
+    def _fetch(images, n: int) -> list:
+        """The batch's first ``n`` images (the rest are pad rows) as host
+        uint8 arrays."""
+        if torch.is_tensor(images):
+            images = images[:n].cpu().numpy()
+        return list(np.asarray(images)[:n])
+
+
+class InferenceEngine(_BatchingEngine):
+    """Text-to-image serving engine (SD family).
+
+    ``pipeline``: a :class:`TextToImagePipeline` (never mutated).
+    ``latent_size``: latent H = W (images come out 8x larger for SD-1.5).
+    ``padded_max_steps``: serve every ``num_inference_steps`` in ``[1,
+    padded_max_steps]`` of the learnable solver from one pad-to-max
+    program (zoo solvers keep per-count programs).
+    ``mesh``: not ported (ROADMAP Queue A.15).
+    """
+
+    def __init__(
+        self,
+        pipeline,
+        batch_size: int = 8,
+        latent_size: int = 64,
+        max_length: Optional[int] = None,
+        flush_ms: float = 30.0,
+        max_queue: int = 256,
+        max_wait_s: Optional[float] = None,
+        mesh=None,
+        padded_max_steps: Optional[int] = None,
+        batch_sizes: Optional[Tuple[int, ...]] = None,
+        adaptive_flush: bool = False,
+    ):
+        _check_no_mesh(mesh)
+        self.padded_max_steps = padded_max_steps
+        self.pipeline = pipeline
+        self.latent_size = int(latent_size)
+        self.max_length = int(max_length if max_length is not None
+                              else pipeline.text_encoder.cfg.max_position_embeddings)
+        self._programs: dict = {}
+        super().__init__(batch_size, flush_ms, max_queue, max_wait_s, batch_sizes=batch_sizes,
+                         adaptive_flush=adaptive_flush, device=pipeline.device)
+
+    def _serve_program(self, program_key):
+        """The batch's whole hot path for one program key: per-seed noise ->
+        text encode -> denoise -> VAE decode -> uint8, on the pipeline it is
+        given (read once per batch, so that a hot reload applies from the
+        next batch)."""
+        if program_key not in self._programs:
+            steps, cfg_scale, solver, deterministic = program_key
+            padded = (self.padded_max_steps
+                      if solver == "consistencysolver" and self.padded_max_steps is not None
+                      and steps <= self.padded_max_steps else None)
+
+            def run(pipe, seeds, ids):
+                shape = (self.latent_size, self.latent_size, pipe.unet.cfg.in_channels)
+                noise = seed_noise(seeds, shape).to(pipe.device)
+                generator = torch.Generator(pipe.device).manual_seed(int(seeds[0]))
+                images, _ = pipe(generator, ids, noise, num_inference_steps=steps,
+                                 guidance_scale=cfg_scale, solver=solver,
+                                 deterministic_policy=deterministic, padded_max_steps=padded,
+                                 record=False)  # serving discards the RL trajectory
+                return _uint8_in_program(images)
+
+            self._programs[program_key] = run
+        return self._programs[program_key]
+
+    def _dispatch(self, requests):
+        pipe = self.pipeline
+        prompts = self._pad([r.prompt for r in requests], requests)
+        tok = pipe.tokenizer or HashTokenizer(max_length=self.max_length)
+        ids = tokenize_batch(tok, prompts, self.max_length,
+                             vocab_size=pipe.text_encoder.cfg.vocab_size)
+        seeds = self._pad([int(r.seed) for r in requests], requests)
+        return self._serve_program(requests[0].program_key)(pipe, seeds, ids)
+
+
+class EditInferenceEngine(_BatchingEngine):
+    """FLUX-Kontext instructional-edit serving engine over a resident
+    :class:`FluxKontextPipeline`.  The image resolution is pinned per
+    engine; reference images are center-crop-resized on the host.
+    ``t5_tokenizer`` / ``clip_tokenizer``: real tokenizers, else hashing.
+    ``mesh``: not ported (ROADMAP Queue A.15)."""
+
+    def __init__(
+        self,
+        pipeline,
+        resolution: int = 1024,
+        batch_size: int = 1,
+        t5_tokenizer: Any = None,
+        clip_tokenizer: Any = None,
+        t5_max_length: int = 128,
+        clip_max_length: int = 77,
+        flush_ms: float = 30.0,
+        max_queue: int = 256,
+        max_wait_s: Optional[float] = None,
+        mesh=None,
+        padded_max_steps: Optional[int] = None,
+        batch_sizes: Optional[Tuple[int, ...]] = None,
+        adaptive_flush: bool = False,
+    ):
+        _check_no_mesh(mesh)
+        self.padded_max_steps = padded_max_steps
+        self.pipeline = pipeline
+        self.resolution = int(resolution)
+        vae_factor = 2 ** (len(pipeline.vae.cfg.block_out_channels) - 1)
+        if self.resolution % (2 * vae_factor):
+            raise ValueError(f"resolution {resolution} must be a multiple of {2 * vae_factor} "
+                             "(VAE stride x 2x2 packing)")
+        self.latent_size = self.resolution // vae_factor
+        self.t5_tokenizer = t5_tokenizer
+        self.clip_tokenizer = clip_tokenizer
+        self.t5_max_length = int(t5_max_length)
+        self.clip_max_length = int(clip_max_length)
+        self._programs: dict = {}
+        super().__init__(batch_size, flush_ms, max_queue, max_wait_s, batch_sizes=batch_sizes,
+                         adaptive_flush=adaptive_flush, device=pipeline.device)
+
+    def _serve_program(self, program_key):
+        """The edit's whole hot path for one program key: per-seed noise ->
+        T5 + CLIP encode -> VAE encode of the reference -> FM denoise -> VAE
+        decode -> uint8."""
+        if program_key not in self._programs:
+            steps, cfg_scale, solver, deterministic = program_key
+            padded = (self.padded_max_steps
+                      if solver == "fmppo" and self.padded_max_steps is not None
+                      and steps <= self.padded_max_steps else None)
+
+            def run(pipe, seeds, t5_ids, clip_ids, ref):
+                shape = (self.latent_size, self.latent_size, pipe.vae.cfg.latent_channels)
+                noise = seed_noise(seeds, shape).to(pipe.device)
+                generator = torch.Generator(pipe.device).manual_seed(int(seeds[0]))
+                images, _ = pipe(generator, t5_ids, clip_ids, ref, noise,
+                                 num_inference_steps=steps, guidance_scale=cfg_scale,
+                                 solver=solver, deterministic_policy=deterministic,
+                                 record=False, padded_max_steps=padded)
+                return _uint8_in_program(images)
+
+            self._programs[program_key] = run
+        return self._programs[program_key]
+
+    def _dispatch(self, requests):
+        pipe = self.pipeline
+        instructions = self._pad([r.instruction for r in requests], requests)
+        refs01 = self._pad([center_crop_resize(np.asarray(r.image), self.resolution)
+                            for r in requests], requests)
+        ref = torch.from_numpy(np.stack(refs01) * 2.0 - 1.0)
+        t5_tok = self.t5_tokenizer or HashTokenizer(max_length=self.t5_max_length)
+        clip_tok = self.clip_tokenizer or HashTokenizer(max_length=self.clip_max_length)
+        t5_ids = tokenize_batch(t5_tok, instructions, self.t5_max_length,
+                                vocab_size=pipe.t5.cfg.vocab_size)
+        clip_ids = tokenize_batch(clip_tok, instructions, self.clip_max_length,
+                                  vocab_size=pipe.clip.cfg.vocab_size)
+        seeds = self._pad([int(r.seed) for r in requests], requests)
+        return self._serve_program(requests[0].program_key)(pipe, seeds, t5_ids, clip_ids, ref)
+
+
+# ---------------------------------------------------------------- replicas
+_REPLICA_MODULES = {
+    "t2i": ("unet", "text_encoder", "vae", "factor_net"),
+    "edit": ("transformer", "t5", "clip", "vae", "factor_net"),
+}
+
+
+def _pin_to_device(pipeline, device, module_attrs: Tuple[str, ...]):
+    """A shallow copy of ``pipeline`` holding its own copy of every model on
+    ``device``, with an empty denoise cache (its functions would close over
+    the original models)."""
+    p2 = copy.copy(pipeline)
+    for attr in module_attrs:
+        module = getattr(pipeline, attr, None)
+        if module is not None:
+            setattr(p2, attr, copy.deepcopy(module).to(device))
+    p2.device = torch.device(device)
+    p2._denoise_cache = {}
+    return p2
+
+
+class ReplicaGroup:
+    """One engine per device with least-loaded dispatch: each replica owns a
+    full model copy and its own queue.  Quacks like an engine
+    (submit / generate / prewarm / stats / shutdown / hot reload)."""
+
+    def __init__(self, engines):
+        engines = list(engines)
+        if not engines:
+            raise ValueError("ReplicaGroup needs at least one engine")
+        self.engines = engines
+        self._inflight = [0] * len(engines)
+        self._rr = 0
+        self._lock = threading.Lock()
+
+    @property
+    def batch_size(self) -> int:
+        return self.engines[0].batch_size
+
+    def submit(self, request) -> Future:
+        """Dispatch to the replica with the fewest in-flight requests
+        (round-robin among ties)."""
+        n = len(self.engines)
+        with self._lock:
+            order = [(self._rr + j) % n for j in range(n)]
+            i = min(order, key=lambda j: self._inflight[j])
+            self._rr = (i + 1) % n
+            self._inflight[i] += 1
+        fut = self.engines[i].submit(request)
+
+        def _done(_fut, i=i):
+            with self._lock:
+                self._inflight[i] -= 1
+
+        fut.add_done_callback(_done)
+        return fut
+
+    def generate(self, request, timeout: Optional[float] = None) -> np.ndarray:
+        return self.submit(request).result(timeout)
+
+    def prewarm(self, *requests, timeout: Optional[float] = None) -> int:
+        """Warm EVERY replica."""
+        return sum(eng.prewarm(*requests, timeout=timeout) for eng in self.engines)
+
+    def stats(self) -> dict:
+        per = [eng.stats() for eng in self.engines]
+        agg = {k: sum(s[k] for s in per) for k in (
+            "requests", "completed", "errors", "batches", "batched_rows", "padded_rows",
+            "prewarmed")}
+        agg["batch_size"] = self.batch_size
+        agg["replicas"] = len(per)
+        total_rows = agg["batched_rows"] + agg["padded_rows"]
+        agg["mean_batch_occupancy"] = agg["batched_rows"] / total_rows if total_rows else 0.0
+        agg["pad_waste_pct"] = (round(100.0 * agg["padded_rows"] / total_rows, 2)
+                                if total_rows else 0.0)
+        # latency percentiles over the replicas' pooled ring buffers
+        for name, attr in (("queue_wait_ms", "_wait_ms"), ("execute_ms", "_exec_ms"),
+                           ("dispatch_ms", "_dispatch_ms")):
+            xs = []
+            for eng in self.engines:
+                with eng._lock:
+                    xs.extend(getattr(eng, attr))
+            xs.sort()
+            if xs:
+                agg[f"{name}_p50"] = round(xs[len(xs) // 2], 1)
+                agg[f"{name}_p95"] = round(xs[int(len(xs) * 0.95)], 1)
+        agg["per_replica"] = per
+        return agg
+
+    def update_factor_params(self, state) -> None:
+        """Hot-reload the policy on EVERY replica."""
+        for eng in self.engines:
+            eng.update_factor_params(state)
+
+    def load_factor_ckpt(self, path: str) -> dict:
+        # read the checkpoint once; the other replicas copy the new net's state
+        out = self.engines[0].load_factor_ckpt(path)
+        state = self.engines[0].pipeline.factor_net.state_dict()
+        for eng in self.engines[1:]:
+            eng.update_factor_params(state)
+        out["replicas"] = len(self.engines)
+        return out
+
+    def shutdown(self, timeout: float = 10.0) -> None:
+        for eng in self.engines:
+            eng.shutdown(timeout)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()
+
+
+def make_replicas(pipeline, engine_cls, n_replicas: int, devices=None,
+                  **engine_kwargs) -> ReplicaGroup:
+    """One ``engine_cls`` per device, each with its own model copy.
+    ``devices`` defaults to ``cuda:0 .. cuda:{n-1}`` of the visible cards."""
+    if devices is None:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    if n_replicas > len(devices):
+        raise ValueError(f"{n_replicas} replicas > {len(devices)} visible devices")
+    family = "edit" if issubclass(engine_cls, EditInferenceEngine) else "t2i"
+    engines = [engine_cls(_pin_to_device(pipeline, devices[i], _REPLICA_MODULES[family]),
+                          **engine_kwargs)
+               for i in range(n_replicas)]
+    return ReplicaGroup(engines)

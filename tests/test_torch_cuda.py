@@ -466,3 +466,101 @@ def test_tiny_ppo_train_step_on_the_card(cuda, monkeypatch):
         assert all(torch.isfinite(torch.tensor(metrics[k])) for k in ("loss", "reward", "grad_norm"))
     assert trainer.global_step == 2 and fa.flash_attention.launches > launches
     assert any(not torch.equal(a, b) for a, b in zip(before, net.parameters()))
+
+
+SLICE_TOL = 5e-4  # the tiny f32 stack, card vs CPU, as in chip_smoke.py
+
+
+@pytest.mark.parametrize("shape,sk,ref_rows", [
+    ((2, 4096, 8, 40), 4096, 2), ((2, 4096, 8, 40), 77, 2),
+    ((2, 1024, 8, 80), 1024, 2), ((2, 1024, 8, 80), 77, 2),
+    ((2, 256, 8, 160), 256, 2), ((2, 256, 8, 160), 77, 2),
+    ((2, 64, 8, 160), 64, 2), ((2, 64, 8, 160), 77, 2),
+    ((1, 8320, 24, 128), 8320, 1),
+], ids=["l0_self", "l0_cross", "l1_self", "l1_cross", "l2_self", "l2_cross", "mid_self",
+        "mid_cross", "flux_joint_t5_128"])
+def test_kernel1_at_the_serving_shapes(cuda, monkeypatch, shape, sk, ref_rows):
+    """A lone SD-1.5 request under CFG (UNet batch 2) and the edit engine's
+    128 T5 tokens (4096 + 4096 + 128 joint tokens), on the tensor cores."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _bf16_qkv(shape, sk, 20, cuda)
+    assert _kernel1_route(q, k, v, ref_rows=ref_rows) == "mma"
+
+
+def _tiny_sd_pipelines(cuda, factor_net=None, seed=15):
+    from consolver_torch.core.schedules import DiffusionSchedule
+    from consolver_torch.models.clip_text import ClipTextConfig, ClipTextEncoder
+    from consolver_torch.models.unet_2d import UNet2DCondition, UNetConfig
+    from consolver_torch.models.vae import AutoencoderKL, VaeConfig
+    from consolver_torch.pipelines.t2i import TextToImagePipeline
+
+    g = torch.Generator().manual_seed(seed)
+    models = [UNet2DCondition(UNetConfig.tiny(), device="cpu"),
+              ClipTextEncoder(ClipTextConfig.tiny(), device="cpu"),
+              AutoencoderKL(VaeConfig.tiny(), device="cpu")]
+    with torch.no_grad():
+        for m in models + ([factor_net] if factor_net is not None else []):
+            for p in m.parameters():
+                p.normal_(0.0, 0.1, generator=g)
+    return [TextToImagePipeline(*(copy.deepcopy(m).to(dev) for m in models),
+                                DiffusionSchedule.sd15(),
+                                factor_net=copy.deepcopy(factor_net).to(dev) if factor_net else None,
+                                device=dev)
+            for dev in ("cpu", cuda)]
+
+
+@pytest.mark.parametrize("name", ["ddim", "ipndm", "unipc", "deis", "multistep-dpm", "amed",
+                                  "dmd2", "sde-dpmsolver", "sde-dpmsolver++"])
+def test_tiny_stack_zoo_card_matches_cpu(cuda, monkeypatch, name):
+    """Every zoo solver on the tiny f32 stack (4 steps, CFG 3), card vs CPU
+    (TF32 off); the sde variants take the same CPU-drawn per-step noise."""
+    from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
+    from consolver_torch.pipelines import solver_zoo
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    ids = tokenize_batch(HashTokenizer(), ["a red fox", "a bowl of ramen"], 77, vocab_size=1000)
+    noise = torch.randn((2, 8, 8, 4), generator=torch.Generator().manual_seed(16))
+
+    def draw(i, shape):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(100 + i))
+
+    out = []
+    for pipe in _tiny_sd_pipelines(cuda):
+        with torch.inference_mode():
+            pids = torch.as_tensor(ids, device=pipe.device)
+            context, uncond = pipe._encode(pids, pipe.uncond_ids_for(pids))
+            fn = solver_zoo.make_baseline_denoise_fn(pipe.unet, pipe.schedule, name, 4, 3.0,
+                                                     noise_fn=draw)
+            lat = fn(None, noise.to(pipe.device), context, uncond)
+            out.append((lat.cpu(), pipe.decode_latents(lat).cpu()))
+    (cpu_lat, cpu_img), (card_lat, card_img) = out
+    assert torch.isfinite(card_lat).all()
+    assert (cpu_lat - card_lat).abs().max().item() <= SLICE_TOL
+    assert (cpu_img - card_img).abs().max().item() <= SLICE_TOL
+
+
+def test_engine_deterministic_slot_independence_on_the_card(cuda):
+    """A deterministic request served alone and in slot 2 of a full batch
+    (both at the pinned max shape) gives the same bits on the card."""
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+    from consolver_torch.serve import GenerationRequest, InferenceEngine
+
+    net = FactorNet(FactorNetConfig(order_dim=2, scaler_dim=0, num_actions=11), device="cpu")
+    _, pipe = _tiny_sd_pipelines(cuda, factor_net=net, seed=17)
+
+    def req(i):
+        return GenerationRequest(prompt=f"prompt {i}", seed=100 + i, num_inference_steps=3,
+                                 deterministic=True)
+
+    with InferenceEngine(pipe, batch_size=4, batch_sizes=(1, 4), latent_size=8,
+                         flush_ms=150.0) as eng:
+        launches = fa.flash_attention.launches
+        solo = eng.generate(req(0), timeout=300)
+        futs = [eng.submit(req(i)) for i in (10, 11, 0, 13)]
+        packed = [f.result(timeout=300) for f in futs]
+        stats = eng.stats()
+    assert fa.flash_attention.launches > launches
+    assert solo.shape == (16, 16, 3) and solo.dtype.name == "uint8"
+    assert (solo == packed[2]).all()
+    assert stats["padded_rows"] == 3 and stats["batches"] == 2

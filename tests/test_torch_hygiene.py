@@ -47,7 +47,13 @@ def _is_torch_compile(name, owner):
 
 
 def test_port_files_exist():
-    assert len(PORT_FILES) >= 39 and SMOKE.exists()
+    """The port's modules, the serving path's included (solver zoo, preview,
+    PNG codec, edit prep, policy IO, engines and HTTP)."""
+    names = {str(p.relative_to(ROOT / "consolver_torch")) for p in PORT_FILES}
+    assert len(PORT_FILES) >= 50 and SMOKE.exists()
+    assert {"utils/png.py", "pipelines/solver_zoo.py", "pipelines/preview.py",
+            "eval/gen_sweep.py", "data/edit_prep.py", "policy/io.py", "serve/engine.py",
+            "serve/http.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [SMOKE], ids=lambda p: str(p.relative_to(ROOT)))

@@ -40,6 +40,7 @@ from consolver_torch.rewards import metrics as tmetrics
 from consolver_torch.rl import ppo as tppo
 from consolver_torch.rl import train as ttrain
 from consolver_torch.rl import train_edit as ttrain_edit
+from consolver_torch.utils import png
 from consolver_tpu.data import teacher_gen as jteacher
 from consolver_tpu.pipelines.edit import FluxKontextPipeline as JPipe
 from consolver_tpu.policy.factor_net import FactorNet, FactorNetConfig
@@ -153,11 +154,17 @@ def test_edit_train_step_matches_jax(base, monkeypatch, padded):
 
 
 def test_edit_trainer_unported_options_raise(base, tmp_path):
+    """Data parallelism waits for Queue A.15; ``dump_samples_to`` writes the
+    step's first policy images as PNGs named by their advantage."""
     _, tpipe = _pipelines(base)
     _, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="A.10"):
-        ttrain_edit.EditPPOTrainer(tpipe, tmetrics.image_psnr_reward, cfg,
-                                   dump_samples_to=str(tmp_path))
+    trainer = ttrain_edit.EditPPOTrainer(tpipe, tmetrics.image_psnr_reward, cfg,
+                                         dump_samples_to=str(tmp_path))
+    trainer.train_step(_batch(rows=2))
+    names = sorted(os.listdir(tmp_path / "step_0"))
+    assert len(names) == 2 and all(n.startswith("sample_") and "_adv_" in n for n in names)
+    img = png.read_png(str(tmp_path / "step_0" / names[0]))
+    assert img.shape == (16, 16, 3) and img.dtype == np.uint8
     with pytest.raises(NotImplementedError, match="A.15"):
         ttrain_edit.EditPPOTrainer(tpipe, tmetrics.image_psnr_reward, cfg, mesh=object())
 
@@ -258,10 +265,33 @@ def test_example_noise_is_per_example_and_device_free():
 
 
 def test_teacher_sanity_images_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tteacher.generate_teacher_set(lambda g, n, i: n, np.ones((1, 3)), str(tmp_path), (2, 2, 4),
-                                      decode_fn=lambda x: x, save_sanity_images=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tteacher.generate_edit_teacher_set(lambda *a: a[1], lambda t: t, str(tmp_path),
-                                           str(tmp_path), (2, 2, 4), decode_fn=lambda x: x,
-                                           save_sanity_images=3, device="cpu")
+    """``decode_fn`` with ``save_sanity_images`` writes ``sanity_{i:03d}.png``
+    for the first samples, through ``eval.gen_sweep.save_png``, as the JAX
+    generators do."""
+    def decode(latents):  # [B, 2, 2, 4] -> [B, 2, 2, 3] in [0, 1]
+        return torch.sigmoid(latents[..., :3])
+
+    ids = np.arange(12).reshape(4, 3) + 1
+    n = tteacher.generate_teacher_set(lambda g, noise, i: noise, ids, str(tmp_path / "sd"),
+                                      (2, 2, 4), batch_size=2, decode_fn=decode,
+                                      save_sanity_images=3, device="cpu")
+    assert n == 4
+    sanity = sorted(f for f in os.listdir(tmp_path / "sd") if f.endswith(".png"))
+    assert sanity == ["sanity_000.png", "sanity_001.png", "sanity_002.png"]
+    with np.load(tmp_path / "sd" / "000001.npz") as z:
+        want = np.clip(decode(torch.from_numpy(z["latent"]))[None].numpy() * 255.0 + 0.5,
+                       0, 255).astype(np.uint8)[0]
+    np.testing.assert_array_equal(png.read_png(str(tmp_path / "sd" / "sanity_001.png")), want)
+
+    prepared = tmp_path / "prepared"
+    prepared.mkdir()
+    for i in range(2):
+        np.savez(prepared / f"{i:06d}.npz", ref_image=np.zeros((4, 4, 3), np.float32),
+                 instruction=np.asarray(f"edit {i}"))
+    n = tteacher.generate_edit_teacher_set(
+        lambda g, noise, *a: noise, lambda t: (np.ones((len(t), 2)), np.ones((len(t), 2))),
+        str(prepared), str(tmp_path / "edit"), (2, 2, 4), decode_fn=decode,
+        save_sanity_images=1, device="cpu")
+    assert n == 2
+    assert sorted(f for f in os.listdir(tmp_path / "edit") if f.endswith(".png")) == [
+        "sanity_000.png"]
