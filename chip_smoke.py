@@ -49,35 +49,61 @@ non-zero, printing nothing on stdout, without them.  Phases:
    times, all on the "mma" route; print s/edit, peak memory, the kernel's
    share of device time and the idle share.
 8. The tiny FLUX stack in f32 on the card and on the CPU, TF32 off, as in 6.
-9. PPO training of the SD-1.5 FactorNet at full width with the settings of
+9. The int8 and int4 layers of ``kernels/quant.py`` at main-path shapes (the
+   UNet's level-1 and level-2 3x3 convolutions, the level-1 downsample and a
+   1x1 shortcut at UNet batch 16; FLUX ``ff_net_0`` over 8704 tokens and a
+   modulation at batch 1): the int8 GEMM's int32 against the plain
+   version's, the layer's output bit-equal to the plain accumulators
+   dequantized alike, int4 within one bf16 ulp; each layer's time and its
+   parts (activation quantization, im2col, GEMM, dequantization) beside the
+   bf16 layer's.
+10. SD-1.5 through ``TextToImagePipeline.quantize()``, the hybrid (level 0
+   bf16) and uniform int8, at the settings of 5: kernel #1 257 times per
+   generation, all "mma"; the int8 GEMM ran; images finite in [0, 1]; their
+   mean and max difference from the bf16 images; img/s, peak, bytes.
+11. FLUX-Kontext through ``FluxKontextPipeline.quantize(8)`` and
+   ``quantize(4)`` with the bf16 pipeline resident: a check edit (287
+   launches, all "mma"; difference from the bf16 edit), one timed edit,
+   the DiT's bytes and the peak.
+12. The tiny quantized f32 stacks (UNet hybrid and uniform, VAE decoder,
+   FLUX int8 and int4), quantized on the CPU and run on the card: every
+   quantized layer fed its CPU twin's input within 1e-6 (int4 1e-5), the
+   whole output nearer the CPU one than quantization moves it.
+13. PPO training of the SD-1.5 FactorNet at full width with the settings of
    ``ExperimentConfig.sd15_ppo()`` (batch 80, CFG 3, steps in [2, 16),
    decode chunks of 8), rewarded by ``image_psnr`` against teacher latents
    that the port's own plain DDIM made (8 samples, 20 steps): two steps
    through ``PPOTrainer.fit`` with a checkpoint, a fresh trainer resumed
    from it bit-equal, kernel #1's launches against the count the step
-   counts imply (all "mma"), s/step, peak memory and one profiled step.
-10. PPO training of the FLUX-Kontext FactorNet at full width with the
+   counts imply (all "mma"), s/step, peak memory and one profiled step;
+   then one step over the hybrid int8 pipeline (float teacher latents).
+14. PPO training of the FLUX-Kontext FactorNet at full width with the
    settings of ``ExperimentConfig.flux_ppo()`` for one rank's group (batch
    10, 4 PPO epochs, guidance 2.5, steps in [2, 6)), against one teacher
    edit from the port's Euler solver at 8 steps: one ``train_step``
    (policy and Euler-baseline rollouts, three decodes), its launches, then
    one profiled step.
-11. The tiny f32 SD stack, TF32 off: the PPO update on one flattened batch
+15. The tiny f32 SD stack, TF32 off: the PPO update on one flattened batch
    on the card and on the CPU, two train steps on the card, and a
    checkpoint-and-resume run on the card bit-equal to a straight one.
-12. Serving at full width through one ``ServeServer`` on 127.0.0.1 with both
+16. Serving at full width through one ``ServeServer`` on 127.0.0.1 with both
    engines (SD-1.5: batch shapes 1 and 8; FLUX-Kontext: 1024^2, 128 T5
    tokens): prewarm, 3 rounds of 8 concurrent ``/v1/generate`` (one batch
    of 8 each, 0 pad rows; served img/s, p50 / p95 latency), the 9 zoo
    solvers (kernel #1 launches 32 x model calls + 1, all "mma", distinct
-   images), a deterministic request alone and in full batches (bit-equal at
-   its own slot, within 1 uint8 level at another), ``/v1/generate`` and
-   ``/v1/refine`` bit-equal to direct ``TextToImagePipeline.__call__``, a
-   hot reload (the image changes and equals the new net's direct call;
-   other dims return 409), a ``PreviewSession``, and ``/v1/edit`` (fmppo,
-   Euler) and ``/v1/edit/refine`` from a 1024x768 PNG (57 x steps + 2
-   launches); peak memory with both engines resident.  Phase 2 also gates
-   kernel #1 at the shapes serving adds (UNet batch 2, 8320 joint tokens).
+   images), a deterministic request alone and at every slot 0-7 of full
+   batches (bit-equal), ``/v1/generate`` and ``/v1/refine`` bit-equal to
+   direct ``TextToImagePipeline.__call__``, a hot reload (the image changes
+   and equals the new net's direct call; other dims return 409), a
+   ``PreviewSession``, and ``/v1/edit`` (fmppo, Euler) and
+   ``/v1/edit/refine`` from a 1024x768 PNG (57 x steps + 2 launches); peak
+   memory with both engines resident.  Then the int8 engines behind a
+   second server (SD hybrid int8, FLUX int8 edits): 2 rounds of 8
+   concurrent generates, the deterministic request bit-equal at every
+   slot, a hot reload and one ``/v1/edit``.  Phase 2 also gates kernel #1
+   at the shapes serving adds (UNet batch 2, 8320 joint tokens).
+5 also times the deterministic program (mode actions, slot-invariant UNet
+convolutions) beside the sampled one.
 
 The line before the last is a JSON object listing each kernel (launches on
 its main path, worst error, times); the last line is
@@ -337,6 +363,16 @@ def phase_kernel(fa):
     return rows
 
 
+def _release_card():
+    """Free what earlier phases left: a FLUX pipeline's cached denoise
+    functions close over the pipeline, a cycle only the garbage collector
+    breaks (33.5 GB of FLUX weights)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _random_fill_(module, gen, std=0.02):
     import torch
 
@@ -415,10 +451,10 @@ def phase_main_path(fa):
     ids = tokenize_batch(HashTokenizer(), PROMPTS[:BATCH], 77)
     noise = torch.randn((BATCH, 64, 64, 4), device="cuda", generator=gen)
 
-    def generate(seed):
+    def generate(seed, **kw):
         policy_gen = torch.Generator(device="cuda").manual_seed(seed)
         images, _ = pipe(policy_gen, ids, noise, num_inference_steps=STEPS,
-                         guidance_scale=CFG, record=False)
+                         guidance_scale=CFG, record=False, **kw)
         return images
 
     fa.reset_counts()
@@ -449,11 +485,23 @@ def phase_main_path(fa):
         run_s.append(time.perf_counter() - t0)
     elapsed = sum(run_s)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # the deterministic program: mode actions and the slot-invariant UNet
+    # convolutions (the repair's cost to a deterministic batch)
+    generate(SEED + 3, deterministic_policy=True)
+    det_run_s = []
+    for i in range(runs):
+        t0 = time.perf_counter()
+        generate(SEED + 4 + i, deterministic_policy=True)
+        torch.cuda.synchronize()
+        det_run_s.append(time.perf_counter() - t0)
     _, profiled = _device_profile(lambda: generate(SEED + 10))
     result = {
         "phase": "main_path", "batch": BATCH, "steps": STEPS, "cfg": CFG, "resolution": 512,
         "launches": launches, "launches_by_route": by_route, "img_per_s": BATCH * runs / elapsed,
         "s_per_generation": elapsed / runs, "run_s": run_s, "peak_mem_gib": peak_gib,
+        "deterministic_run_s": det_run_s,
+        "deterministic_s_per_generation": sum(det_run_s) / runs,
+        "deterministic_over_sampled": sum(det_run_s) / elapsed,
         "image_min": lo, "image_max": hi, **profiled,
     }
     print(json.dumps(result), flush=True)
@@ -986,6 +1034,7 @@ def phase_sd_ppo(fa):
     ``PPOTrainer.fit`` with the ``sd15_ppo()`` settings, ``image_psnr``
     against the port's own 20-step DDIM teacher latents, a checkpoint at
     step 2 and a fresh trainer resumed from it."""
+    _release_card()
     import tempfile
 
     import numpy as np
@@ -1083,6 +1132,8 @@ def phase_sd_ppo(fa):
         resume_bit_equal = _bit_equal(_trainer_state(resumed), _trainer_state(trainer))
         profile_step = trainer.global_step
         profiled_metrics, profiled = _device_profile(lambda: trainer.train_step(batch))
+        del resumed
+        int8 = phase_int8_ppo(fa, pipeline, batch, config)
 
     num_inference = [s["num_inference"] for s in steps]
     want = sum(sd_ppo_launches(n) for n in num_inference)
@@ -1100,6 +1151,7 @@ def phase_sd_ppo(fa):
                           **profiled},
     }
     print(json.dumps(result), flush=True)
+    result["int8_ppo"] = int8
     if len(steps) != SD_PPO_TRAIN_STEPS or global_step != SD_PPO_TRAIN_STEPS:
         raise AssertionError(f"fit ran {len(steps)} steps")
     for metrics in steps + [profiled_metrics]:
@@ -1111,7 +1163,54 @@ def phase_sd_ppo(fa):
                              f"{want} on mma for num_inference {num_inference}")
     if not resume_bit_equal:
         raise AssertionError("the resumed trainer's policy or optimizer differs from the writer's")
-    del trainer, resumed, pipe, unet, text, vae
+    del trainer, pipe, unet, text, vae
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_int8_ppo(fa, pipeline, batch, config):
+    """One SD-1.5 PPO step of batch 80 through ``PPOTrainer`` over the hybrid
+    int8 pipeline (the JAX package's ``quantize_rollout`` environment): the
+    teacher latents stay float, the rollout and its decodes run int8, only
+    the FactorNet trains.  Its step count is the float run's first one
+    (the same seed and step)."""
+    import torch
+
+    from consolver_torch.kernels import quant as tq
+    from consolver_torch.rewards.registry import make_reward_fn
+    from consolver_torch.rl.train import PPOTrainer
+
+    qpipe = pipeline().quantize()
+    trainer = PPOTrainer(qpipe, make_reward_fn("image_psnr"), config)
+    before = [p.detach().clone() for p in qpipe.factor_net.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()
+    tq.int_mm.launches = 0
+    t0 = time.perf_counter()
+    metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches, by_route = _counts(fa)
+    want = sd_ppo_launches(metrics["num_inference"])
+    moved = not _bit_equal(before, [p.detach() for p in qpipe.factor_net.parameters()])
+    result = {
+        "phase": "int8_ppo", "batch": SD_PPO_BATCH, "skip_levels": list(qpipe.unet.cfg.quant_skip_levels),
+        "metrics": metrics, "num_inference": metrics["num_inference"], "s_per_step": step_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+        "launches_by_route": by_route, "launches_want": want, "int_mm_launches": tq.int_mm.launches,
+        "policy_moved": moved,
+    }
+    print(json.dumps(result), flush=True)
+    _check_metrics(metrics, ("loss", "reward", "grad_norm"))
+    if not moved:
+        raise AssertionError("the int8 rollout's policy did not move")
+    if launches != want or by_route.get("mma") != want:
+        raise AssertionError(f"int8 PPO: flash_attention launched {launches} times ({by_route}), "
+                             f"want {want} on mma for num_inference {metrics['num_inference']}")
+    if tq.int_mm.launches == 0:
+        raise AssertionError("int8 PPO: the int8 GEMM never ran")
+    del trainer, qpipe
     torch.cuda.empty_cache()
     return result
 
@@ -1122,6 +1221,7 @@ def phase_flux_ppo(fa):
     Queue A.15), ``image_psnr`` (its dino reward waits for A.12) against one
     teacher edit of the port's Euler solver at 8 steps (the reference's
     teacher runs 28), one ``train_step`` and one profiled step."""
+    _release_card()
     import tempfile
 
     import numpy as np
@@ -1314,6 +1414,394 @@ def phase_tiny_train(fa):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The quantized configurations (ROADMAP A.11): the W8A8 int8 and W4A16 int4
+# layers of ``kernels/quant.py``.  Their integer products are cuBLASLt's int8
+# GEMM (``torch._int_mm``), a library call the JAX package also leaves to XLA;
+# every attention stays on kernel #1.
+# ---------------------------------------------------------------------------
+
+# (name, kind, input shape, in, out, kernel size, stride, padding): the
+# UNet's level-1 and level-2 resnet convolutions, the level-1 downsample
+# (after its (0, 1) pad) and an up-block 1x1 shortcut at UNet batch 16, the
+# FLUX ff_net_0 over the 8704 joint tokens and a FLUX modulation at batch 1
+# (one row, padded to the GEMM's 17).
+QUANT_OPS_CASES = [
+    ("unet_l1_conv3x3", "conv", (2 * BATCH, 640, 32, 32), 640, 640, 3, 1, 1),
+    ("unet_l2_conv3x3", "conv", (2 * BATCH, 1280, 16, 16), 1280, 1280, 3, 1, 1),
+    ("unet_l1_downsample", "conv", (2 * BATCH, 640, 33, 33), 640, 640, 3, 2, 0),
+    ("unet_l1_shortcut_1x1", "conv", (2 * BATCH, 960, 32, 32), 960, 640, 1, 1, 0),
+    ("flux_ff_net_0", "dense", (8704, 3072), 3072, 12288, None, None, None),
+    ("flux_modulation_b1", "dense", (1, 3072), 3072, 18432, None, None, None),
+]
+# int4 (W4A16) vs its plain version: the card dequantizes to bf16 and runs a
+# bf16 GEMM with f32 accumulation, then a bf16 bias add; the plain version
+# takes the same bf16 weights through an f32 GEMM and rounds where the card
+# does, so only the f32 summation order differs (a last-bit flip of the
+# GEMM's bf16 rounding).  Held at one bf16 ulp of the largest output.
+INT4_TOL = 2.0**-7
+QUANT_SKIP = {"hybrid": (0,), "uniform": ()}
+
+
+def _int8_gemm_bound(m, k, n, in_bytes, out_bytes):
+    """Least ms of an int8 GEMM of [m, k] x [k, n]: int8 operations at the
+    card's int8 peak, or the activations read once (``in_bytes`` each), the
+    int8 kernel read once and the output written once."""
+    op_ms = 2.0 * m * k * n / (INT8_TOPS * 1e12) * 1e3
+    byte_ms = (m * k * in_bytes + k * n + m * n * out_bytes) / (HBM_TBPS * 1e12) * 1e3
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def phase_quant_ops():
+    """The int8 and int4 layers at main-path shapes on the card: the int8
+    GEMM's int32 accumulators against the plain version's (f64 products,
+    exact), the layer's output against the plain accumulators dequantized
+    the same way (bit-equal), int4 against f32 within ``INT4_TOL``; times of
+    the layer, its parts and the bf16 layer at the same shape."""
+    _release_card()
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    from consolver_torch.kernels import quant as tq
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 150)
+    bf16 = torch.bfloat16
+    rows = []
+    with torch.inference_mode():
+        for name, kind, shape, cin, cout, k, stride, pad in QUANT_OPS_CASES:
+            x = torch.randn(shape, device="cuda", generator=gen).to(bf16)
+            if kind == "dense":
+                flt = _random_fill_(nn.Linear(cin, cout, device="cuda", dtype=bf16), gen)
+                layer = tq.quantize_like(tq.Int8Linear(cin, cout), flt)
+                xq, a_scale = tq._quantize_act(x, per_token=True)
+                lhs, rhs = xq, layer.kernel
+                quant_fn = lambda: tq._quantize_act(x, per_token=True)  # noqa: E731
+                im2col_fn = None
+                bf16_fn = lambda: F.linear(x, flt.weight, flt.bias)  # noqa: E731
+                out_shape, deq_scale = (shape[0], cout), a_scale
+            else:
+                flt = _random_fill_(nn.Conv2d(cin, cout, k, stride, pad, device="cuda",
+                                              dtype=bf16), gen)
+                layer = tq.quantize_like(tq.Int8Conv2d(cin, cout, k, stride, pad), flt)
+                xh = x.permute(0, 2, 3, 1)
+                b, h, w, _ = xh.shape
+                pads = tq.conv_pads(pad, k, k, h, w, (stride, stride))
+                xq, a_scale = tq._quantize_act(xh, per_token=False)
+                lhs = tq.im2col_int8(xq, k, k, (stride, stride), pads)
+                rhs = layer.kernel.reshape(cout, -1)
+                quant_fn = lambda: tq._quantize_act(xh, per_token=False)  # noqa: E731
+                im2col_fn = lambda: tq.im2col_int8(xq, k, k, (stride, stride), pads)  # noqa: E731
+                bf16_fn = lambda: flt(x)  # noqa: E731
+                ho, wo = (h + sum(pads[0]) - k) // stride + 1, (w + sum(pads[1]) - k) // stride + 1
+                out_shape, deq_scale = (b, ho * wo, cout), a_scale.reshape(b, 1, 1)
+            before = tq.int_mm.launches
+            acc = tq.int_mm(lhs, rhs)
+            launched = tq.int_mm.launches - before
+            acc_plain = tq.int_mm_reference(lhs, rhs)
+            out = layer(x)
+            ref = tq._dequantize(acc_plain.reshape(out_shape), deq_scale, layer.kernel_scale,
+                                 layer.bias, bf16)
+            if kind == "conv":
+                ref = ref.reshape(b, ho, wo, cout).permute(0, 3, 1, 2)
+            row = {
+                "case": name, "kind": kind, "x": list(shape), "gemm": [lhs.shape[0], lhs.shape[1], cout],
+                "int_mm_launches": launched, "acc_equal": bool(torch.equal(acc, acc_plain)),
+                "out_bit_equal": bool(torch.equal(out, ref)),
+                "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                "ms": _time_ms(lambda: layer(x), 20, warmup=3),
+                "gemm_ms": _time_ms(lambda: tq.int_mm(lhs, rhs), 20, warmup=3),
+                "quant_ms": _time_ms(quant_fn, 20, warmup=3),
+                "dequant_ms": _time_ms(lambda: tq._dequantize(acc.reshape(out_shape), deq_scale,
+                                                              layer.kernel_scale, layer.bias, bf16),
+                                       20, warmup=3),
+                "bf16_ms": _time_ms(bf16_fn, 20, warmup=3),
+                "plain_ms": _time_ms(lambda: tq.int_mm_reference(lhs, rhs), 3),
+            }
+            if im2col_fn is not None:
+                row["im2col_ms"] = _time_ms(im2col_fn, 20, warmup=3)
+            row["act_quant_share"] = row["quant_ms"] / row["ms"]
+            row["ms_over_bf16"] = row["ms"] / row["bf16_ms"]
+            row["gemm_bound_ms"], row["gemm_bound_by"] = _int8_gemm_bound(
+                lhs.shape[0], lhs.shape[1], cout, 1, 4)
+            if kind == "dense":  # the same projection with 4-bit weights
+                layer4 = tq.quantize_like(tq.Int4Linear(cin, cout), flt)
+                out4 = layer4(x)
+                w4 = tq.dequantize_int4(layer4.kernel_packed, layer4.kernel_scale, bf16)
+                ref4 = (x.float() @ w4.float()).to(bf16) + layer4.bias.to(bf16)
+                row["int4"] = {
+                    "err_over_max_ref": ((out4.float() - ref4.float()).abs().max()
+                                         / ref4.float().abs().max()).item(),
+                    "tol": INT4_TOL, "ms": _time_ms(lambda: layer4(x), 20, warmup=3),
+                    "dequant_ms": _time_ms(lambda: tq.dequantize_int4(
+                        layer4.kernel_packed, layer4.kernel_scale, bf16), 20, warmup=3),
+                    "bytes": tq.module_bytes(layer4), "int8_bytes": tq.module_bytes(layer),
+                    "bf16_bytes": tq.module_bytes(flt),
+                }
+            print(json.dumps({"phase": "quant_ops", **row}), flush=True)
+            if launched != 1 or not row["acc_equal"] or not row["out_bit_equal"]:
+                raise AssertionError(f"int8 {name}: {row}")
+            if kind == "dense" and not row["int4"]["err_over_max_ref"] <= INT4_TOL:
+                raise AssertionError(f"int4 {name}: {row['int4']}")
+            rows.append(row)
+            del x, flt, layer, lhs, rhs, acc, acc_plain, out, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_int8_sd(fa):
+    """SD-1.5 through ``TextToImagePipeline.quantize()``: the hybrid (UNet
+    level 0 bf16) and uniform int8, each at batch 8, 8 steps, 512^2, CFG 3:
+    a check generation (kernel #1 257 times, all "mma"; the int8 GEMM ran),
+    |image - float image| on one noise with mode actions, three timed
+    generations, peak memory and the quantized models' bytes."""
+    _release_card()
+    import torch
+
+    from consolver_torch.core.schedules import DiffusionSchedule
+    from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
+    from consolver_torch.kernels import quant as tq
+    from consolver_torch.pipelines.t2i import TextToImagePipeline
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 160)
+    unet, text, vae = _sd15_models(gen)
+    policy = FactorNet(
+        FactorNetConfig(order_dim=4, scaler_dim=0, num_actions=11, family="sd"), device="cuda")
+    pipe = TextToImagePipeline(unet, text, vae, DiffusionSchedule.sd15(), factor_net=policy,
+                               tokenizer=HashTokenizer(), device="cuda")
+    ids = tokenize_batch(HashTokenizer(), PROMPTS[:BATCH], 77)
+    noise = torch.randn((BATCH, 64, 64, 4), device="cuda", generator=gen)
+
+    def generate(p, seed, **kw):
+        images, _ = p(torch.Generator(device="cuda").manual_seed(seed), ids, noise,
+                      num_inference_steps=STEPS, guidance_scale=CFG, record=False, **kw)
+        return images
+
+    float_images = generate(pipe, SEED + 161, deterministic_policy=True)
+    out = {"phase": "int8_sd", "batch": BATCH, "steps": STEPS, "cfg": CFG, "resolution": 512,
+           "float_unet_bytes": tq.module_bytes(unet), "float_vae_bytes": tq.module_bytes(vae)}
+    for label, skip in QUANT_SKIP.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qpipe = pipe.quantize(skip)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        fa.reset_counts()
+        tq.int_mm.launches = 0
+        images = generate(qpipe, SEED + 162)
+        torch.cuda.synchronize()
+        launches, by_route = _counts(fa)
+        int_mm = tq.int_mm.launches
+        lo, hi = images.min().item(), images.max().item()
+        det = generate(qpipe, SEED + 161, deterministic_policy=True)
+        delta = (det - float_images).abs()
+        generate(qpipe, SEED + 163)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run_s = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            generate(qpipe, SEED + 164 + i)
+            torch.cuda.synchronize()
+            run_s.append(time.perf_counter() - t0)
+        out[label] = {
+            "skip_levels": list(skip), "quantize_s": quantize_s,
+            "launches": launches, "launches_by_route": by_route, "int_mm_per_generation": int_mm,
+            "img_per_s": BATCH * len(run_s) / sum(run_s), "s_per_generation": sum(run_s) / 3,
+            "run_s": run_s, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "unet_bytes": tq.module_bytes(qpipe.unet), "vae_bytes": tq.module_bytes(qpipe.vae),
+            "image_min": lo, "image_max": hi,
+            "delta_vs_float_mean": delta.mean().item(), "delta_vs_float_max": delta.max().item(),
+        }
+        print(json.dumps({"phase": f"int8_sd_{label}", **out[label]}), flush=True)
+        if tuple(images.shape) != (BATCH, 512, 512, 3) or not bool(torch.isfinite(images).all()):
+            raise AssertionError(f"int8 SD {label}: images {tuple(images.shape)}")
+        if lo < 0.0 or hi > 1.0:
+            raise AssertionError(f"int8 SD {label}: images outside [0, 1]: {lo} {hi}")
+        if launches != LAUNCHES_PER_GENERATION or by_route.get("mma") != LAUNCHES_PER_GENERATION:
+            raise AssertionError(f"int8 SD {label}: flash_attention launched {launches} times "
+                                 f"({by_route}), want {LAUNCHES_PER_GENERATION} on mma")
+        if int_mm == 0:
+            raise AssertionError(f"int8 SD {label}: the int8 GEMM never ran")
+        del qpipe, images, det
+        torch.cuda.empty_cache()
+    del pipe, unet, text, vae, float_images
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_int8_flux(fa):
+    """FLUX-Kontext through ``FluxKontextPipeline.quantize(8)`` and
+    ``quantize(4)``: a check edit (kernel #1 287 times, all "mma"; images
+    finite in [0, 1]; |image - bf16 image| with mode actions), then one
+    timed 1024^2 edit of 5 steps; the DiT's bytes, the time to quantize and
+    the peak, with the bf16 pipeline resident throughout."""
+    _release_card()
+    import torch
+
+    from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
+    from consolver_torch.kernels import quant as tq
+    from consolver_torch.pipelines.edit import FluxKontextPipeline
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 170)
+    transformer, t5, clip, vae, policy = _flux_models("cuda", torch.bfloat16, False, gen, 0.02)
+    pipe = FluxKontextPipeline(transformer, t5, clip, vae, factor_net=policy, device="cuda")
+    prompt = ["make the sky a sunset orange"]
+    t5_ids = tokenize_batch(HashTokenizer(vocab_size=32128, max_length=512), prompt, 512)
+    clip_ids = tokenize_batch(HashTokenizer(), prompt, 77)
+    ref_image = torch.rand((1, 1024, 1024, 3), device="cuda", generator=gen) * 2 - 1
+    noise = torch.randn((1, 128, 128, 16), device="cuda", generator=gen)
+
+    def edit(p, seed, **kw):
+        images, _ = p(torch.Generator(device="cuda").manual_seed(seed), t5_ids, clip_ids,
+                      ref_image, noise, num_inference_steps=FLUX_STEPS,
+                      guidance_scale=FLUX_GUIDANCE, record=False, **kw)
+        return images
+
+    float_images = edit(pipe, SEED + 171, deterministic_policy=True)
+    out = {"phase": "int8_flux", "resolution": 1024, "steps": FLUX_STEPS, "joint_tokens": 8704,
+           "bf16_dit_bytes": tq.module_bytes(transformer)}
+    for bits in (8, 4):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        qpipe = pipe.quantize(bits)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        quantize_peak = torch.cuda.max_memory_allocated() / 2**30
+        fa.reset_counts()
+        tq.int_mm.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        images = edit(qpipe, SEED + 171, deterministic_policy=True)
+        torch.cuda.synchronize()
+        launches, by_route = _counts(fa)
+        int_mm = tq.int_mm.launches
+        lo, hi = images.min().item(), images.max().item()
+        delta = (images - float_images).abs()
+        t0 = time.perf_counter()
+        edit(qpipe, SEED + 172)
+        torch.cuda.synchronize()
+        s_per_edit = time.perf_counter() - t0
+        key = f"int{bits}"
+        out[key] = {
+            "quantize_s": quantize_s, "quantize_peak_gib": quantize_peak,
+            "dit_bytes": tq.module_bytes(qpipe.transformer), "vae_bytes": tq.module_bytes(qpipe.vae),
+            "launches": launches, "launches_by_route": by_route, "int_mm_per_edit": int_mm,
+            "s_per_edit": s_per_edit, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "image_min": lo, "image_max": hi,
+            "delta_vs_bf16_mean": delta.mean().item(), "delta_vs_bf16_max": delta.max().item(),
+        }
+        print(json.dumps({"phase": f"int8_flux_{key}", **out[key]}), flush=True)
+        if tuple(images.shape) != (1, 1024, 1024, 3) or not bool(torch.isfinite(images).all()):
+            raise AssertionError(f"FLUX {key}: images {tuple(images.shape)}")
+        if lo < 0.0 or hi > 1.0:
+            raise AssertionError(f"FLUX {key}: images outside [0, 1]: {lo} {hi}")
+        if launches != LAUNCHES_PER_EDIT or by_route.get("mma") != LAUNCHES_PER_EDIT:
+            raise AssertionError(f"FLUX {key}: flash_attention launched {launches} times "
+                                 f"({by_route}), want {LAUNCHES_PER_EDIT} on mma")
+        if int_mm == 0:  # int4 keeps the VAE decoder int8
+            raise AssertionError(f"FLUX {key}: the int8 GEMM never ran")
+        del qpipe, images
+        _release_card()
+    del pipe, transformer, t5, clip, vae, policy, float_images
+    _release_card()
+    return out
+
+
+def _quant_layers_in_place(cpu_model, card_model, run_cpu, tol):
+    """Every quantized layer of ``card_model`` fed the input its CPU twin got
+    in ``run_cpu()``: the CPU output within ``tol`` of its largest
+    magnitude.  Returns (layers checked, worst error over that magnitude)."""
+    import torch
+
+    from consolver_torch.kernels import quant as tq
+
+    calls = []
+    hooks = [m.register_forward_hook(lambda mod, args, out, name=name: calls.append(
+        (name, args[0], out))) for name, m in cpu_model.named_modules()
+        if isinstance(m, tq.QUANTIZED_LAYERS)]
+    try:
+        cpu_out = run_cpu()
+    finally:
+        for h in hooks:
+            h.remove()
+    card_layers = dict(card_model.named_modules())
+    worst = 0.0
+    for name, x, want in calls:
+        got = card_layers[name](x.cuda()).cpu()
+        worst = max(worst, ((got - want).abs().max() / want.abs().max().clamp_min(1e-12)).item())
+    if not calls or worst > tol:
+        raise AssertionError(f"quantized layers card vs cpu: {len(calls)} layers, worst {worst}")
+    return len(calls), worst, cpu_out
+
+
+def phase_tiny_quant(fa):
+    """The tiny quantized f32 stacks, TF32 off, quantized on the CPU and
+    copied to the card: the SD UNet (hybrid and uniform), the VAE decoder
+    and the FLUX DiT (int8 and int4).  Each quantized layer on the card,
+    fed its CPU twin's input, gives the CPU output within 1e-6 of its
+    largest magnitude (int4: 1e-5, an f32 GEMM); the whole card output
+    differs from the CPU one by less than quantization moves the CPU output
+    from the float model's (relative L2: one activation's rounding can flip
+    on a last-bit difference of a float layer, a whole quantization step)."""
+    import dataclasses
+
+    import torch
+
+    from consolver_torch.kernels import quant as tq
+    from consolver_torch.models.flux import FluxConfig, FluxTransformer
+    from consolver_torch.models.unet_2d import UNet2DCondition, UNetConfig
+    from consolver_torch.models.vae import AutoencoderKL, VaeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 180)
+    unet = _random_fill_(UNet2DCondition(UNetConfig.tiny(), device="cpu"), gen, 0.1)
+    vae = _random_fill_(AutoencoderKL(VaeConfig.tiny(), device="cpu"), gen, 0.1)
+    dit = _random_fill_(FluxTransformer(FluxConfig.tiny(), device="cpu"), gen, 0.1)
+    x = torch.randn((2, 8, 8, 4), generator=gen)
+    t = torch.tensor([10, 500])
+    ctx = torch.randn((2, 77, 32), generator=gen)
+    z = torch.randn((2, 8, 8, 4), generator=gen)
+    fargs = (torch.randn((1, 8, 16), generator=gen), torch.randn((1, 4, 32), generator=gen),
+             torch.randn((1, 24), generator=gen), torch.ones(1), torch.ones(1),
+             torch.zeros((8, 3)), torch.zeros((4, 3)))
+    cases = [
+        ("unet_hybrid", unet, dataclasses.replace(unet.cfg, quant_int8=True, quant_skip_levels=(0,)),
+         UNet2DCondition, lambda m, d: m(x.to(d), t.to(d), ctx.to(d)), 1e-6),
+        ("unet_uniform", unet, dataclasses.replace(unet.cfg, quant_int8=True), UNet2DCondition,
+         lambda m, d: m(x.to(d), t.to(d), ctx.to(d)), 1e-6),
+        ("vae_decoder", vae, dataclasses.replace(vae.cfg, quant_int8=True), AutoencoderKL,
+         lambda m, d: m.decode(z.to(d)), 1e-6),
+        ("flux_int8", dit, dataclasses.replace(dit.cfg, quant_int8=True), FluxTransformer,
+         lambda m, d: m(*(a.to(d) for a in fargs)), 1e-6),
+        ("flux_int4", dit, dataclasses.replace(dit.cfg, quant_int4=True), FluxTransformer,
+         lambda m, d: m(*(a.to(d) for a in fargs)), 1e-5),
+    ]
+    out = {"phase": "tiny_quant"}
+    with torch.inference_mode():
+        for name, model, qcfg, build, run, tol in cases:
+            cpu_q = tq.quantize_like(build(qcfg, device="meta"), model)
+            card_q = copy.deepcopy(cpu_q).to("cuda")
+            layers, worst, cpu_out = _quant_layers_in_place(cpu_q, card_q, lambda: run(cpu_q, "cpu"),
+                                                            tol)
+            before = tq.int_mm.launches
+            card_out = run(card_q, "cuda").cpu()
+            float_out = run(model, "cpu")
+            card_vs_cpu = ((card_out - cpu_out).norm() / cpu_out.norm()).item()
+            quant_vs_float = ((cpu_out - float_out).norm() / float_out.norm()).item()
+            out[name] = {"layers": layers, "layer_worst_err": worst, "layer_tol": tol,
+                         "card_vs_cpu_rel": card_vs_cpu, "cpu_quant_vs_float_rel": quant_vs_float,
+                         "int_mm_launches": tq.int_mm.launches - before}
+            if not (card_vs_cpu < quant_vs_float and bool(torch.isfinite(card_out).all())):
+                raise AssertionError(f"tiny {name}: card vs cpu {out[name]}")
+            if name != "flux_int4" and out[name]["int_mm_launches"] == 0:
+                raise AssertionError(f"tiny {name}: the card's int8 GEMM never ran")
+    print(json.dumps(out), flush=True)
+    return out
+
+
 SERVE_BATCH_SIZES = (1, BATCH)
 SERVE_FLUSH_MS = 250.0  # the window in which concurrent requests join one batch
 SERVE_ROUNDS = 3
@@ -1405,8 +1893,7 @@ def phase_serve(fa, runs_by_path):
     from consolver_torch.serve.engine import _uint8_in_program, seed_noise
     from consolver_torch.utils import png
 
-    gc.collect()  # the earlier phases' models, if a reference cycle still holds them
-    torch.cuda.empty_cache()
+    _release_card()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     baseline_gib = torch.cuda.memory_allocated() / 2**30
@@ -1532,41 +2019,13 @@ def phase_serve(fa, runs_by_path):
         serve_sd["zoo"] = {name: z["launches"] for name, z in zoo.items()}
 
         # 4. batch-slot independence: a deterministic request (pinned to
-        # shape 8) alone, then in full batches of other deterministic
-        # requests at slot 0 and at slot 3 (engine.submit in order: the
-        # arrival order is the slot)
-        def max_diff(a, b):
-            return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
-
+        # shape 8) alone, then at every slot of full batches of other
+        # deterministic requests
         def det(i, seed):
             return GenerationRequest(PROMPTS[i % len(PROMPTS)], seed=seed, num_inference_steps=STEPS,
                                      guidance_scale=CFG, deterministic=True)
 
-        target = det(3, 3000)
-        before = sd.stats()
-        solo = sd.generate(target, timeout=600)
-
-        def in_batch(slot):
-            others = [det(10 + i, 3100 + 10 * slot + i) for i in range(BATCH - 1)]
-            futs = [sd.submit(r) for r in others[:slot] + [target] + others[slot:]]
-            return [f.result(timeout=600) for f in futs][slot]
-
-        at = {slot: in_batch(slot) for slot in (0, 3)}
-        delta = stats_delta(before)
-        out["slots"] = {f"slot_{k}": {"max_diff": max_diff(solo, img),
-                                      "share_differing": float((solo != img).mean())}
-                        for k, img in at.items()}
-        print(json.dumps({"phase": "serve_slots", **out["slots"], **delta}), flush=True)
-        if delta != {"batches": 3, "batched_rows": 1 + 2 * BATCH, "padded_rows": BATCH - 1}:
-            raise AssertionError(f"deterministic solo + two full batches: {delta}")
-        # at its own slot the request must not see its batch-mates; across
-        # slots cuDNN's bf16 3x3 convs with large inputs at 16x16 reduce the
-        # first rows of a batch in another order than the rest (PERF.md)
-        if out["slots"]["slot_0"]["max_diff"] != 0:
-            raise AssertionError(f"a deterministic request depends on its batch-mates: {out['slots']}")
-        if out["slots"]["slot_3"]["max_diff"] > 1:
-            raise AssertionError(f"a deterministic request moved more than 1 level by slot: "
-                                 f"{out['slots']}")
+        out["slots"] = _slots_bit_equal(sd, det, "serve_slots")
 
         # 5. HTTP equals a direct call, 6. refine from the preview's seed
         def direct(prompt, seed, rows=1, pipeline=pipe, **kw):
@@ -1585,8 +2044,8 @@ def phase_serve(fa, runs_by_path):
         http_refine = _image(_ok(code, body, "refine"))
         torch.cuda.synchronize()
         equal = {
-            "generate": max_diff(http_gen, direct(PROMPTS[5], 4000, num_inference_steps=STEPS)),
-            "refine": max_diff(http_refine, direct(PROMPTS[5], 4000, num_inference_steps=REFINE_STEPS,
+            "generate": _max_diff(http_gen, direct(PROMPTS[5], 4000, num_inference_steps=STEPS)),
+            "refine": _max_diff(http_refine, direct(PROMPTS[5], 4000, num_inference_steps=REFINE_STEPS,
                                                    solver="multistep-dpm")),
         }
         out["http_vs_direct_max_diff"] = equal
@@ -1613,7 +2072,7 @@ def phase_serve(fa, runs_by_path):
         want_after = direct(PROMPTS[6], 5000, rows=BATCH, pipeline=new_pipe, num_inference_steps=STEPS,
                             deterministic_policy=True)
         out["hot_reload"] = {"reload_s": reload_s, "changed": not np.array_equal(before_reload, after_reload),
-                             "max_diff_vs_direct_new_net": max_diff(after_reload, want_after),
+                             "max_diff_vs_direct_new_net": _max_diff(after_reload, want_after),
                              "other_dims_status": bad_code}
         if not out["hot_reload"]["changed"]:
             raise AssertionError("the reloaded policy did not change a deterministic request")
@@ -1713,6 +2172,7 @@ def phase_serve(fa, runs_by_path):
             final_stats = json.load(r)
         if set(final_stats) != {"generate", "edit"} or final_stats["generate"]["errors"]:
             raise AssertionError(f"server stats: {final_stats}")
+        out["int8"] = phase_serve_int8(fa, pipe, edit_pipe, policy_cfg, edit_body)
     finally:
         server.shutdown()
         server.server_close()
@@ -1720,6 +2180,171 @@ def phase_serve(fa, runs_by_path):
         edit.shutdown()
     out["serve_sd"], out["serve_edit"] = serve_sd, serve_edit
     del sd, edit, pipe, edit_pipe, unet, text, vae, transformer, t5, clip, fvae, fpolicy
+    torch.cuda.empty_cache()
+    return out
+
+
+def _max_diff(a, b):
+    import numpy as np
+
+    return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+
+def _slots_bit_equal(engine, make_request, label):
+    """A deterministic request served alone (padded to the pinned batch
+    shape), then at every slot of full batches of other deterministic
+    requests (``engine.submit`` in order: the arrival order is the slot):
+    bit-equal at every slot."""
+    target = make_request(3, 3000)
+    before = engine.stats()
+    solo = engine.generate(target, timeout=600)
+    diffs, shares, batch_s = [], [], []
+    for slot in range(BATCH):
+        others = [make_request(10 + i, 3100 + 10 * slot + i) for i in range(BATCH - 1)]
+        t0 = time.perf_counter()
+        futs = [engine.submit(r) for r in others[:slot] + [target] + others[slot:]]
+        img = [f.result(timeout=600) for f in futs][slot]
+        batch_s.append(time.perf_counter() - t0)
+        diffs.append(_max_diff(solo, img))
+        shares.append(float((solo != img).mean()))
+    after = engine.stats()
+    delta = {k: after[k] - before[k] for k in ("batches", "batched_rows", "padded_rows")}
+    result = {"max_diff_by_slot": diffs, "share_differing_by_slot": shares, "batch_s": batch_s,
+              **delta}
+    print(json.dumps({"phase": label, **result}), flush=True)
+    if delta != {"batches": 1 + BATCH, "batched_rows": 1 + BATCH * BATCH, "padded_rows": BATCH - 1}:
+        raise AssertionError(f"{label}: deterministic solo + {BATCH} full batches: {delta}")
+    if any(diffs):
+        raise AssertionError(f"{label}: a deterministic request is not bit-equal at every slot: "
+                             f"{result}")
+    return result
+
+
+def phase_serve_int8(fa, pipe, edit_pipe, policy_cfg, edit_body):
+    """The int8 engines behind their own ``ServeServer``: an SD-1.5
+    ``InferenceEngine`` over ``pipe.quantize()`` (the hybrid) and a
+    FLUX-Kontext ``EditInferenceEngine`` over ``edit_pipe.quantize(8)``,
+    beside the float engines.  Two rounds of 8 concurrent ``/v1/generate``
+    (one batch each; served img/s, p50), a deterministic request bit-equal
+    at every slot, a hot reload (the image changes and equals the new net's
+    direct call), and one ``/v1/edit``."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
+    from consolver_torch.kernels import quant as tq
+    from consolver_torch.policy.factor_net import FactorNet
+    from consolver_torch.serve import EditInferenceEngine, GenerationRequest, InferenceEngine, make_server
+    from consolver_torch.serve.engine import _uint8_in_program, seed_noise
+
+    t0 = time.perf_counter()
+    qpipe = pipe.quantize()
+    qedit_pipe = edit_pipe.quantize(8)
+    torch.cuda.synchronize()
+    out = {"phase": "serve_int8", "quantize_s": time.perf_counter() - t0,
+           "resident_gib": torch.cuda.memory_allocated() / 2**30}
+    sd = InferenceEngine(qpipe, batch_size=BATCH, batch_sizes=SERVE_BATCH_SIZES, latent_size=64,
+                         flush_ms=SERVE_FLUSH_MS)
+    edit = EditInferenceEngine(qedit_pipe, resolution=1024, batch_size=1,
+                               t5_max_length=SERVE_T5_TOKENS)
+    server = make_server(sd, host="127.0.0.1", port=0, edit_engine=edit)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # no proxy for localhost
+
+    def post(path, payload):
+        return _post(opener, base + path, payload)
+
+    def det(i, seed):
+        return GenerationRequest(PROMPTS[i % len(PROMPTS)], seed=seed, num_inference_steps=STEPS,
+                                 guidance_scale=CFG, deterministic=True)
+
+    try:
+        out["prewarmed"] = sd.prewarm(
+            GenerationRequest("warm", num_inference_steps=STEPS, guidance_scale=CFG),
+            det(0, 0), timeout=600)
+        rounds, latencies = [], []
+        fa.reset_counts()
+        tq.int_mm.launches = 0
+        for r in range(2):
+            before = sd.stats()
+            bodies = [{"prompt": PROMPTS[i], "seed": 8000 + r * BATCH + i,
+                       "num_inference_steps": STEPS, "guidance_scale": CFG} for i in range(BATCH)]
+            barrier = threading.Barrier(BATCH)
+
+            def one(body):
+                barrier.wait()
+                return post("/v1/generate", body)
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=BATCH) as pool:
+                results = list(pool.map(one, bodies))
+            wall = time.perf_counter() - t0
+            for code, body, sec in results:
+                _check_image(_image(_ok(code, body, "int8 generate")), 512, "int8 generate")
+                latencies.append(sec)
+            after = sd.stats()
+            delta = {k: after[k] - before[k] for k in ("batches", "batched_rows", "padded_rows")}
+            rounds.append({"wall_s": wall, **delta})
+            if delta != {"batches": 1, "batched_rows": BATCH, "padded_rows": 0}:
+                raise AssertionError(f"int8 round {r} did not form one batch of {BATCH}: {delta}")
+        torch.cuda.synchronize()
+        launches = _check_launches(fa, 2 * LAUNCHES_PER_GENERATION, "int8 serve rounds")
+        out["throughput"] = {
+            "rounds": rounds, "img_per_s": 2 * BATCH / sum(x["wall_s"] for x in rounds),
+            "latency_p50_s": _percentile(latencies, 0.5),
+            "latency_p95_s": _percentile(latencies, 0.95),
+            "launches": launches[0], "int_mm_launches": tq.int_mm.launches,
+        }
+        if tq.int_mm.launches == 0:
+            raise AssertionError("int8 serving: the int8 GEMM never ran")
+        out["slots"] = _slots_bit_equal(sd, det, "serve_int8_slots")
+
+        # hot reload on the quantized engine
+        before_img = sd.generate(det(6, 5000), timeout=600)
+        new_net = _random_fill_(FactorNet(policy_cfg, device="cuda"),
+                                torch.Generator(device="cuda").manual_seed(SEED + 143), 0.3)
+        sd.update_factor_params(new_net.state_dict())
+        after_img = sd.generate(det(6, 5000), timeout=600)
+        direct_pipe = sd.pipeline
+        ids = tokenize_batch(HashTokenizer(), [PROMPTS[6]] * BATCH, 77,
+                             vocab_size=direct_pipe.text_encoder.cfg.vocab_size)
+        noise = seed_noise([5000] * BATCH, (64, 64, 4)).cuda()
+        images, _ = direct_pipe(torch.Generator("cuda").manual_seed(5000), ids, noise,
+                                num_inference_steps=STEPS, guidance_scale=CFG, record=False,
+                                deterministic_policy=True)
+        want = _uint8_in_program(images)[0].cpu().numpy()
+        out["hot_reload"] = {"changed": not np.array_equal(before_img, after_img),
+                             "max_diff_vs_direct_new_net": _max_diff(after_img, want),
+                             "int8_unet_kept": direct_pipe.unet is qpipe.unet}
+        if not (out["hot_reload"]["changed"] and out["hot_reload"]["int8_unet_kept"]
+                and np.array_equal(after_img, want)):
+            raise AssertionError(f"int8 hot reload: {out['hot_reload']}")
+
+        # one edit through the int8 edit engine
+        fa.reset_counts()
+        tq.int_mm.launches = 0
+        code, resp, sec = post("/v1/edit", edit_body(num_inference_steps=FLUX_STEPS))
+        img = _image(_ok(code, resp, "int8 edit"))
+        _check_image(img, 1024, "int8 edit")
+        torch.cuda.synchronize()
+        launches = _check_launches(fa, DIT_LAUNCHES * FLUX_STEPS + 2 * FLUX_VAE_LAUNCHES,
+                                   "int8 edit")
+        out["edit"] = {"latency_s": sec, "launches": launches[0],
+                       "int_mm_launches": tq.int_mm.launches}
+        if tq.int_mm.launches == 0:
+            raise AssertionError("int8 edit: the int8 GEMM never ran")
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(json.dumps({k: v for k, v in out.items() if k != "slots"}), flush=True)
+    finally:
+        server.shutdown()
+        server.server_close()
+        sd.shutdown()
+        edit.shutdown()
+    del sd, edit, qpipe, qedit_pipe
     torch.cuda.empty_cache()
     return out
 
@@ -1760,6 +2385,21 @@ def _kernel1_entry(rows, runs_by_path):
     serve = runs_by_path["serve"]
     by_path["serve_sd"] = {**serve["serve_sd"], "per": f"{SERVE_ROUNDS} batches of {BATCH} requests"}
     by_path["serve_edit"] = {**serve["serve_edit"], "per": "one /v1/edit (fmppo, 5 steps)"}
+    for label in QUANT_SKIP:
+        run = runs_by_path["int8_sd"][label]
+        by_path[f"int8_sd_{label}_generation"] = {
+            k: run[k] for k in ("launches", "launches_by_route", "int_mm_per_generation")}
+    for key in ("int8", "int4"):
+        run = runs_by_path["int8_flux"][key]
+        by_path[f"{key}_flux_edit"] = {k: run[k] for k in ("launches", "launches_by_route",
+                                                           "int_mm_per_edit")}
+    run = runs_by_path["sd_ppo"]["int8_ppo"]
+    by_path["int8_sd_ppo_step"] = {k: run[k] for k in ("launches", "launches_by_route",
+                                                       "num_inference", "int_mm_launches")}
+    run = serve["int8"]
+    by_path["serve_int8"] = {"generate_rounds": run["throughput"]["launches"],
+                             "edit": run["edit"]["launches"],
+                             "per": f"2 batches of {BATCH} requests; one /v1/edit"}
     sd = by_path["sd15_generation"]
     return {
         "name": "flash_attention", "route": "cuda",
@@ -1844,6 +2484,10 @@ def main() -> int:
     phase_tiny_slice(fa)
     runs_by_path["flux"] = phase_flux(fa)
     phase_tiny_flux(fa)
+    phase_quant_ops()
+    runs_by_path["int8_sd"] = phase_int8_sd(fa)
+    runs_by_path["int8_flux"] = phase_int8_flux(fa)
+    phase_tiny_quant(fa)
     runs_by_path["sd_ppo"] = phase_sd_ppo(fa)
     runs_by_path["flux_ppo"] = phase_flux_ppo(fa)
     phase_tiny_train(fa)

@@ -6,7 +6,12 @@ nested dicts of numpy arrays becomes a flat torch state dict.
   * a trailing ``_N`` on a module name becomes a ``.N`` list index;
   * a 4-D ``kernel`` (HWIO) becomes ``weight`` (OIHW);
   * a 2-D ``kernel`` (in, out) becomes ``weight`` (out, in);
-  * ``scale`` (norms) and ``embedding`` (embedding tables) become ``weight``.
+  * ``scale`` (norms) and ``embedding`` (embedding tables) become ``weight``;
+  * a quantized tree's integer leaves keep their dtype: an int8 ``kernel``
+    keeps its name and takes the port's int8 layouts (``[out, in]`` for a
+    dense kernel, ``[out, kh, kw, in]`` for a conv), an int4
+    ``kernel_packed`` (uint8 ``[in // 2, out]``) and every ``kernel_scale``
+    load as they are.  Float leaves become f32 as before.
 
 :func:`load_jax_params` matches the result to a module's own key names by
 merging list indices back (``linear.1`` and ``linear_1`` name one key), so
@@ -31,6 +36,12 @@ from torch import nn
 
 def _leaf(path: Tuple[str, ...], value: np.ndarray) -> Tuple[Tuple[str, ...], np.ndarray]:
     *prefix, leaf = path
+    if leaf == "kernel" and value.dtype == np.int8:
+        if value.ndim == 4:  # HWIO -> OHWI
+            return path, value.transpose(3, 0, 1, 2)
+        if value.ndim == 2:  # (in, out) -> (out, in)
+            return path, value.T
+        raise ValueError(f"Unexpected int8 kernel ndim {value.ndim} at {path}")
     if leaf == "kernel":
         if value.ndim == 4:  # HWIO -> OIHW
             return (*prefix, "weight"), value.transpose(3, 2, 0, 1)
@@ -44,7 +55,7 @@ def _leaf(path: Tuple[str, ...], value: np.ndarray) -> Tuple[Tuple[str, ...], np
 
 def state_dict_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax param tree (with or without the ``{"params": ...}`` wrapper) ->
-    torch state dict of f32 CPU tensors."""
+    torch state dict of CPU tensors: f32, or the integer leaves' own dtype."""
     if set(tree.keys()) == {"params"}:
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}
@@ -54,7 +65,10 @@ def state_dict_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if isinstance(child, Mapping):
                 walk(child, prefix + (re.sub(r"_(\d+)$", r".\1", name),))
                 continue
-            path, value = _leaf(prefix + (name,), np.asarray(child, np.float32))
+            value = np.asarray(child)
+            if not np.issubdtype(value.dtype, np.integer):
+                value = value.astype(np.float32)
+            path, value = _leaf(prefix + (name,), value)
             out[".".join(path)] = torch.from_numpy(np.ascontiguousarray(value))
 
     walk(tree, ())

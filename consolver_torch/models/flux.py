@@ -31,7 +31,8 @@ from torch import nn
 
 from consolver_torch.device import resolve_device
 from consolver_torch.kernels.attention import attention as attention_op
-from consolver_torch.models.layers import TimestepEmbedding, timestep_embedding
+from consolver_torch.kernels.quant import cast_float_layers
+from consolver_torch.models.layers import TimestepEmbedding, make_dense, timestep_embedding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,13 +48,21 @@ class FluxConfig:
     guidance_embeds: bool = True
     mlp_ratio: float = 4.0
     theta: int = 10000
-    # int8 / int4 stream-block projections: not ported yet (ROADMAP Queue A.11).
+    # W8A8 int8 for the stream blocks' attention, FF and modulation
+    # projections (kernels/quant.py); the embedders and the final norm / proj
+    # stay float.  quant_int4 packs the same projections to 4 bits (W4A16,
+    # group-128 scales): a memory configuration; it takes precedence.
     quant_int8: bool = False
     quant_int4: bool = False
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    @property
+    def quant_mode(self):
+        """The ``make_dense`` policy: ``"int4"``, ``True`` (int8) or ``False``."""
+        return "int4" if self.quant_int4 else self.quant_int8
 
     @classmethod
     def flux_kontext(cls) -> "FluxConfig":
@@ -173,22 +182,23 @@ class DoubleStreamBlock(nn.Module):
         super().__init__()
         h, hd = cfg.hidden_size, cfg.head_dim
         mlp_h = int(h * cfg.mlp_ratio)
+        q = cfg.quant_mode
         self.num_heads = cfg.num_heads
-        self.norm1_linear = nn.Linear(h, 6 * h)
-        self.norm1_context_linear = nn.Linear(h, 6 * h)
+        self.norm1_linear = make_dense(q, h, 6 * h)
+        self.norm1_context_linear = make_dense(q, h, 6 * h)
         for prefix in ("attn_to_", "attn_add_"):
             for name in "qkv":
-                setattr(self, prefix + name, nn.Linear(h, h))
+                setattr(self, prefix + name, make_dense(q, h, h))
         self.attn_norm_q = QKNorm(hd)
         self.attn_norm_k = QKNorm(hd)
         self.attn_norm_added_q = QKNorm(hd)
         self.attn_norm_added_k = QKNorm(hd)
-        self.attn_to_out_0 = nn.Linear(h, h)
-        self.attn_to_add_out = nn.Linear(h, h)
-        self.ff_net_0_proj = nn.Linear(h, mlp_h)
-        self.ff_net_2 = nn.Linear(mlp_h, h)
-        self.ff_context_net_0_proj = nn.Linear(h, mlp_h)
-        self.ff_context_net_2 = nn.Linear(mlp_h, h)
+        self.attn_to_out_0 = make_dense(q, h, h)
+        self.attn_to_add_out = make_dense(q, h, h)
+        self.ff_net_0_proj = make_dense(q, h, mlp_h)
+        self.ff_net_2 = make_dense(q, mlp_h, h)
+        self.ff_context_net_0_proj = make_dense(q, h, mlp_h)
+        self.ff_context_net_2 = make_dense(q, mlp_h, h)
 
     def _qkv(self, x: torch.Tensor, prefix: str):
         b = x.shape[0]
@@ -197,7 +207,7 @@ class DoubleStreamBlock(nn.Module):
                      for name in "qkv")
 
     def forward(self, img, txt, vec, cos, sin):
-        dtype = self.norm1_linear.weight.dtype
+        dtype = self.attn_norm_q.weight.dtype
         b, s_txt = img.shape[0], txt.shape[1]
         i_shift_a, i_scale_a, i_gate_a, i_shift_m, i_scale_m, i_gate_m = (
             self.norm1_linear(F.silu(vec)).chunk(6, dim=-1))
@@ -233,18 +243,19 @@ class SingleStreamBlock(nn.Module):
         super().__init__()
         h, hd = cfg.hidden_size, cfg.head_dim
         mlp_h = int(h * cfg.mlp_ratio)
+        q = cfg.quant_mode
         self.num_heads = cfg.num_heads
-        self.norm_linear = nn.Linear(h, 3 * h)
-        self.attn_to_q = nn.Linear(h, h)
-        self.attn_to_k = nn.Linear(h, h)
-        self.attn_to_v = nn.Linear(h, h)
+        self.norm_linear = make_dense(q, h, 3 * h)
+        self.attn_to_q = make_dense(q, h, h)
+        self.attn_to_k = make_dense(q, h, h)
+        self.attn_to_v = make_dense(q, h, h)
         self.attn_norm_q = QKNorm(hd)
         self.attn_norm_k = QKNorm(hd)
-        self.proj_mlp = nn.Linear(h, mlp_h)
-        self.proj_out = nn.Linear(h + mlp_h, h)
+        self.proj_mlp = make_dense(q, h, mlp_h)
+        self.proj_out = make_dense(q, h + mlp_h, h)
 
     def forward(self, x, vec, cos, sin):
-        dtype = self.norm_linear.weight.dtype
+        dtype = self.attn_norm_q.weight.dtype
         b, s, h = x.shape
         shape = (b, s, self.num_heads, h // self.num_heads)
         shift, scale, gate = self.norm_linear(F.silu(vec)).chunk(3, dim=-1)
@@ -266,8 +277,6 @@ class FluxTransformer(nn.Module):
 
     def __init__(self, cfg: FluxConfig, device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.quant_int8 or cfg.quant_int4:
-            raise NotImplementedError("quantized FLUX is not ported yet (ROADMAP Queue A.11)")
         self.cfg = cfg
         h = cfg.hidden_size
         with torch.device(resolve_device(device)):
@@ -284,7 +293,7 @@ class FluxTransformer(nn.Module):
             self.norm_out_linear = nn.Linear(h, 2 * h)
             self.proj_out = nn.Linear(h, cfg.in_channels)
         if dtype is not None:
-            self.to(dtype)
+            cast_float_layers(self, dtype)
 
     def forward(self, img, txt, pooled, timestep, guidance, img_ids, txt_ids):
         cfg = self.cfg

@@ -14,6 +14,14 @@ Numerics kept from the JAX package:
   * attention tokens are row-major over (h, w).
 
 Every attention goes through :func:`consolver_torch.kernels.attention.attention`.
+
+``quant`` (the JAX blocks' ``quant``) picks each projection's layer through
+:func:`make_dense` / :func:`make_conv`: ``True`` / ``"int8"`` the W8A8 int8
+layers of :mod:`consolver_torch.kernels.quant`, ``"int4"`` the packed int4
+dense layer (its convolutions stay int8), anything else the float layers.
+The time projection, the norms and the models' ``conv_in`` / ``conv_out``
+stay float.  A block reads its compute dtype from a norm's weights, which
+are never quantized; a quantized layer computes in its input's dtype.
 """
 
 from __future__ import annotations
@@ -26,6 +34,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from consolver_torch.kernels.attention import attention as attention_op
+from consolver_torch.kernels.quant import Int4Linear, Int8Conv2d, Int8Linear
+
+
+def make_dense(quant, in_features: int, out_features: int, bias: bool = True) -> nn.Module:
+    """``nn.Linear``, or its quantized twin under the quant policy."""
+    if quant == "int4":
+        return Int4Linear(in_features, out_features, bias=bias)
+    if quant:
+        return Int8Linear(in_features, out_features, bias=bias)
+    return nn.Linear(in_features, out_features, bias=bias)
+
+
+def make_conv(quant, in_channels: int, out_channels: int, kernel_size: int,
+              stride: int = 1, padding: int = 0) -> nn.Module:
+    """``nn.Conv2d``, or :class:`Int8Conv2d` under any truthy quant policy."""
+    if quant:
+        return Int8Conv2d(in_channels, out_channels, kernel_size, stride, padding)
+    return nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride, padding=padding)
 
 
 def group_norm_f32(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
@@ -47,6 +73,32 @@ def conv_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return F.conv2d(
         x.float(), conv.weight.float(), conv.bias.float(), conv.stride, conv.padding
     )
+
+
+def slot_invariant_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` one sample at a time: one im2col of the batch, then one GEMM
+    per sample, so that a row's bits do not depend on its batch slot.  On an
+    H100, cuDNN's batched bf16 3x3 convolutions below the UNet's top
+    resolution reduce some slots in another order than others
+    (``python -m consolver_torch.probes.slot_convs``); one GEMM shape gives
+    the same bits at every call."""
+    b, _, h, w = x.shape
+    kh, kw = conv.kernel_size
+    (ph, pw), (sh, sw) = conv.padding, conv.stride
+    cols = F.unfold(x, (kh, kw), padding=(ph, pw), stride=(sh, sw))  # [B, C*kh*kw, L]
+    weight = conv.weight.reshape(conv.out_channels, -1)
+    ho, wo = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
+    out = torch.stack([weight @ col for col in cols]).reshape(b, conv.out_channels, ho, wo)
+    return out if conv.bias is None else out + conv.bias[:, None, None]
+
+
+def run_conv(conv: nn.Module, x: torch.Tensor, per_sample: bool = False) -> torch.Tensor:
+    """``conv(x)``; with ``per_sample`` a float 3x3 convolution takes
+    :func:`slot_invariant_conv` (1x1 and int8 convolutions are already
+    slot-invariant)."""
+    if per_sample and isinstance(conv, nn.Conv2d) and conv.kernel_size != (1, 1):
+        return slot_invariant_conv(conv, x)
+    return conv(x)
 
 
 def nchw_to_tokens(x: torch.Tensor) -> torch.Tensor:
@@ -99,25 +151,27 @@ class ResnetBlock2D(nn.Module):
         out_channels: int,
         groups: int = 32,
         temb_channels: Optional[int] = None,
+        quant=False,
     ):
         super().__init__()
         self.norm1 = nn.GroupNorm(groups, in_channels, eps=1e-5)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = make_conv(quant, in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = (
             nn.Linear(temb_channels, out_channels) if temb_channels is not None else None
         )
         self.norm2 = nn.GroupNorm(groups, out_channels, eps=1e-5)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = make_conv(quant, out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (
-            nn.Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
+            make_conv(quant, in_channels, out_channels, 1) if in_channels != out_channels else None
         )
 
-    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        dtype = self.conv1.weight.dtype
-        h = self.conv1(F.silu(group_norm_f32(self.norm1, x)).to(dtype))
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
+                per_sample: bool = False) -> torch.Tensor:
+        dtype = self.norm1.weight.dtype
+        h = run_conv(self.conv1, F.silu(group_norm_f32(self.norm1, x)).to(dtype), per_sample)
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(group_norm_f32(self.norm2, h)).to(dtype))
+        h = run_conv(self.conv2, F.silu(group_norm_f32(self.norm2, h)).to(dtype), per_sample)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x.to(dtype))
         return x + h
@@ -134,16 +188,17 @@ class Attention(nn.Module):
         head_dim: int,
         cross_dim: Optional[int] = None,
         out_bias: bool = True,
+        quant=False,
     ):
         super().__init__()
         inner = num_heads * head_dim
         self.num_heads = num_heads
         self.head_dim = head_dim
         kv_dim = cross_dim if cross_dim is not None else query_dim
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(kv_dim, inner, bias=False)
-        self.to_v = nn.Linear(kv_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, inner, bias=out_bias)])
+        self.to_q = make_dense(quant, query_dim, inner, bias=False)
+        self.to_k = make_dense(quant, kv_dim, inner, bias=False)
+        self.to_v = make_dense(quant, kv_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([make_dense(quant, inner, inner, bias=out_bias)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         context = x if context is None else context
@@ -157,9 +212,9 @@ class Attention(nn.Module):
 
 
 class GEGLU(nn.Module):
-    def __init__(self, dim_in: int, dim_out: int):
+    def __init__(self, dim_in: int, dim_out: int, quant=False):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = make_dense(quant, dim_in, dim_out * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -169,9 +224,10 @@ class GEGLU(nn.Module):
 class FeedForward(nn.Module):
     """``net.0`` GEGLU, ``net.1`` the (inference-time) dropout, ``net.2`` out."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, quant=False):
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)])
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult, quant), nn.Identity(),
+                                  make_dense(quant, dim * mult, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.net:
@@ -182,17 +238,17 @@ class FeedForward(nn.Module):
 class BasicTransformerBlock(nn.Module):
     """LN -> self-attn -> LN -> cross-attn -> LN -> GEGLU FF, all residual."""
 
-    def __init__(self, dim: int, num_heads: int, head_dim: int, cross_dim: int):
+    def __init__(self, dim: int, num_heads: int, head_dim: int, cross_dim: int, quant=False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, num_heads, head_dim)
+        self.attn1 = Attention(dim, num_heads, head_dim, quant=quant)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = Attention(dim, num_heads, head_dim, cross_dim=cross_dim)
+        self.attn2 = Attention(dim, num_heads, head_dim, cross_dim=cross_dim, quant=quant)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, quant=quant)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        dtype = self.attn1.to_q.weight.dtype
+        dtype = self.norm1.weight.dtype
         x = x + self.attn1(layer_norm_f32(self.norm1, x).to(dtype))
         x = x + self.attn2(layer_norm_f32(self.norm2, x).to(dtype), context)
         return x + self.ff(layer_norm_f32(self.norm3, x).to(dtype))
@@ -210,19 +266,21 @@ class Transformer2D(nn.Module):
         cross_dim: int,
         depth: int = 1,
         groups: int = 32,
+        quant=False,
     ):
         super().__init__()
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.proj_in = make_conv(quant, channels, channels, 1)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(channels, num_heads, head_dim, cross_dim) for _ in range(depth)]
+            [BasicTransformerBlock(channels, num_heads, head_dim, cross_dim, quant)
+             for _ in range(depth)]
         )
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = make_conv(quant, channels, channels, 1)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         _, _, h, w = x.shape
         residual = x
-        y = self.proj_in(group_norm_f32(self.norm, x).to(self.proj_in.weight.dtype))
+        y = self.proj_in(group_norm_f32(self.norm, x).to(self.norm.weight.dtype))
         y = nchw_to_tokens(y)
         for block in self.transformer_blocks:
             y = block(y, context)
@@ -232,40 +290,40 @@ class Transformer2D(nn.Module):
 class Downsample2D(nn.Module):
     """Stride-2 conv after the asymmetric (0, 1) padding diffusers uses."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, quant=False):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, 3, stride=2, padding=0)
+        self.conv = make_conv(quant, in_channels, out_channels, 3, stride=2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.pad(x, (0, 1, 0, 1)))
+    def forward(self, x: torch.Tensor, per_sample: bool = False) -> torch.Tensor:
+        return run_conv(self.conv, F.pad(x, (0, 1, 0, 1)), per_sample)
 
 
 class Upsample2D(nn.Module):
     """Nearest-neighbour 2x upsample + conv."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, quant=False):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv = make_conv(quant, in_channels, out_channels, 3, padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+    def forward(self, x: torch.Tensor, per_sample: bool = False) -> torch.Tensor:
+        return run_conv(self.conv, F.interpolate(x, scale_factor=2.0, mode="nearest"), per_sample)
 
 
 class VaeAttention(nn.Module):
     """Single-head self-attention block of the VAE mid blocks (NCHW)."""
 
-    def __init__(self, channels: int, groups: int = 32):
+    def __init__(self, channels: int, groups: int = 32, quant=False):
         super().__init__()
         self.group_norm = nn.GroupNorm(groups, channels, eps=1e-6)
-        self.to_q = nn.Linear(channels, channels)
-        self.to_k = nn.Linear(channels, channels)
-        self.to_v = nn.Linear(channels, channels)
-        self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
+        self.to_q = make_dense(quant, channels, channels)
+        self.to_k = make_dense(quant, channels, channels)
+        self.to_v = make_dense(quant, channels, channels)
+        self.to_out = nn.ModuleList([make_dense(quant, channels, channels)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         residual = x
-        t = nchw_to_tokens(group_norm_f32(self.group_norm, x)).to(self.to_q.weight.dtype)
+        t = nchw_to_tokens(group_norm_f32(self.group_norm, x)).to(self.group_norm.weight.dtype)
         q = self.to_q(t).reshape(b, h * w, 1, c)
         k = self.to_k(t).reshape(b, h * w, 1, c)
         v = self.to_v(t).reshape(b, h * w, 1, c)

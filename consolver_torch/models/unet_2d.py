@@ -6,6 +6,16 @@ returns NHWC epsilon; inside, the conv stacks run NCHW.  Attribute names
 follow the diffusers ``UNet2DConditionModel`` keys
 (``down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_out.0``), so
 ``consolver_tpu.models.convert.convert_unet`` reads the state dict as is.
+
+``quant_int8`` runs the resolution levels not in ``quant_skip_levels`` on the
+W8A8 int8 layers (their resnet, transformer and resample projections; the
+time projections, norms, ``conv_in`` / ``conv_out`` and the time embedding
+stay float); :meth:`TextToImagePipeline.quantize` skips level 0.
+
+``forward(..., slot_invariant=True)`` gives each sample bits that do not
+depend on its batch slot: every float 3x3 convolution outside the top level
+runs one sample at a time (``layers.slot_invariant_conv``).  Deterministic
+programs take it; sampled ones keep the batched convolutions.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from consolver_torch.device import resolve_device
+from consolver_torch.kernels.quant import cast_float_layers
 from consolver_torch.models.layers import (
     Downsample2D,
     ResnetBlock2D,
@@ -44,8 +55,11 @@ class UNetConfig:
     transformer_depth: int = 1
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
-    # W8A8 int8 projections: not ported yet (ROADMAP Queue A.11).
+    # W8A8 int8 projections (kernels/quant.py), at every resolution level
+    # (an index into block_out_channels, 0 = the highest resolution) but
+    # those in quant_skip_levels, which stay float.
     quant_int8: bool = False
+    quant_skip_levels: Tuple[int, ...] = ()
 
     @classmethod
     def sd15(cls) -> "UNetConfig":
@@ -64,83 +78,86 @@ class UNetConfig:
         )
 
 
-def _transformer(cfg: UNetConfig, channels: int) -> Transformer2D:
+def _transformer(cfg: UNetConfig, channels: int, quant: bool) -> Transformer2D:
     heads = cfg.attention_head_dim
     return Transformer2D(
         channels, heads, channels // heads, cfg.cross_attention_dim,
-        depth=cfg.transformer_depth, groups=cfg.norm_num_groups,
+        depth=cfg.transformer_depth, groups=cfg.norm_num_groups, quant=quant,
     )
 
 
 class CrossAttnDownBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, in_channels: int, out_channels: int,
-                 has_attn: bool, add_downsample: bool, temb_channels: int):
+                 has_attn: bool, add_downsample: bool, temb_channels: int, quant: bool = False):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_channels if i == 0 else out_channels, out_channels,
-                          cfg.norm_num_groups, temb_channels)
+                          cfg.norm_num_groups, temb_channels, quant)
             for i in range(cfg.layers_per_block)
         ])
         self.attentions = (
-            nn.ModuleList([_transformer(cfg, out_channels) for _ in range(cfg.layers_per_block)])
+            nn.ModuleList([_transformer(cfg, out_channels, quant)
+                           for _ in range(cfg.layers_per_block)])
             if has_attn else None
         )
         self.downsamplers = (
-            nn.ModuleList([Downsample2D(out_channels, out_channels)]) if add_downsample else None
+            nn.ModuleList([Downsample2D(out_channels, out_channels, quant)])
+            if add_downsample else None
         )
 
-    def forward(self, x, temb, context):
+    def forward(self, x, temb, context, per_sample=False):
         skips = []
         for i, resnet in enumerate(self.resnets):
-            x = resnet(x, temb)
+            x = resnet(x, temb, per_sample)
             if self.attentions is not None:
                 x = self.attentions[i](x, context)
             skips.append(x)
         if self.downsamplers is not None:
-            x = self.downsamplers[0](x)
+            x = self.downsamplers[0](x, per_sample)
             skips.append(x)
         return x, skips
 
 
 class CrossAttnUpBlock(nn.Module):
     def __init__(self, cfg: UNetConfig, in_channels: List[int], out_channels: int,
-                 has_attn: bool, add_upsample: bool, temb_channels: int):
+                 has_attn: bool, add_upsample: bool, temb_channels: int, quant: bool = False):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock2D(c, out_channels, cfg.norm_num_groups, temb_channels)
+            ResnetBlock2D(c, out_channels, cfg.norm_num_groups, temb_channels, quant)
             for c in in_channels
         ])
         self.attentions = (
-            nn.ModuleList([_transformer(cfg, out_channels) for _ in in_channels])
+            nn.ModuleList([_transformer(cfg, out_channels, quant) for _ in in_channels])
             if has_attn else None
         )
         self.upsamplers = (
-            nn.ModuleList([Upsample2D(out_channels, out_channels)]) if add_upsample else None
+            nn.ModuleList([Upsample2D(out_channels, out_channels, quant)])
+            if add_upsample else None
         )
 
-    def forward(self, x, skips, temb, context):
+    def forward(self, x, skips, temb, context, per_sample=False):
         for i, resnet in enumerate(self.resnets):
-            x = resnet(torch.cat([x, skips.pop()], dim=1), temb)
+            x = resnet(torch.cat([x, skips.pop()], dim=1), temb, per_sample)
             if self.attentions is not None:
                 x = self.attentions[i](x, context)
         if self.upsamplers is not None:
-            x = self.upsamplers[0](x)
+            x = self.upsamplers[0](x, per_sample)
         return x
 
 
 class MidBlock(nn.Module):
-    def __init__(self, cfg: UNetConfig, channels: int, temb_channels: int):
+    def __init__(self, cfg: UNetConfig, channels: int, temb_channels: int, quant: bool = False):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock2D(channels, channels, cfg.norm_num_groups, temb_channels)
+            ResnetBlock2D(channels, channels, cfg.norm_num_groups, temb_channels, quant)
             for _ in range(2)
         ])
-        self.attentions = nn.ModuleList([_transformer(cfg, channels)])
+        self.attentions = nn.ModuleList([_transformer(cfg, channels, quant)])
 
-    def forward(self, x, temb, context):
-        x = self.resnets[0](x, temb)
+    def forward(self, x, temb, context, per_sample=False):
+        x = self.resnets[0](x, temb, per_sample)
         x = self.attentions[0](x, context)
-        return self.resnets[1](x, temb)
+        return self.resnets[1](x, temb, per_sample)
 
 
 class UNet2DCondition(nn.Module):
@@ -149,8 +166,6 @@ class UNet2DCondition(nn.Module):
 
     def __init__(self, cfg: UNetConfig, device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.quant_int8:
-            raise NotImplementedError("int8 UNet is not ported yet (ROADMAP Queue A.11)")
         self.cfg = cfg
         device = resolve_device(device)
         channels = cfg.block_out_channels
@@ -167,11 +182,13 @@ class UNet2DCondition(nn.Module):
                 is_last = i == len(channels) - 1
                 self.down_blocks.append(CrossAttnDownBlock(
                     cfg, prev, out_ch, cfg.cross_attn_blocks[i], not is_last, temb_channels,
+                    self.level_quant(i),
                 ))
                 skip_channels += [out_ch] * (cfg.layers_per_block + (0 if is_last else 1))
                 prev = out_ch
 
-            self.mid_block = MidBlock(cfg, channels[-1], temb_channels)
+            self.mid_block = MidBlock(cfg, channels[-1], temb_channels,
+                                      self.level_quant(len(channels) - 1))
 
             self.up_blocks = nn.ModuleList()
             for i, out_ch in enumerate(reversed(channels)):
@@ -182,16 +199,19 @@ class UNet2DCondition(nn.Module):
                     prev = out_ch
                 self.up_blocks.append(CrossAttnUpBlock(
                     cfg, ins, out_ch, cfg.cross_attn_blocks[rev],
-                    i != len(channels) - 1, temb_channels,
+                    i != len(channels) - 1, temb_channels, self.level_quant(rev),
                 ))
 
             self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, channels[0], eps=1e-5)
             self.conv_out = nn.Conv2d(channels[0], cfg.out_channels, 3, padding=1)
         if dtype is not None:
-            self.to(dtype)
+            cast_float_layers(self, dtype)
+
+    def level_quant(self, level: int) -> bool:
+        return self.cfg.quant_int8 and level not in self.cfg.quant_skip_levels
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor, slot_invariant: bool = False) -> torch.Tensor:
         cfg = self.cfg
         dtype = self.conv_in.weight.dtype
         context = encoder_hidden_states.to(dtype)
@@ -206,12 +226,13 @@ class UNet2DCondition(nn.Module):
 
         x = self.conv_in(sample.permute(0, 3, 1, 2).to(dtype))
         skips = [x]
-        for block in self.down_blocks:
-            x, block_skips = block(x, temb, context)
+        last = len(self.down_blocks) - 1
+        for level, block in enumerate(self.down_blocks):
+            x, block_skips = block(x, temb, context, slot_invariant and level > 0)
             skips.extend(block_skips)
-        x = self.mid_block(x, temb, context)
-        for block in self.up_blocks:
-            x = block(x, skips, temb, context)
+        x = self.mid_block(x, temb, context, slot_invariant)
+        for i, block in enumerate(self.up_blocks):
+            x = block(x, skips, temb, context, slot_invariant and last - i > 0)
 
         x = F.silu(group_norm_f32(self.conv_norm_out, x)).to(dtype)
         return conv_f32(self.conv_out, x).permute(0, 2, 3, 1)

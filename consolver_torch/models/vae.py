@@ -2,7 +2,10 @@
 
 Port of ``consolver_tpu/models/vae.py``.  The whole module tree (encoder and
 decoder) is here so a JAX parameter tree carries across whole; the preview
-path runs only :meth:`AutoencoderKL.decode`.  Public calls are NHWC; the conv
+path runs only :meth:`AutoencoderKL.decode`.  ``quant_int8`` runs the
+decoder's ``mid_block`` and ``up_blocks`` on the W8A8 int8 layers; the
+encoder, the quant convs and the decoder's ``conv_in`` / ``conv_out`` stay
+float.  Public calls are NHWC; the conv
 stacks run NCHW.  Attribute names follow the diffusers keys, which
 ``consolver_tpu.models.convert.convert_vae`` reads as they are.
 """
@@ -17,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from consolver_torch.device import resolve_device
+from consolver_torch.kernels.quant import cast_float_layers
 from consolver_torch.models.layers import (
     Downsample2D,
     ResnetBlock2D,
@@ -36,7 +40,7 @@ class VaeConfig:
     layers_per_block: int = 2
     norm_num_groups: int = 32
     scaling_factor: float = 0.18215
-    # W8A8 int8 decoder: not ported yet (ROADMAP Queue A.11).
+    # W8A8 int8 decoder mid_block and up_blocks (kernels/quant.py).
     quant_int8: bool = False
 
     @classmethod
@@ -49,10 +53,11 @@ class VaeConfig:
 
 
 class _MidBlock(nn.Module):
-    def __init__(self, channels: int, groups: int):
+    def __init__(self, channels: int, groups: int, quant: bool = False):
         super().__init__()
-        self.resnets = nn.ModuleList([ResnetBlock2D(channels, channels, groups) for _ in range(2)])
-        self.attentions = nn.ModuleList([VaeAttention(channels, groups)])
+        self.resnets = nn.ModuleList([ResnetBlock2D(channels, channels, groups, quant=quant)
+                                      for _ in range(2)])
+        self.attentions = nn.ModuleList([VaeAttention(channels, groups, quant)])
 
     def forward(self, x):
         return self.resnets[1](self.attentions[0](self.resnets[0](x)))
@@ -62,16 +67,17 @@ class _ResnetStack(nn.Module):
     """``resnets.*`` then an optional ``downsamplers.0`` / ``upsamplers.0``."""
 
     def __init__(self, in_channels: int, out_channels: int, layers: int, groups: int,
-                 resample: Optional[str]):
+                 resample: Optional[str], quant: bool = False):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock2D(in_channels if j == 0 else out_channels, out_channels, groups)
+            ResnetBlock2D(in_channels if j == 0 else out_channels, out_channels, groups,
+                          quant=quant)
             for j in range(layers)
         ])
         if resample == "down":
             self.downsamplers = nn.ModuleList([Downsample2D(out_channels, out_channels)])
         elif resample == "up":
-            self.upsamplers = nn.ModuleList([Upsample2D(out_channels, out_channels)])
+            self.upsamplers = nn.ModuleList([Upsample2D(out_channels, out_channels, quant)])
         self.resample = resample
 
     def forward(self, x):
@@ -114,10 +120,10 @@ class Decoder(nn.Module):
         super().__init__()
         rev = list(reversed(cfg.block_out_channels))
         self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
-        self.mid_block = _MidBlock(rev[0], cfg.norm_num_groups)
+        self.mid_block = _MidBlock(rev[0], cfg.norm_num_groups, cfg.quant_int8)
         self.up_blocks = nn.ModuleList([
             _ResnetStack(rev[max(i - 1, 0)], c, cfg.layers_per_block + 1, cfg.norm_num_groups,
-                         "up" if i != len(rev) - 1 else None)
+                         "up" if i != len(rev) - 1 else None, cfg.quant_int8)
             for i, c in enumerate(rev)
         ])
         self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, rev[-1], eps=1e-6)
@@ -139,8 +145,6 @@ class AutoencoderKL(nn.Module):
 
     def __init__(self, cfg: VaeConfig, device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.quant_int8:
-            raise NotImplementedError("int8 VAE is not ported yet (ROADMAP Queue A.11)")
         self.cfg = cfg
         with torch.device(resolve_device(device)):
             self.encoder = Encoder(cfg)
@@ -148,7 +152,7 @@ class AutoencoderKL(nn.Module):
             self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
             self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
         if dtype is not None:
-            self.to(dtype)
+            cast_float_layers(self, dtype)
 
     def encode(self, x: torch.Tensor):
         """x NHWC in [-1, 1] -> (mean, logvar), each ``[B, h, w, latent]``."""

@@ -9,14 +9,17 @@ denoise (the learnable FMPPO solver or an FM baseline) and the VAE decode.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Optional
 
 import torch
 
 from consolver_torch.core import schedules
 from consolver_torch.device import resolve_device
+from consolver_torch.kernels.quant import quantize_like
 from consolver_torch.models import flux as flux_lib
-from consolver_torch.models.vae import chunked_apply
+from consolver_torch.models.vae import AutoencoderKL, chunked_apply
 from consolver_torch.pipelines import fm
 from consolver_torch.policy.factor_net import FactorNet
 
@@ -64,8 +67,26 @@ class FluxKontextPipeline:
         img = chunked_apply(self.vae.decode, x, chunk)
         return (img / 2 + 0.5).clamp(0.0, 1.0)
 
-    def quantize(self, bits: int = 8):
-        raise NotImplementedError("quantized FLUX serving is not ported yet (ROADMAP Queue A.11)")
+    def quantize(self, bits: int = 8) -> "FluxKontextPipeline":
+        """A quantized copy of this pipeline.  ``bits=8``: W8A8 int8 DiT
+        stream-block projections and modulations and an int8 VAE decoder;
+        ``bits=4``: packed 4-bit DiT weights computed in the DiT's dtype
+        (W4A16, group-128 scales: the memory configuration), the VAE decoder
+        still int8.  Quantized from this pipeline's weights one layer at a
+        time; the encoders, FactorNet and FM settings are shared, the copy's
+        denoise cache starts empty, and this pipeline is left as it was."""
+        if bits not in (4, 8):
+            raise ValueError(f"bits must be 4 or 8, got {bits}")
+        cfg = self.transformer.cfg
+        qcfg = (dataclasses.replace(cfg, quant_int4=True) if bits == 4
+                else dataclasses.replace(cfg, quant_int8=True))
+        vae_cfg = dataclasses.replace(self.vae.cfg, quant_int8=True)
+        quantized = copy.copy(self)
+        quantized.transformer = quantize_like(flux_lib.FluxTransformer(qcfg, device="meta"),
+                                              self.transformer)
+        quantized.vae = quantize_like(AutoencoderKL(vae_cfg, device="meta"), self.vae)
+        quantized._denoise_cache = {}
+        return quantized
 
     def _ids(self, lh: int, lw: int, seq_txt: int):
         img_ids = torch.cat([

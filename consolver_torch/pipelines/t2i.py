@@ -8,11 +8,17 @@ actions, probs, masks) is recorded per step and step 0 is dropped, as in the
 JAX package's scan.  The plain-DDIM baseline is ``factor_net=None``
 (``order_dim=1``, passthrough combine); the baseline solver zoo runs
 through ``pipelines/solver_zoo.py``.
+
+A deterministic program (``deterministic_policy=True``) calls the UNet with
+``slot_invariant=True``, so that a request's bits do not depend on its batch
+slot; sampled programs keep the batched convolutions.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import functools
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -21,6 +27,9 @@ import torch
 from consolver_torch.core import schedules, solver
 from consolver_torch.data.tokenizer import HashTokenizer, uncond_input_ids
 from consolver_torch.device import resolve_device
+from consolver_torch.kernels.quant import quantize_like
+from consolver_torch.models.unet_2d import UNet2DCondition
+from consolver_torch.models.vae import AutoencoderKL
 from consolver_torch.models.vae import decode_latents as _decode_latents
 from consolver_torch.pipelines import solver_zoo
 from consolver_torch.policy.factor_net import FactorNet
@@ -252,8 +261,31 @@ class TextToImagePipeline:
         )
         return torch.as_tensor(ids, device=self.device)
 
-    def quantize(self, skip_levels: Tuple[int, ...] = (0,)):
-        raise NotImplementedError("int8 serving is not ported yet (ROADMAP Queue A.11)")
+    def quantize(self, skip_levels: Tuple[int, ...] = (0,)) -> "TextToImagePipeline":
+        """A W8A8 int8 copy of this pipeline for serving and rollouts: the
+        UNet's projections at every level but ``skip_levels`` and the VAE
+        decoder run on the int8 layers (``kernels/quant.py``), quantized
+        from this pipeline's weights one layer at a time.  The text encoder,
+        FactorNet, tokenizer, schedule and timestep settings are shared; the
+        copy starts with an empty denoise cache (the cached functions hold
+        their models), and this pipeline is left as it was.  The default
+        keeps UNet level 0 float (the JAX package's hybrid); ``()`` is
+        uniform int8."""
+        unet_cfg = dataclasses.replace(self.unet.cfg, quant_int8=True,
+                                       quant_skip_levels=tuple(skip_levels))
+        vae_cfg = dataclasses.replace(self.vae.cfg, quant_int8=True)
+        quantized = copy.copy(self)
+        quantized.unet = quantize_like(UNet2DCondition(unet_cfg, device="meta"), self.unet)
+        quantized.vae = quantize_like(AutoencoderKL(vae_cfg, device="meta"), self.vae)
+        quantized._denoise_cache = {}
+        return quantized
+
+    def _unet_apply(self, deterministic_policy: bool) -> UNetApply:
+        """The UNet as the step loop calls it: slot-invariant for the
+        deterministic programs."""
+        if deterministic_policy:
+            return functools.partial(self.unet, slot_invariant=True)
+        return self.unet
 
     def denoise_fn(
         self,
@@ -273,7 +305,8 @@ class TextToImagePipeline:
         if key not in self._denoise_cache:
             if solver == "consistencysolver":
                 fn = make_denoise_fn(
-                    self.unet, self.schedule, self.factor_net, num_inference_steps,
+                    self._unet_apply(deterministic_policy), self.schedule, self.factor_net,
+                    num_inference_steps,
                     guidance_scale, self.timestep_spacing, self.steps_offset,
                     record_trajectory=record, deterministic_policy=deterministic_policy,
                 )
@@ -296,7 +329,7 @@ class TextToImagePipeline:
         key = ("padded", max_steps, float(guidance_scale), record, deterministic_policy)
         if key not in self._denoise_cache:
             self._denoise_cache[key] = make_padded_denoise_fn(
-                self.unet, self.schedule, self.factor_net, max_steps,
+                self._unet_apply(deterministic_policy), self.schedule, self.factor_net, max_steps,
                 guidance_scale, record_trajectory=record,
                 deterministic_policy=deterministic_policy,
             )

@@ -15,19 +15,17 @@ most 2 batches in flight).
 
 Determinism contract: a request's initial noise comes from its ``seed``
 alone (drawn on the CPU, so the same on every device), and every model op is
-per sample, so a request's bits never depend on its batch-mates.  On an
-H100 they can depend on its slot: cuDNN's bf16 3x3 convolutions with large
-inputs at 16x16 (the UNet's 1280-channel level) reduce the first rows of a
-batch in another order than the rest, which moves a few pixels by one uint8
-level between slots 0-1 and the others.  Two stochastic exceptions remain
-when sampling is on:
+per sample, so a request's bits never depend on its batch-mates.  Two
+stochastic exceptions remain when sampling is on:
 
 - the learnable solvers (``consistencysolver`` / ``fmppo``) *sample* policy
   actions from one batch-shared generator, so a request's actions depend on
   its batch slot.  ``deterministic=True`` takes mode actions instead, and
-  the output is then a pure function of (prompt, seed, program key) and, on
-  the card, its slot, served always at the largest batch shape (see
-  :meth:`_BatchingEngine._pick_size`);
+  the output is then a pure function of (prompt, seed, program key), served
+  always at the largest batch shape (see :meth:`_BatchingEngine._pick_size`)
+  through a program whose UNet convolutions do not depend on the batch slot
+  either (``TextToImagePipeline.denoise_fn``: on an H100, cuDNN's batched
+  bf16 3x3 convolutions reduce some slots in another order than others);
 - the ``sde-*`` solvers draw their per-step noise from that generator too.
 
 The batch generator is seeded from the first row's seed.

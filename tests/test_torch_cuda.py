@@ -564,3 +564,88 @@ def test_engine_deterministic_slot_independence_on_the_card(cuda):
     assert solo.shape == (16, 16, 3) and solo.dtype.name == "uint8"
     assert (solo == packed[2]).all()
     assert stats["padded_rows"] == 3 and stats["batches"] == 2
+
+
+# ------------------------------------------------------------ int8 / int4
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (16 * 1024, 9 * 640, 640),  # UNet level-1 3x3 conv at batch 16, as its im2col GEMM
+    (16 * 256, 9 * 1280, 1280),  # level-2 3x3 conv
+    (16 * 256, 9 * 640, 640),  # level-1 downsample (33x33, stride 2 -> 16x16)
+    (8704, 3072, 12288),  # FLUX ff_net_0
+    (1, 3072, 18432),  # a FLUX modulation at batch 1: one row, padded to 17
+    (16, 3072, 9216),  # 16 rows, padded too
+    (17, 768, 320),
+])
+def test_int8_gemm_route_matches_plain_version(cuda, m, k, n):
+    """cuBLASLt's int8 GEMM (``torch._int_mm``) gives the plain version's
+    int32 (f64 products of int8 values, exact)."""
+    from consolver_torch.kernels import quant as tq
+
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    a = torch.randint(-127, 128, (m, k), device=cuda, generator=g, dtype=torch.int32).to(torch.int8)
+    b = torch.randint(-127, 128, (n, k), device=cuda, generator=g, dtype=torch.int32).to(torch.int8)
+    before = tq.int_mm.launches
+    got = tq.int_mm(a, b)
+    assert tq.int_mm.launches == before + 1 and got.shape == (m, n) and got.dtype == torch.int32
+    assert torch.equal(got, tq.int_mm_reference(a, b))
+
+
+@pytest.mark.parametrize("shape,k,stride,pad", [
+    ((16, 640, 32, 32), 3, 1, 1), ((16, 1280, 16, 16), 3, 1, 1), ((16, 640, 33, 33), 3, 2, 0),
+    ((16, 960, 32, 32), 1, 1, 0),
+])
+def test_int8_conv_card_matches_cpu(cuda, shape, k, stride, pad):
+    """An int8 UNet convolution on the card and on the CPU from the same
+    bf16 input: the same quantized input, int32 and output, bit for bit."""
+    from consolver_torch.kernels import quant as tq
+
+    g = torch.Generator().manual_seed(shape[1])
+    conv = torch.nn.Conv2d(shape[1], shape[1] // 2, k, stride, pad).to(torch.bfloat16)
+    with torch.no_grad():
+        conv.weight.normal_(0.0, 0.02, generator=g)
+    layer = tq.quantize_like(tq.Int8Conv2d(shape[1], shape[1] // 2, k, stride, pad), conv)
+    x = torch.randn(shape, generator=g).to(torch.bfloat16)
+    with torch.no_grad():
+        want = layer(x)
+        got = copy.deepcopy(layer).to(cuda)(x.to(cuda)).cpu()
+    assert torch.equal(got, want)
+
+
+def test_int4_dense_card_matches_plain_version(cuda):
+    """W4A16 at the FLUX ff shape: the bf16 GEMM on the same bf16 weights as
+    an f32 GEMM rounded where the card rounds, within one bf16 ulp of the
+    largest output."""
+    from consolver_torch.kernels import quant as tq
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    linear = torch.nn.Linear(3072, 12288, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():
+        linear.weight.normal_(0.0, 0.02, generator=g)
+    layer = tq.quantize_like(tq.Int4Linear(3072, 12288), linear)
+    x = torch.randn((8704, 3072), device=cuda, generator=g).to(torch.bfloat16)
+    with torch.no_grad():
+        got = layer(x).float()
+        w = tq.dequantize_int4(layer.kernel_packed, layer.kernel_scale, torch.bfloat16)
+        want = ((x.float() @ w.float()).to(torch.bfloat16) + layer.bias.to(torch.bfloat16)).float()
+    assert (got - want).abs().max() <= 2.0**-7 * want.abs().max()
+
+
+def test_slot_invariant_route_is_slot_invariant(cuda):
+    """The deterministic programs' UNet convolution route at batch 16 (a
+    slot-dependent cuDNN shape: 1280 channels at 16x16): a sample's bits at
+    slots 0 and 3 alike, where every row holds the same input."""
+    from consolver_torch.models.layers import slot_invariant_conv
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    conv = torch.nn.Conv2d(1280, 1280, 3, padding=1, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():
+        conv.weight.normal_(0.0, 0.02, generator=g)
+        row = torch.randn((1, 1280, 16, 16), device=cuda, generator=g).to(torch.bfloat16)
+        others = torch.randn((15, 1280, 16, 16), device=cuda, generator=g).to(torch.bfloat16)
+        at0 = slot_invariant_conv(conv, torch.cat([row, others]))[0]
+        at3 = slot_invariant_conv(conv, torch.cat([others[:3], row, others[3:]]))[3]
+        same = slot_invariant_conv(conv, row.expand(16, -1, -1, -1).contiguous())
+    assert torch.equal(at0, at3)
+    assert all(torch.equal(same[i], same[0]) for i in range(16))

@@ -162,8 +162,8 @@ def test_padded_edit_matches_jax(pipes, solver):
 
 def test_unported_and_invalid_paths_raise(pipes):
     _, tpipe = pipes
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tpipe.quantize()
+    with pytest.raises(ValueError, match="bits"):
+        tpipe.quantize(bits=3)
     with pytest.raises(ValueError, match="padded_max_steps"):
         tpipe(None, *_inputs(), padded_max_steps=4, solver="heun")
     assert tpipe.fm_config == tsched.FlowMatchConfig.flux()

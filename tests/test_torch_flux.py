@@ -146,10 +146,10 @@ def test_full_config_param_count():
     n = sum(p.numel() for p in model.parameters())
     assert 11.5e9 < n < 12.5e9, n
     assert tflux.FluxConfig.flux_kontext().head_dim == 128
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tflux.FluxTransformer(tflux.FluxConfig(quant_int8=True), device="meta")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tflux.FluxTransformer(tflux.FluxConfig(quant_int4=True), device="meta")
+    for mode, dtype in (("quant_int8", torch.int8), ("quant_int4", torch.uint8)):
+        quantized = tflux.FluxTransformer(tflux.FluxConfig(**{mode: True}), device="meta")
+        kernels = [b for b in quantized.buffers() if b.dtype == dtype]
+        assert len(kernels) == 19 * 14 + 38 * 6, mode  # every stream-block projection
 
 
 @pytest.mark.parametrize("qlen,klen", [(8, 8), (77, 77), (512, 512), (5, 300)])

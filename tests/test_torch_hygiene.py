@@ -48,12 +48,13 @@ def _is_torch_compile(name, owner):
 
 def test_port_files_exist():
     """The port's modules, the serving path's included (solver zoo, preview,
-    PNG codec, edit prep, policy IO, engines and HTTP)."""
+    PNG codec, edit prep, policy IO, engines and HTTP) and the int8 / int4
+    layers."""
     names = {str(p.relative_to(ROOT / "consolver_torch")) for p in PORT_FILES}
-    assert len(PORT_FILES) >= 50 and SMOKE.exists()
+    assert len(PORT_FILES) >= 53 and SMOKE.exists()
     assert {"utils/png.py", "pipelines/solver_zoo.py", "pipelines/preview.py",
             "eval/gen_sweep.py", "data/edit_prep.py", "policy/io.py", "serve/engine.py",
-            "serve/http.py"} <= names
+            "serve/http.py", "kernels/quant.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [SMOKE], ids=lambda p: str(p.relative_to(ROOT)))

@@ -212,9 +212,19 @@ def test_sd15_parameter_counts():
 
 
 def test_quant_configs_raise():
+    """The quantized configs build int8 layers (``tests/test_torch_quant.py``
+    holds them against JAX); what the card's int8 GEMM cannot take raises
+    when the weights are quantized."""
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match="A.11"):
-        TUNet(dataclasses.replace(TUNetConfig.tiny(), quant_int8=True), device="meta")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        TVae(dataclasses.replace(TVaeConfig.tiny(), quant_int8=True), device="meta")
+    from consolver_torch.kernels import quant as tq
+
+    unet = TUNet(dataclasses.replace(TUNetConfig.tiny(), quant_int8=True), device="meta")
+    vae = TVae(dataclasses.replace(TVaeConfig.tiny(), quant_int8=True), device="meta")
+    assert isinstance(unet.mid_block.resnets[0].conv1, tq.Int8Conv2d)
+    assert isinstance(vae.decoder.mid_block.attentions[0].to_q, tq.Int8Linear)
+    assert isinstance(vae.encoder.mid_block.attentions[0].to_q, torch.nn.Linear)
+    odd = dataclasses.replace(TUNetConfig.tiny(), block_out_channels=(36, 64), norm_num_groups=4)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tq.quantize_like(TUNet(dataclasses.replace(odd, quant_int8=True), device="meta"),
+                         TUNet(odd, device="cpu"))
