@@ -16,8 +16,11 @@ non-zero, printing nothing on stdout, without them.  Phases:
    kernel #1 (flash attention) against its plain PyTorch version at
    every attention shape of the SD-1.5 preview path (batch 8, so 16 rows
    under CFG) and of the FLUX-Kontext edit (the DiT's joint attention, the
-   VAE's 16384-token mid attention), plus Sq != Sk, a ragged length and
-   large scores, in bf16 (route "mma") and f32 (route "fma"); time the
+   VAE's 16384-token mid attention) and of the reward / eval backbones
+   (head dim 64: DINOv2-base, CLIP-L/14, Depth-Anything-V2-S's 1370 tokens,
+   SegFormer-b4's four stages with keys reduced to 256), plus Sq != Sk, a
+   ragged length and large scores, in bf16 (route "mma") and f32 (route
+   "fma"); print the build report's width-64 instantiation; time the
    kernel, its plain version and ``scaled_dot_product_attention`` (as a
    yardstick only), beside the least time the card could take, with the
    TFLOP/s of the function and the time over SDPA's and over the bound.
@@ -69,24 +72,41 @@ non-zero, printing nothing on stdout, without them.  Phases:
    FLUX int8 and int4), quantized on the CPU and run on the card: every
    quantized layer fed its CPU twin's input within 1e-6 (int4 1e-5), the
    whole output nearer the CPU one than quantization moves it.
-13. PPO training of the SD-1.5 FactorNet at full width with the settings of
+13. The reward and eval backbones at full width in bf16 (PyTorch's default
+   initialisation from a seed): DINOv2-base on 20 images of 1024^2,
+   CLIP-L/14 on 64, Depth-Anything-V2-S on 80 of 512^2 (518^2 inside),
+   SegFormer-b4 on 8, InceptionV3 (1000 logits, and 2048 pool3 features)
+   on 32: shapes, finite, depth >= 0 and not constant, classes in [0, 150),
+   kernel #1 exactly 12 / 24 / 12 / 41 / 0 launches per call, all "mma";
+   ms per call, images/s, peak memory, bytes.
+14. The tiny f32 backbones and the resize helper on the card and on the
+   CPU, TF32 off, within 5e-4 of each output's largest value.
+15. The eval stack: 16 SD-1.5 previews and their DDIM teachers written as
+   PNGs, ``evaluate_consistency`` with the dino reward over them, FID of
+   two streams of 64 images through InceptionV3's pool3 features, and
+   ``dino_vis.visualize``: counts, no error record, finite statistics.
+16. PPO training of the SD-1.5 FactorNet at full width with the settings of
    ``ExperimentConfig.sd15_ppo()`` (batch 80, CFG 3, steps in [2, 16),
-   decode chunks of 8), rewarded by ``image_psnr`` against teacher latents
-   that the port's own plain DDIM made (8 samples, 20 steps): two steps
-   through ``PPOTrainer.fit`` with a checkpoint, a fresh trainer resumed
-   from it bit-equal, kernel #1's launches against the count the step
-   counts imply (all "mma"), s/step, peak memory and one profiled step;
-   then one step over the hybrid int8 pipeline (float teacher latents).
-14. PPO training of the FLUX-Kontext FactorNet at full width with the
+   decode chunks of 8), rewarded by its ``depth`` reward (Depth-Anything-V2-S
+   on the 80 decoded images and the 80 teacher images) against teacher
+   latents that the port's own plain DDIM made (8 samples, 20 steps): two
+   steps through ``PPOTrainer.fit`` with a checkpoint, a fresh trainer
+   resumed from it bit-equal, kernel #1's launches against the count the
+   step counts imply (32 n + 20 + 2 x 12, all "mma"), rewards finite and
+   differing across the batch, the reward's ms and spread, s/step, peak
+   memory and one profiled step; then one step over the hybrid int8
+   pipeline (``image_psnr``, float teacher latents).
+17. PPO training of the FLUX-Kontext FactorNet at full width with the
    settings of ``ExperimentConfig.flux_ppo()`` for one rank's group (batch
-   10, 4 PPO epochs, guidance 2.5, steps in [2, 6)), against one teacher
-   edit from the port's Euler solver at 8 steps: one ``train_step``
-   (policy and Euler-baseline rollouts, three decodes), its launches, then
-   one profiled step.
-15. The tiny f32 SD stack, TF32 off: the PPO update on one flattened batch
+   10, 4 PPO epochs, guidance 2.5, steps in [2, 6)), rewarded by its
+   ``dino`` reward (DINOv2-base), against one teacher edit from the port's
+   Euler solver at 8 steps: one ``train_step`` (policy and Euler-baseline
+   rollouts, three decodes, two reward calls), its launches (57 x 2 n + 5 +
+   2 x 12), then one profiled step.
+18. The tiny f32 SD stack, TF32 off: the PPO update on one flattened batch
    on the card and on the CPU, two train steps on the card, and a
    checkpoint-and-resume run on the card bit-equal to a straight one.
-16. Serving at full width through one ``ServeServer`` on 127.0.0.1 with both
+19. Serving at full width through one ``ServeServer`` on 127.0.0.1 with both
    engines (SD-1.5: batch shapes 1 and 8; FLUX-Kontext: 1024^2, 128 T5
    tokens): prewarm, 3 rounds of 8 concurrent ``/v1/generate`` (one batch
    of 8 each, 0 pad rows; served img/s, p50 / p95 latency), the 9 zoo
@@ -214,8 +234,35 @@ SD_VAE_LAUNCHES = sum(c[3] for c in MAIN_PATH_CASES if c[0].startswith("vae"))
 DIT_LAUNCHES = sum(c[3] for c in FLUX_CASES if c[0] == "flux_joint") // FLUX_STEPS
 FLUX_VAE_LAUNCHES = sum(c[3] for c in FLUX_CASES if c[0] == "flux_vae_mid") // 2
 
-# SD-1.5 PPO: ExperimentConfig.sd15_ppo(), consolver_tpu/configs/config.py:79-107
-# (the reward there is depth, whose backbone waits for ROADMAP Queue A.12).
+# The reward and eval backbones (ROADMAP A.12), every attention at head dim
+# 64 and unmasked: (name, q shape, Sk, kernel #1 launches per backbone call).
+# DINOv2-base over a FLUX PPO reward call's 10 + 10 images, CLIP-L/14 over 32
+# pairs, Depth-Anything-V2-S over an SD PPO step's 80 images (518^2, 1370
+# tokens), SegFormer-b4's four stages at batch 8 (keys reduced to 256).
+BACKBONE_CASES = [
+    ("dino_base", (20, 257, 12, 64), 257, 12),
+    ("clip_l14", (64, 257, 16, 64), 257, 24),
+    ("depth_anything_s", (80, 1370, 6, 64), 1370, 12),
+    ("segformer_s1", (8, 16384, 1, 64), 256, 3),
+    ("segformer_s2", (8, 4096, 2, 64), 256, 8),
+    ("segformer_s3", (8, 1024, 5, 64), 256, 27),
+    ("segformer_s4", (8, 256, 8, 64), 256, 3),
+]
+# (backbone, batch, source side, kernel #1 cases it runs): the images each
+# production caller hands it (512^2 SD decodes, 1024^2 FLUX decodes).
+BACKBONES = [
+    ("dino", 20, 1024, ("dino_base",)),
+    ("clip", 64, 512, ("clip_l14",)),
+    ("depth", 80, 512, ("depth_anything_s",)),
+    ("segment", 8, 512, ("segformer_s1", "segformer_s2", "segformer_s3", "segformer_s4")),
+    ("inception", 32, 512, ()),
+    ("inception_pool3", 32, 512, ()),
+]
+BACKBONE_LAUNCHES = {name: sum(c[3] for c in BACKBONE_CASES if c[0] in cases)
+                     for name, _, _, cases in BACKBONES}
+
+# SD-1.5 PPO: ExperimentConfig.sd15_ppo(), consolver_tpu/configs/config.py:79-107,
+# rewarded by depth (Depth-Anything-V2-S).
 PPO_SEED = 453645634
 SD_PPO_BATCH = 80
 SD_PPO_STEP_RANGE = (2, 16)
@@ -225,29 +272,32 @@ SD_PPO_TRAIN_STEPS = 2
 SD_TEACHER_SAMPLES, SD_TEACHER_STEPS = 8, 20
 
 # FLUX-Kontext PPO: ExperimentConfig.flux_ppo(), config.py:110-142, for ONE
-# rank's group of 10 (the preset runs 8 ranks: ROADMAP Queue A.15); its dino
-# reward waits for A.12.  The teacher runs 8 Euler steps, not the reference's
-# 28, to save card time.
+# rank's group of 10 (the preset runs 8 ranks: ROADMAP Queue A.15), rewarded
+# by dino (DINOv2-base).  The teacher runs 8 Euler steps, not the
+# reference's 28, to save card time.
 FLUX_PPO_BATCH = 10
 FLUX_PPO_STEP_RANGE = (2, 6)
 FLUX_PPO_LR, FLUX_PPO_WD, FLUX_PPO_EPOCHS = 1e-3, 1e-3, 4
 FLUX_TEACHER_STEPS = 8
 
 
-def sd_ppo_launches(num_inference, batch=SD_PPO_BATCH, chunk=SD_PPO_DECODE_CHUNK):
+def sd_ppo_launches(num_inference, batch=SD_PPO_BATCH, chunk=SD_PPO_DECODE_CHUNK, reward=0):
     """Kernel #1 launches of one SD PPO step: a CFG-batched UNet call per
-    inference step, and the decodes of the policy's and the teacher's
-    latents in chunks."""
-    return UNET_LAUNCHES * num_inference + 2 * -(-batch // chunk) * SD_VAE_LAUNCHES
+    inference step, the decodes of the policy's and the teacher's latents in
+    chunks, and the reward's backbone (``reward`` launches per call) on each
+    of the two image batches (``depth(pred)``, ``depth(target)``)."""
+    return UNET_LAUNCHES * num_inference + 2 * -(-batch // chunk) * SD_VAE_LAUNCHES + 2 * reward
 
 
-def flux_ppo_launches(num_inference, batch=FLUX_PPO_BATCH, chunk=None):
+def flux_ppo_launches(num_inference, batch=FLUX_PPO_BATCH, chunk=None, reward=0):
     """Kernel #1 launches of one FLUX PPO step: a DiT forward per inference
     step of the policy and of the Euler-baseline rollout; VAE encodes of the
     reference for both; decodes of the policy's and the teacher's latents
-    (chunked) and of the baseline's."""
+    (chunked) and of the baseline's; the reward's encoder (``reward``
+    launches per call) once for the policy rows and once for the baseline
+    (train_edit.py:87-88), each over predictions and targets together."""
     decodes = 2 * (1 if chunk is None else -(-batch // chunk)) + 1
-    return DIT_LAUNCHES * 2 * num_inference + (2 + decodes) * FLUX_VAE_LAUNCHES
+    return DIT_LAUNCHES * 2 * num_inference + (2 + decodes) * FLUX_VAE_LAUNCHES + 2 * reward
 
 # Kernels #2-#4: (name, shape, block_q, block_k, variants).  The serving and
 # training shapes of the probe, a ragged case for the masked variants, and
@@ -302,6 +352,14 @@ def _bound(q_shape, sk, dtype):
     return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
 
 
+def _case_path(name):
+    """The path a kernel #1 case belongs to: "flux", "backbone" (its
+    ``per_generation`` is per backbone call) or "sd"."""
+    if name in {c[0] for c in BACKBONE_CASES}:
+        return "backbone"
+    return "flux" if "flux" in name else "sd"
+
+
 def phase_kernel(fa):
     """Kernel vs plain version at every case; returns per-case rows.  bf16
     must take the tensor-core route, f32 the FMA route."""
@@ -311,7 +369,8 @@ def phase_kernel(fa):
     rows = []
     for dtype, rtol, atol, want_route in ((torch.bfloat16, BF16_RTOL, BF16_ATOL, "mma"),
                                           (torch.float32, F32_RTOL, F32_ATOL, "fma")):
-        for name, q_shape, sk, per_gen in MAIN_PATH_CASES + FLUX_CASES + SERVE_CASES + EXTRA_CASES:
+        for name, q_shape, sk, per_gen in (MAIN_PATH_CASES + FLUX_CASES + SERVE_CASES
+                                           + BACKBONE_CASES + EXTRA_CASES):
             b, sq, h, d = q_shape
             if name == "large_scores":
                 q = torch.full(q_shape, 10.0, device="cuda", dtype=dtype)
@@ -335,7 +394,7 @@ def phase_kernel(fa):
             heavy = b * h * sq * sk * d > 1e10
             row = {
                 "case": name, "dtype": str(dtype).replace("torch.", ""), "q": list(q_shape),
-                "sk": sk, "path": "flux" if "flux" in name else "sd",
+                "sk": sk, "path": _case_path(name),
                 "route": route[0] if len(route) == 1 else route,
                 "design": fa.mma_design(d) if want_route == "mma" else None,
                 "padded_d": fa.padded_width(d, want_route),
@@ -828,6 +887,9 @@ def phase_kernel1_build(fa):
                           **occ}
     result = {"phase": "kernel1_build", "instances": instances}
     print(json.dumps(result), flush=True)
+    # the reward / eval backbones' head dim (BACKBONE_CASES)
+    print(json.dumps({"phase": "kernel1_build_d64", "instances": {
+        key: row for key, row in instances.items() if key.startswith("A/d64/")}}), flush=True)
     want = 2 * len(fa.MMA_WIDTHS)
     if len(instances) != want:
         raise AssertionError(f"expected {want} tensor-core instantiations of kernel #1: "
@@ -1004,6 +1066,300 @@ def phase_tiny_flux(fa):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The reward and eval backbones (ROADMAP A.12): DINOv2-base, CLIP-ViT-L/14,
+# Depth-Anything-V2-S, SegFormer-b4 and InceptionV3, bf16 on the card, with
+# PyTorch's default initialisation from a seed (random-normal x0.02 weights
+# can leave Depth-Anything's last ReLU at 0 and the depth reward constant).
+# Their BatchNorm statistics are buffers and keep mean 0, variance 1.
+# ---------------------------------------------------------------------------
+
+
+def _module_bytes(module):
+    return sum(t.numel() * t.element_size() for t in (*module.parameters(), *module.buffers()))
+
+
+def _wrap_backbone(name, model):
+    """The reward / eval callable of a backbone module (``.model`` holds it)."""
+    from consolver_torch.models.depth_anything import make_depth_fn
+    from consolver_torch.models.inception import make_inception_encoder
+    from consolver_torch.models.segformer import make_segment_fn
+    from consolver_torch.models.vit import make_encoder
+
+    if name in ("dino", "clip"):
+        return make_encoder(model, name)
+    if name == "depth":
+        return make_depth_fn(model)
+    if name == "segment":
+        return make_segment_fn(model)
+    return make_inception_encoder(model)
+
+
+def _backbone_models(seed, device, dtype=None, tiny=False):
+    """name -> backbone module, from PyTorch's default initialisation with
+    the global RNG seeded by ``seed`` (the caller's stream is restored),
+    Depth-Anything's last conv made non-negative and InceptionV3's convs
+    He-initialised.
+    Full width: dino / clip / inception through ``build_encoder_for``, the
+    registry's entry point; ``tiny``: the test configurations (InceptionV3
+    whole)."""
+    import torch
+
+    from consolver_torch.models.depth_anything import DepthAnything, DepthAnythingConfig
+    from consolver_torch.models.inception import InceptionV3
+    from consolver_torch.models.segformer import Segformer, SegformerConfig
+    from consolver_torch.models.vit import ViT, ViTConfig
+    from consolver_torch.rewards.registry import build_encoder_for
+
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+        torch.manual_seed(seed)
+        if tiny:
+            clip_cfg = ViTConfig(image_size=28, patch_size=14, hidden_size=32, num_layers=2,
+                                 num_heads=2, layerscale=False, quick_gelu=True,
+                                 pre_norm_embed=True, patch_bias=False, projection_dim=16,
+                                 ln_eps=1e-5)
+            models = {"dino": ViT(ViTConfig.tiny(), device=device),
+                      "clip": ViT(clip_cfg, device=device),
+                      "inception": InceptionV3(1000, device=device)}
+            depth_cfg, seg_cfg = DepthAnythingConfig.tiny(), SegformerConfig.tiny()
+        else:
+            models = {kind: build_encoder_for(kind, device=device, dtype=dtype).model
+                      for kind in ("dino", "clip", "inception")}
+            depth_cfg, seg_cfg = DepthAnythingConfig.small_v2(), SegformerConfig.b4_ade()
+        models["depth"] = DepthAnything(depth_cfg, device=device, dtype=dtype)
+        models["segment"] = Segformer(seg_cfg, device=device, dtype=dtype)
+        models["inception_pool3"] = InceptionV3(0, device=device, dtype=dtype)
+    # The head's last 1x1 conv reads 32 ReLU outputs: with PyTorch's default
+    # init its sum can be negative at every pixel, and the final ReLU then
+    # returns an all-zero map (a constant reward).  Non-negative weights and
+    # bias give a positive map, as a trained model's is.  InceptionV3's
+    # default-initialised convs shrink the signal about 6x in variance per
+    # layer (to about 1e-7 at pool3, where every image looks alike): He's
+    # init keeps it near 1 through conv, inference BatchNorm and ReLU.
+    with torch.no_grad():
+        for p in models["depth"].head.conv3.parameters():
+            p.abs_()
+        for name in ("inception", "inception_pool3"):
+            for module in models[name].modules():
+                if isinstance(module, torch.nn.Conv2d):
+                    torch.nn.init.kaiming_normal_(module.weight, nonlinearity="relu")
+    return models
+
+
+def _check_backbone_output(name, out, batch, side):
+    import torch
+
+    want = {"dino": (batch, 768), "clip": (batch, 768), "depth": (batch, side, side),
+            "segment": (batch, 128, 128), "inception": (batch, 1000),
+            "inception_pool3": (batch, 2048)}[name]
+    if tuple(out.shape) != want:
+        raise AssertionError(f"{name}: output {tuple(out.shape)}, want {want}")
+    if name == "segment":
+        if not (int(out.min()) >= 0 and int(out.max()) < 150):
+            raise AssertionError(f"segment: classes outside [0, 150): {out.min()}..{out.max()}")
+        return
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    if name == "depth":
+        flat = out.float().flatten(1)
+        if float(flat.min()) < 0 or not bool((flat.amax(1) > flat.amin(1)).all()):
+            raise AssertionError("depth: a map is negative or constant")
+
+
+def phase_reward_backbones(fa):
+    """Each backbone at full width in bf16 on the batch its production caller
+    gives it (``BACKBONES``): one checked call (output shape, finite, depth
+    >= 0 and not constant, classes in [0, 150), kernel #1 launches exactly
+    ``BACKBONE_LAUNCHES`` all on "mma", counts set to 0 just before), then
+    timed calls: ms per call, images/s, peak GiB, the backbone's bytes."""
+    _release_card()
+    import torch
+
+    models = _backbone_models(SEED + 140, "cuda", torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 141)
+    out = {"phase": "reward_backbones", "dtype": "bfloat16", "backbones": {}}
+    for name, batch, side, _ in BACKBONES:
+        fn = _wrap_backbone(name, models[name])
+        images = torch.rand((batch, side, side, 3), generator=gen, device="cuda").to(torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_counts()
+        with torch.no_grad():
+            result = fn(images)
+        torch.cuda.synchronize()
+        launches, by_route = _counts(fa)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _check_backbone_output(name, result, batch, side)
+        with torch.no_grad():
+            ms = _time_ms(lambda: fn(images), 3)
+        row = {"batch": batch, "source_side": side, "ms_per_call": ms,
+               "images_per_s": batch / ms * 1e3, "peak_gib": peak,
+               "model_bytes": _module_bytes(models[name]), "launches_per_call": launches,
+               "launches_by_route": by_route, "launches_want": BACKBONE_LAUNCHES[name]}
+        if name == "depth":
+            row["depth_range"] = [float(result.min()), float(result.max())]
+        out["backbones"][name] = row
+        print(json.dumps({"phase": "reward_backbone", "name": name, **row}), flush=True)
+        want = BACKBONE_LAUNCHES[name]
+        if launches != want or by_route.get("mma", 0) != want:
+            raise AssertionError(f"{name}: kernel #1 launched {launches} times ({by_route}) per "
+                                 f"call, want {want} on mma")
+        del images, result
+    del models
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tiny_backbones(fa):
+    """The tiny f32 backbones (each from its default initialisation on the
+    CPU) and the resize helper, TF32 off, on the card and on the CPU: every
+    output within SLICE_TOL of its largest value.  SegFormer is held by its
+    logits (an argmax may flip on a near tie)."""
+    import torch
+
+    from consolver_torch.models.vit import IMAGENET_MEAN, IMAGENET_STD, preprocess
+    from consolver_torch.utils import resize
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_models = _backbone_models(SEED + 150, "cpu", tiny=True)
+    card_models = {name: copy.deepcopy(m).to("cuda") for name, m in cpu_models.items()}
+    gen = torch.Generator().manual_seed(SEED + 151)
+    images = torch.rand((2, 40, 52, 3), generator=gen)
+    pixels = torch.randn((2, 75, 75, 3), generator=gen)  # InceptionV3's smallest input
+
+    def run(device, models):
+        x = images.to(device)
+        got = {name: _wrap_backbone(name, models[name])(x)
+               for name in ("dino", "clip", "depth")}
+        got["segment_logits"] = models["segment"](
+            preprocess(x, 512, IMAGENET_MEAN, IMAGENET_STD, resize_to=None))
+        got["inception"] = models["inception"](pixels.to(device))
+        got["inception_pool3"] = models["inception_pool3"](pixels.to(device))
+        got["resize_linear"] = resize.resize(x, (2, 61, 37, 3), "linear")
+        got["resize_cubic"] = resize.resize(x, (2, 23, 90, 3), "cubic")
+        got["resize_align_corners"] = resize.resize_align_corners(x, (81, 27))
+        return {k: v.float().cpu() for k, v in got.items()}
+
+    with torch.no_grad():
+        want, got = run("cpu", cpu_models), run("cuda", card_models)
+    # each output's worst difference over its largest value: InceptionV3's
+    # default init shrinks its pooled features to about 1e-7
+    out = {"phase": "tiny_backbones", "tol": SLICE_TOL,
+           "max_abs_ref": {k: want[k].abs().max().item() for k in want}}
+    out["max_rel_err"] = {k: (got[k] - want[k]).abs().max().item() / out["max_abs_ref"][k]
+                          for k in want}
+    print(json.dumps(out), flush=True)
+    bad = {k: v for k, v in out["max_rel_err"].items() if not v <= SLICE_TOL}
+    if bad:
+        raise AssertionError(f"tiny backbones card vs cpu past {SLICE_TOL}: {bad}")
+    return out
+
+
+EVAL_PAIRS = 16  # SD-1.5 preview / teacher pairs written as PNGs
+FID_IMAGES, FID_BATCH = 64, 32  # per stream
+
+
+def phase_eval(fa):
+    """The eval stack at full width: 16 SD-1.5 previews (the pipeline's
+    learned solver, 8 steps) and their teachers (DDIM, 20 steps, the same
+    noise) written as PNGs by ``eval/gen_sweep.generate_sweep``, scored by
+    ``evaluate_consistency`` with the dino reward (DINOv2-base, bf16); FID
+    between two streams of 64 images through InceptionV3's pool3 features;
+    ``dino_vis.visualize`` on one image.  Gates: 16 pairs scored, no error
+    record, finite statistics and FID, kernel #1's launches exactly 12 per
+    DINO call (one batch of 16 pairs), 0 for FID, all "mma"."""
+    _release_card()
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from consolver_torch.core.schedules import DiffusionSchedule
+    from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
+    from consolver_torch.eval import dino_vis
+    from consolver_torch.eval.consistency import evaluate_consistency
+    from consolver_torch.eval.fid import compute_fid
+    from consolver_torch.eval.gen_sweep import generate_sweep
+    from consolver_torch.pipelines.t2i import TextToImagePipeline
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+    from consolver_torch.rewards.registry import RewardModel, make_reward_fn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 160)
+    unet, text, vae = _sd15_models(gen)
+    pipe = TextToImagePipeline(
+        unet, text, vae, DiffusionSchedule.sd15(),
+        factor_net=FactorNet(FactorNetConfig(order_dim=4, scaler_dim=0, num_actions=11,
+                                             family="sd"), device="cuda"),
+        tokenizer=HashTokenizer(), device="cuda")
+    models = _backbone_models(SEED + 161, "cuda", torch.bfloat16)
+    dino = _wrap_backbone("dino", models["dino"])
+    pool3 = _wrap_backbone("inception_pool3", models["inception_pool3"])
+    del models
+
+    def sampler(steps, solver):
+        def generate(generator, prompts):
+            noise = torch.randn((len(prompts), 64, 64, 4), generator=generator, device="cuda")
+            ids = tokenize_batch(HashTokenizer(), list(prompts), 77)
+            return pipe(generator, ids, noise, steps, CFG, solver=solver, record=False)[0]
+
+        return generate
+
+    out = {"phase": "eval"}
+    prompts = (PROMPTS * -(-EVAL_PAIRS // len(PROMPTS)))[:EVAL_PAIRS]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for sub, steps, solver in (("preview", STEPS, "consistencysolver"),
+                                   ("teacher", SD_TEACHER_STEPS, "ddim")):
+            written = generate_sweep(sampler(steps, solver), prompts, f"{tmp}/{sub}",
+                                     batch_size=BATCH, seed=SEED + 162, device="cuda")
+            if len(written) != EVAL_PAIRS:
+                raise AssertionError(f"{sub}: wrote {len(written)} of {EVAL_PAIRS} PNGs")
+        out["generate_s"] = time.perf_counter() - t0
+        reward = make_reward_fn("dino", RewardModel(encode=dino))
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        stats = evaluate_consistency(reward, f"{tmp}/preview", f"{tmp}/teacher",
+                                     batch_size=EVAL_PAIRS)
+        out["consistency_s"] = time.perf_counter() - t0
+        out["consistency_launches"], out["consistency_by_route"] = _counts(fa)
+    out["consistency"] = stats
+
+    def stream(seed, smooth):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        for _ in range(FID_IMAGES // FID_BATCH):
+            x = torch.rand((FID_BATCH, 512, 512, 3), generator=g, device="cuda")
+            yield (x + x.roll(1, 1) + x.roll(1, 2)) / 3 if smooth else x
+
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    out["fid"] = compute_fid(pool3, stream(SEED + 163, False), stream(SEED + 164, True))
+    out["fid_s"] = time.perf_counter() - t0
+    out["fid_launches"], _ = _counts(fa)
+    image = np.random.default_rng(SEED + 165).random((512, 512, 3)).astype(np.float32)
+    fa.reset_counts()
+    rgb = dino_vis.visualize(dino.model, image)
+    out["dino_vis_shape"], (out["dino_vis_launches"], _) = list(rgb.shape), _counts(fa)
+    print(json.dumps(out), flush=True)
+
+    stat_keys = ("mean", "std", "min", "max", "median")
+    if (stats["num_pairs"], stats["num_scored"], stats["num_errors"]) != (EVAL_PAIRS, EVAL_PAIRS, 0):
+        raise AssertionError(f"evaluate_consistency: {stats}")
+    if not all(np.isfinite(stats[k]) for k in stat_keys) or not np.isfinite(out["fid"]):
+        raise AssertionError(f"non-finite eval statistics: {out}")
+    want = BACKBONE_LAUNCHES["dino"]
+    if (out["consistency_launches"], out["consistency_by_route"].get("mma")) != (want, want):
+        raise AssertionError(f"consistency: kernel #1 {out['consistency_launches']} "
+                             f"({out['consistency_by_route']}), want {want} on mma")
+    if out["fid_launches"] != 0 or out["dino_vis_launches"] != want:
+        raise AssertionError(f"FID / dino_vis launches: {out}")
+    if rgb.shape != (16, 16, 3) or not (np.isfinite(rgb).all() and 0 <= rgb.min() <= rgb.max() <= 1):
+        raise AssertionError(f"dino_vis: {rgb.shape}, {rgb.min()}..{rgb.max()}")
+    del pipe, unet, text, vae, dino, pool3
+    torch.cuda.empty_cache()
+    return out
+
+
 def _trainer_state(trainer):
     """The policy's parameters and its optimizer's whole state, as tensors."""
     import torch
@@ -1029,11 +1385,35 @@ def _check_metrics(metrics, names):
             raise AssertionError(f"non-finite {name}: {metrics}")
 
 
+def _timed_reward(reward, seen):
+    """``reward`` that records each call's ms (synchronised), rows, dtype,
+    finiteness, distinct values, spread and range in ``seen``."""
+    import torch
+
+    def reward_fn(pred, target):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = reward(pred, target)
+        torch.cuda.synchronize()
+        f = r.float()
+        seen.append({"ms": (time.perf_counter() - t0) * 1e3, "rows": int(r.numel()),
+                     "dtype": str(r.dtype).replace("torch.", ""),
+                     "finite": bool(torch.isfinite(f).all()),
+                     "distinct": int(torch.unique(r).numel()),
+                     "std": float(f.std(correction=0)), "min": float(f.min()),
+                     "max": float(f.max())})
+        return r
+
+    return reward_fn
+
+
 def phase_sd_ppo(fa):
     """SD-1.5 PPO at full width: 2 steps of batch 80 through
-    ``PPOTrainer.fit`` with the ``sd15_ppo()`` settings, ``image_psnr``
-    against the port's own 20-step DDIM teacher latents, a checkpoint at
-    step 2 and a fresh trainer resumed from it."""
+    ``PPOTrainer.fit`` with the ``sd15_ppo()`` settings, its ``depth``
+    reward (Depth-Anything-V2-S, bf16, default init from a seed) against the
+    port's own 20-step DDIM teacher latents, a checkpoint at step 2 and a
+    fresh trainer resumed from it.  The rewards must be finite and differ
+    across the batch."""
     _release_card()
     import tempfile
 
@@ -1046,12 +1426,15 @@ def phase_sd_ppo(fa):
     from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch, uncond_input_ids
     from consolver_torch.pipelines.t2i import TextToImagePipeline, make_denoise_fn
     from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
-    from consolver_torch.rewards.registry import make_reward_fn
+    from consolver_torch.models.depth_anything import make_depth_fn
+    from consolver_torch.rewards.registry import RewardModel, make_reward_fn
     from consolver_torch.rl.ppo import PPOConfig
     from consolver_torch.rl.train import PPOTrainer, TrainConfig
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
     unet, text, vae = _sd15_models(gen)
+    depth = make_reward_fn("depth", RewardModel(depth=make_depth_fn(
+        _backbone_models(SEED + 81, "cuda", torch.bfloat16)["depth"])))
     policy_cfg = FactorNetConfig(order_dim=4, scaler_dim=0, num_actions=11, hidden_dim=256,
                                  family="sd")
 
@@ -1091,15 +1474,8 @@ def phase_sd_ppo(fa):
             log_every=1, decode_chunk=SD_PPO_DECODE_CHUNK,
             ppo=PPOConfig(ppo_epochs=SD_PPO_EPOCHS, learning_rate=SD_PPO_LR,
                           weight_decay=SD_PPO_WD, advantage_scale=SD_PPO_ADV_SCALE))
-        psnr = make_reward_fn("image_psnr")
         rewards_seen = []
-
-        def reward_fn(pred, target):  # records the rewards' dtype and ties
-            r = psnr(pred, target)
-            rewards_seen.append({"dtype": str(r.dtype).replace("torch.", ""),
-                                 "distinct": int(torch.unique(r).numel()),
-                                 "std": float(r.float().std(correction=0))})
-            return r
+        reward_fn = _timed_reward(depth, rewards_seen)
 
         trainer = PPOTrainer(pipe, reward_fn, config)
         before = [p.detach().clone() for p in pipe.factor_net.parameters()]
@@ -1126,7 +1502,7 @@ def phase_sd_ppo(fa):
         for i in range(len(steps) - 1, 0, -1):
             steps[i]["s"] -= steps[i - 1]["s"]
 
-        resumed = PPOTrainer(pipeline(), make_reward_fn("image_psnr"), config)
+        resumed = PPOTrainer(pipeline(), depth, config)
         if not resumed.resume_from_checkpoint("latest") or resumed.global_step != global_step:
             raise AssertionError("no checkpoint to resume from")
         resume_bit_equal = _bit_equal(_trainer_state(resumed), _trainer_state(trainer))
@@ -1136,10 +1512,11 @@ def phase_sd_ppo(fa):
         int8 = phase_int8_ppo(fa, pipeline, batch, config)
 
     num_inference = [s["num_inference"] for s in steps]
-    want = sum(sd_ppo_launches(n) for n in num_inference)
+    reward_launches = BACKBONE_LAUNCHES["depth"]
+    want = sum(sd_ppo_launches(n, reward=reward_launches) for n in num_inference)
     result = {
         "phase": "sd_ppo", "batch": SD_PPO_BATCH, "cfg": CFG, "resolution": 512,
-        "decode_chunk": SD_PPO_DECODE_CHUNK, "reward": "image_psnr",
+        "decode_chunk": SD_PPO_DECODE_CHUNK, "reward": "depth",
         "teacher": {"samples": written, "steps": SD_TEACHER_STEPS, "s": teacher_s},
         "steps": steps, "num_inference": num_inference,
         "s_per_step": [s["s"] for s in steps], "peak_mem_gib": peak_gib,
@@ -1147,7 +1524,8 @@ def phase_sd_ppo(fa):
         "launches": launches, "launches_by_route": by_route, "launches_want": want,
         "global_step": global_step, "resume_bit_equal": resume_bit_equal,
         "profiled_step": {"step": profile_step, "num_inference": profiled_metrics["num_inference"],
-                          "launches_want": sd_ppo_launches(profiled_metrics["num_inference"]),
+                          "launches_want": sd_ppo_launches(profiled_metrics["num_inference"],
+                                                           reward=reward_launches),
                           **profiled},
     }
     print(json.dumps(result), flush=True)
@@ -1163,7 +1541,9 @@ def phase_sd_ppo(fa):
                              f"{want} on mma for num_inference {num_inference}")
     if not resume_bit_equal:
         raise AssertionError("the resumed trainer's policy or optimizer differs from the writer's")
-    del trainer, pipe, unet, text, vae
+    if not all(r["finite"] and r["distinct"] > 1 for r in rewards_seen):
+        raise AssertionError(f"depth rewards non-finite or equal across the batch: {rewards_seen}")
+    del trainer, pipe, unet, text, vae, depth
     torch.cuda.empty_cache()
     return result
 
@@ -1218,9 +1598,13 @@ def phase_int8_ppo(fa, pipeline, batch, config):
 def phase_flux_ppo(fa):
     """FLUX-Kontext PPO at full width: one rank's group of the ``flux_ppo()``
     preset (batch 10; the preset's 8 data-parallel ranks wait for ROADMAP
-    Queue A.15), ``image_psnr`` (its dino reward waits for A.12) against one
-    teacher edit of the port's Euler solver at 8 steps (the reference's
-    teacher runs 28), one ``train_step`` and one profiled step."""
+    Queue A.15), its ``dino`` reward (DINOv2-base, bf16, default init from a
+    seed) against one teacher edit of the port's Euler solver at 8 steps
+    (the reference's teacher runs 28), one ``train_step`` and one profiled
+    step.  The group's rows share their sample, and the preset's FM policy
+    (temperature 0.01) picks the same actions for all of them at random
+    init, so the policy rows' rewards may tie; they must be finite, and the
+    Euler baseline's must differ from them."""
     _release_card()
     import tempfile
 
@@ -1231,11 +1615,16 @@ def phase_flux_ppo(fa):
     from consolver_torch.data.teacher_gen import generate_edit_teacher_set
     from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
     from consolver_torch.pipelines.edit import FluxKontextPipeline
-    from consolver_torch.rewards.registry import make_reward_fn
+    from consolver_torch.rewards.registry import RewardModel, build_encoder_for, make_reward_fn
     from consolver_torch.rl.ppo import PPOConfig
     from consolver_torch.rl.train import TrainConfig
     from consolver_torch.rl.train_edit import EditPPOTrainer
 
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+        torch.manual_seed(SEED + 89)
+        dino = make_reward_fn("dino", RewardModel(encode=build_encoder_for(
+            "dino", device="cuda", dtype=torch.bfloat16)))
+    rewards_seen = []
     gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
     t0 = time.perf_counter()
     transformer, t5, clip, vae, policy = _flux_models("cuda", torch.bfloat16, False, gen, 0.02)
@@ -1272,7 +1661,7 @@ def phase_flux_ppo(fa):
             seed=PPO_SEED, output_dir=f"{tmp}/run",
             ppo=PPOConfig(ppo_epochs=FLUX_PPO_EPOCHS, learning_rate=FLUX_PPO_LR,
                           weight_decay=FLUX_PPO_WD, advantage_scale=1.0))
-        trainer = EditPPOTrainer(pipe, make_reward_fn("image_psnr"), config)
+        trainer = EditPPOTrainer(pipe, _timed_reward(dino, rewards_seen), config)
 
     before = [p.detach().clone() for p in policy.parameters()]
     torch.cuda.synchronize()
@@ -1285,20 +1674,23 @@ def phase_flux_ppo(fa):
     launches = fa.flash_attention.launches
     by_route = dict(fa.flash_attention.launches_by_route)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    want = flux_ppo_launches(metrics["num_inference"])
+    reward_launches = BACKBONE_LAUNCHES["dino"]
+    want = flux_ppo_launches(metrics["num_inference"], reward=reward_launches)
     moved = not _bit_equal(before, [p.detach() for p in policy.parameters()])
     profiled_metrics, profiled = _device_profile(lambda: trainer.train_step(batch))
 
     result = {
         "phase": "flux_ppo", "batch": FLUX_PPO_BATCH, "resolution": 1024,
-        "guidance": FLUX_GUIDANCE, "ppo_epochs": FLUX_PPO_EPOCHS, "reward": "image_psnr",
+        "guidance": FLUX_GUIDANCE, "ppo_epochs": FLUX_PPO_EPOCHS, "reward": "dino",
+        "rewards": rewards_seen,
         "models_build_s": build_s,
         "teacher": {"samples": written, "steps": FLUX_TEACHER_STEPS, "s": teacher_s},
         "metrics": metrics, "num_inference": metrics["num_inference"], "s_per_step": step_s,
         "peak_mem_gib": peak_gib, "launches": launches, "launches_by_route": by_route,
         "launches_want": want, "policy_moved": moved,
         "profiled_step": {"num_inference": profiled_metrics["num_inference"],
-                          "launches_want": flux_ppo_launches(profiled_metrics["num_inference"]),
+                          "launches_want": flux_ppo_launches(profiled_metrics["num_inference"],
+                                                             reward=reward_launches),
                           **profiled},
     }
     print(json.dumps(result), flush=True)
@@ -1309,7 +1701,10 @@ def phase_flux_ppo(fa):
     if launches != want or by_route.get("mma") != want:
         raise AssertionError(f"flash_attention launched {launches} times ({by_route}), want "
                              f"{want} on mma for num_inference {metrics['num_inference']}")
-    del trainer, pipe, transformer, t5, clip, vae, policy
+    if not all(r["finite"] for r in rewards_seen) or any(
+            abs(m["reward"] - m["baseline_reward"]) == 0 for m in (metrics, profiled_metrics)):
+        raise AssertionError(f"dino rewards non-finite, or the baseline's equal: {rewards_seen}")
+    del trainer, pipe, transformer, t5, clip, vae, policy, dino
     torch.cuda.empty_cache()
     return result
 
@@ -2355,8 +2750,12 @@ def _kernel1_entry(rows, runs_by_path):
     timed alone times its launches there.  ``by_path`` has the same numbers
     for the SD-1.5 generation and for one FLUX-Kontext edit, with the
     launches per route ("mma" or "fma") of that run, and for the PPO runs
-    (SD: the two ``fit`` steps; FLUX: one step) their launches per route and
-    the kernel's device time in one profiled step."""
+    (SD: the two ``fit`` steps; FLUX: one step; both with their reward's
+    backbone) their launches per route and the kernel's device time in one
+    profiled step.  ``reward_backbones`` has, per backbone call, the
+    launches of ``phase_reward_backbones`` and its shapes' times times their
+    launches; ``eval`` the launches of ``phase_eval``'s consistency run, FID
+    and PCA map."""
     per_run = [r for r in rows if r["dtype"] == "bfloat16" and r["per_generation"]]
     by_path = {}
     for path, key in (("sd", "sd15_generation"), ("flux", "flux_kontext_edit")):
@@ -2382,6 +2781,22 @@ def _kernel1_entry(rows, runs_by_path):
                 "num_inference", "launches_want", "flash_kernel_ms", "flash_share_of_device_time",
                 "device_busy_ms", "device_idle_share")},
         }
+    backbones = {}
+    for name, batch, _, cases in BACKBONES:
+        run = runs_by_path["backbones"]["backbones"][name]
+        sel = [r for r in per_run if r["case"] in cases]
+        backbones[name] = {
+            "batch": batch, "launches": run["launches_per_call"],
+            "launches_by_route": run["launches_by_route"],
+            **{k: sum(r[k] * r["per_generation"] for r in sel)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+    by_path["reward_backbones"] = {**backbones, "per": "one call of each backbone"}
+    run = runs_by_path["eval"]
+    by_path["eval"] = {"consistency": run["consistency_launches"],
+                       "consistency_by_route": run["consistency_by_route"],
+                       "fid": run["fid_launches"], "dino_vis": run["dino_vis_launches"],
+                       "per": f"{EVAL_PAIRS} pairs; {FID_IMAGES} + {FID_IMAGES} FID images; "
+                              "one PCA map"}
     serve = runs_by_path["serve"]
     by_path["serve_sd"] = {**serve["serve_sd"], "per": f"{SERVE_ROUNDS} batches of {BATCH} requests"}
     by_path["serve_edit"] = {**serve["serve_edit"], "per": "one /v1/edit (fmppo, 5 steps)"}
@@ -2488,6 +2903,9 @@ def main() -> int:
     runs_by_path["int8_sd"] = phase_int8_sd(fa)
     runs_by_path["int8_flux"] = phase_int8_flux(fa)
     phase_tiny_quant(fa)
+    runs_by_path["backbones"] = phase_reward_backbones(fa)
+    phase_tiny_backbones(fa)
+    runs_by_path["eval"] = phase_eval(fa)
     runs_by_path["sd_ppo"] = phase_sd_ppo(fa)
     runs_by_path["flux_ppo"] = phase_flux_ppo(fa)
     phase_tiny_train(fa)

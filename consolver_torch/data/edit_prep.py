@@ -75,7 +75,7 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def _lanczos_resize(image: np.ndarray, width: int, height: int) -> np.ndarray:
+def lanczos_resize(image: np.ndarray, width: int, height: int) -> np.ndarray:
     """``[H, W, C]`` uint8 -> ``[height, width, C]`` uint8, horizontal pass
     first; an axis whose size does not change is not resampled."""
     out = image
@@ -92,7 +92,7 @@ def center_crop_resize(image: np.ndarray, size: int) -> np.ndarray:
     img = image.astype(np.uint8) if image.dtype != np.uint8 else image
     h, w = img.shape[:2]
     scale = size / min(w, h)
-    img = _lanczos_resize(img, round(w * scale), round(h * scale))
+    img = lanczos_resize(img, round(w * scale), round(h * scale))
     h, w = img.shape[:2]
     left, top = (w - size) // 2, (h - size) // 2
     img = img[top:top + size, left:left + size]

@@ -68,6 +68,16 @@ def layer_norm_f32(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     )
 
 
+def batch_norm_f32(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """Inference BatchNorm over NCHW in f32 with the stored statistics:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, the JAX backbones'
+    order of operations (returns f32)."""
+    inv = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
+    view = (1, -1, 1, 1)
+    return ((x.float() - bn.running_mean.float().view(view)) * inv.view(view)
+            + bn.bias.float().view(view))
+
+
 def conv_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """A conv run in f32 whatever its weights' dtype (the models' ``conv_out``)."""
     return F.conv2d(

@@ -2,8 +2,10 @@
 
 Port of ``consolver_tpu/rewards/registry.py``.  Types: depth | inception |
 segmentation | image_psnr | clip | dino | llava | qwen_vl.  The backbone
-rewards take a caller-supplied ``encode`` (or depth / segment) callable;
-the VLM judges are host callables that get numpy arrays.
+rewards take an ``encode`` (or depth / segment) callable: the production
+encoders from :func:`build_encoder_for`, ``models.depth_anything.
+make_depth_fn`` and ``models.segformer.make_segment_fn``, or any other; the
+VLM judges (``rewards/vlm.py``) are host callables that get numpy arrays.
 """
 
 from __future__ import annotations
@@ -43,12 +45,39 @@ class RewardModel:
     vlm_judge: Optional[Callable] = None
 
 
-def build_encoder_for(reward_type: str, params) -> Callable:
-    """The production feature encoder of a backbone-cosine reward type."""
-    raise NotImplementedError(
-        f"the {reward_type!r} feature encoder needs the ViT / Inception backbones, "
-        "which are not ported yet (ROADMAP Queue A.12)"
-    )
+def build_encoder_for(reward_type: str, params=None, device=None,
+                      dtype: Optional[torch.dtype] = None) -> Callable:
+    """The production feature encoder of a backbone-cosine reward type
+    (reward_model.py:59-64,92-134): dino -> DINOv2-base's CLS state, clip ->
+    CLIP-ViT-L/14's projected image embedding, inception -> the stock
+    InceptionV3 eval forward (1000-class logits, reward_model.py:339-341).
+    ``params`` is the JAX package's converted tree of that backbone, loaded
+    with ``load_jax_params``; None keeps the module's own initialisation
+    (seed torch first).  The backbone is ``encode.model``."""
+    from consolver_torch.models.convert import load_jax_params
+
+    if reward_type == "inception":
+        from consolver_torch.models.inception import InceptionV3, make_inception_encoder
+
+        model = InceptionV3(num_classes=1000, device=device)
+        make = make_inception_encoder
+    elif reward_type in ("dino", "clip"):
+        from consolver_torch.models.vit import ViT, ViTConfig, make_encoder
+
+        cfg = ViTConfig.dinov2_base() if reward_type == "dino" else ViTConfig.clip_vit_l14()
+        model = ViT(cfg, device=device)
+
+        def make(vit):
+            return make_encoder(vit, reward_type)
+    else:
+        raise ValueError(
+            f"no feature encoder for reward type {reward_type!r} (expected dino | clip | inception)"
+        )
+    if params is not None:
+        load_jax_params(model, params)
+    if dtype is not None:
+        model.to(dtype)
+    return make(model)
 
 
 def make_reward_fn(

@@ -649,3 +649,77 @@ def test_slot_invariant_route_is_slot_invariant(cuda):
         same = slot_invariant_conv(conv, row.expand(16, -1, -1, -1).contiguous())
     assert torch.equal(at0, at3)
     assert all(torch.equal(same[i], same[0]) for i in range(16))
+
+
+@pytest.mark.parametrize("shape,sk,ref_rows", [
+    ((20, 257, 12, 64), 257, 20),  # DINOv2-base, a FLUX PPO reward call
+    ((64, 257, 16, 64), 257, 64),  # CLIP-L/14
+    ((80, 1370, 6, 64), 1370, 8),  # Depth-Anything-V2-S, an SD PPO step's 80 images
+    ((8, 16384, 1, 64), 256, 8),  # SegFormer-b4 stages 1-4, keys reduced to 256
+    ((8, 4096, 2, 64), 256, 8),
+    ((8, 1024, 5, 64), 256, 8),
+    ((8, 256, 8, 64), 256, 8),
+], ids=["dino_base", "clip_l14", "depth_anything_s", "segformer_s1", "segformer_s2",
+        "segformer_s3", "segformer_s4"])
+def test_kernel1_at_the_backbone_shapes(cuda, monkeypatch, shape, sk, ref_rows):
+    """The reward and eval backbones' attention (head dim 64, design A at
+    width 64): ragged 257 / 1370 keys, Sq != Sk up to 16384 queries, a batch
+    of 80 x 6 heads, on the tensor cores."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _bf16_qkv(shape, sk, 30, cuda)
+    assert fa.mma_design(64) == "A" and fa.padded_width(64, "mma") == 64
+    assert _kernel1_route(q, k, v, ref_rows=ref_rows) == "mma"
+
+
+def _tiny_backbones(seed):
+    from consolver_torch.models.depth_anything import DepthAnything, DepthAnythingConfig
+    from consolver_torch.models.inception import InceptionV3
+    from consolver_torch.models.segformer import Segformer, SegformerConfig
+    from consolver_torch.models.vit import ViT, ViTConfig
+
+    torch.manual_seed(seed)
+    clip = ViTConfig(image_size=28, patch_size=14, hidden_size=32, num_layers=2, num_heads=2,
+                     layerscale=False, quick_gelu=True, pre_norm_embed=True, patch_bias=False,
+                     projection_dim=16, ln_eps=1e-5)
+    return {"dino": ViT(ViTConfig.tiny(), device="cpu"), "clip": ViT(clip, device="cpu"),
+            "depth": DepthAnything(DepthAnythingConfig.tiny(), device="cpu"),
+            "segment": Segformer(SegformerConfig.tiny(), device="cpu"),
+            "inception": InceptionV3(1000, device="cpu")}
+
+
+@pytest.mark.parametrize("name", ["dino", "clip", "depth", "segment", "inception", "resize"])
+def test_tiny_backbone_card_matches_cpu(cuda, monkeypatch, name):
+    """Each tiny f32 backbone (default init; Inception's convs He-initialised
+    so its features are not 1e-7) and the resize helper, card vs CPU, TF32
+    off, within SLICE_TOL of the output's largest value."""
+    from consolver_torch.models.depth_anything import make_depth_fn
+    from consolver_torch.models.vit import make_encoder, preprocess
+    from consolver_torch.utils import resize
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    g = torch.Generator().manual_seed(31)
+    images = torch.rand((2, 40, 52, 3), generator=g)
+    models = _tiny_backbones(32)
+    with torch.no_grad():
+        for m in models["inception"].modules():
+            if isinstance(m, torch.nn.Conv2d):
+                torch.nn.init.kaiming_normal_(m.weight, nonlinearity="relu")
+    calls = {
+        "dino": lambda m, x: make_encoder(m, "dino")(x),
+        "clip": lambda m, x: make_encoder(m, "clip")(x),
+        "depth": lambda m, x: make_depth_fn(m)(x),
+        "segment": lambda m, x: m(preprocess(x, 512, resize_to=None)),
+        "inception": lambda m, x: m(preprocess(x, 75, resize_to=75, method="cubic")),
+        "resize": lambda m, x: torch.cat([
+            resize.resize(x, (2, 61, 37, 3), "linear").flatten(),
+            resize.resize(x, (2, 23, 90, 3), "cubic").flatten(),
+            resize.resize_align_corners(x, (81, 27)).flatten()]),
+    }
+    model = models.get(name)
+    with torch.no_grad():
+        want = calls[name](model, images)
+        got = calls[name](copy.deepcopy(model).to(cuda) if model is not None else None,
+                          images.to(cuda)).cpu()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= SLICE_TOL * want.abs().max().item()

@@ -48,13 +48,15 @@ def _is_torch_compile(name, owner):
 
 def test_port_files_exist():
     """The port's modules, the serving path's included (solver zoo, preview,
-    PNG codec, edit prep, policy IO, engines and HTTP) and the int8 / int4
-    layers."""
+    PNG codec, edit prep, policy IO, engines and HTTP), the int8 / int4
+    layers, and the reward and eval backbones with the eval stack."""
     names = {str(p.relative_to(ROOT / "consolver_torch")) for p in PORT_FILES}
-    assert len(PORT_FILES) >= 53 and SMOKE.exists()
+    assert len(PORT_FILES) >= 62 and SMOKE.exists()
     assert {"utils/png.py", "pipelines/solver_zoo.py", "pipelines/preview.py",
             "eval/gen_sweep.py", "data/edit_prep.py", "policy/io.py", "serve/engine.py",
-            "serve/http.py", "kernels/quant.py"} <= names
+            "serve/http.py", "kernels/quant.py", "utils/resize.py", "models/vit.py",
+            "models/depth_anything.py", "models/segformer.py", "models/inception.py",
+            "rewards/vlm.py", "eval/fid.py", "eval/consistency.py", "eval/dino_vis.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [SMOKE], ids=lambda p: str(p.relative_to(ROOT)))

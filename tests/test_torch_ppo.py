@@ -292,8 +292,13 @@ def test_registry_callables_and_unported_encoders():
                                rtol=1e-6)
     with pytest.raises(ValueError, match="Unknown reward type"):
         tregistry.make_reward_fn("lpips")
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tregistry.build_encoder_for("dino", None)
+    # the encoders are ported now (tests/test_torch_backbones.py holds them
+    # against JAX); an unknown type still raises as the JAX registry does
+    assert tregistry.build_encoder_for("dino", None, device="meta").model.cfg.hidden_size == 768
+    with pytest.raises(ValueError, match="no feature encoder"):
+        tregistry.build_encoder_for("segmentation", None, device="meta")
+    with pytest.raises(ValueError, match="no feature encoder"):
+        jregistry.build_encoder_for("segmentation", None)
 
 
 @pytest.mark.parametrize("num_groups", [1, 2, 5])
