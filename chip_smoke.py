@@ -50,7 +50,8 @@ non-zero, printing nothing on stdout, without them.  Phases:
    VAE in bf16 (random-normal x0.02), one 1024^2 edit, 5 steps, guidance
    2.5.  Check the image and that kernel #1 ran exactly 5 x 57 + 2 = 287
    times, all on the "mma" route; print s/edit, peak memory, the kernel's
-   share of device time and the idle share.
+   share of device time and the idle share; keep one DiT forward and one
+   deterministic engine edit (512 T5 tokens) as phase 20's references.
 8. The tiny FLUX stack in f32 on the card and on the CPU, TF32 off, as in 6.
 9. The int8 and int4 layers of ``kernels/quant.py`` at main-path shapes (the
    UNet's level-1 and level-2 3x3 convolutions, the level-1 downsample and a
@@ -122,6 +123,21 @@ non-zero, printing nothing on stdout, without them.  Phases:
    concurrent generates, the deterministic request bit-equal at every
    slot, a hot reload and one ``/v1/edit``.  Phase 2 also gates kernel #1
    at the shapes serving adds (UNet batch 2, 8320 joint tokens).
+20. Data and tensor parallelism (``consolver_torch/dist/``): a world-1 NCCL
+   group's all_reduce, all_gather and broadcast on the card, then two ranks
+   (gloo, both on the one card; NCCL with a card each where there are two):
+   (a) one SD-1.5 PPO step over 2 data ranks (``sd15_ppo()``, 80 rows a
+   rank, 2 groups, depth, n = 6): launches per rank, bit-equal parameters
+   across ranks, one checkpoint written by rank 0 and resumed bit-equal by
+   both, and the one-process step on the same 160 rows beside it; (b) the
+   FLUX-Kontext DiT split over 2 model ranks (built on ``meta`` and split
+   block by block): one forward against phase 7's unsharded forward with
+   its 77 all_reduces and 77 all_gathers counted and timed, then one
+   deterministic edit through ``EditInferenceEngine(mesh=)`` against phase
+   7's; (c) the SD-1.5 engine over 2 data ranks: 2 batches of 8
+   deterministic requests against the unsharded engines at batch 8 and 4.
+   Phase 2 gates kernel #1 at the shapes they add (12 local heads at TP 2;
+   one rank's UNet batch 8).
 5 also times the deterministic program (mode actions, slot-invariant UNet
 convolutions) beside the sampled one.
 
@@ -224,6 +240,14 @@ SERVE_CASES = [
     ("serve_unet_mid_self", (2, 64, 8, 160), 64, 0),
     ("serve_unet_mid_cross", (2, 64, 8, 160), 77, 0),
     ("serve_flux_joint", (1, 8192 + SERVE_T5_TOKENS, 24, 128), 8192 + SERVE_T5_TOKENS, 0),
+]
+
+# Shapes the data- and tensor-parallel paths add (phase_dist), gated with 0
+# counted launches: the FLUX joint attention at TP 2 (12 local heads) and
+# SD-1.5's level-0 self-attention of one data rank's 4 requests under CFG.
+DIST_CASES = [
+    ("dist_flux_joint_tp2", (1, 8704, 12, 128), 8704, 0),
+    ("dist_unet_l0_self_dp2", (8, 4096, 8, 40), 4096, 0),
 ]
 
 # Kernel #1 per model call, from the cases above: per CFG-batched UNet
@@ -370,7 +394,7 @@ def phase_kernel(fa):
     for dtype, rtol, atol, want_route in ((torch.bfloat16, BF16_RTOL, BF16_ATOL, "mma"),
                                           (torch.float32, F32_RTOL, F32_ATOL, "fma")):
         for name, q_shape, sk, per_gen in (MAIN_PATH_CASES + FLUX_CASES + SERVE_CASES
-                                           + BACKBONE_CASES + EXTRA_CASES):
+                                           + DIST_CASES + BACKBONE_CASES + EXTRA_CASES):
             b, sq, h, d = q_shape
             if name == "large_scores":
                 q = torch.full(q_shape, 10.0, device="cuda", dtype=dtype)
@@ -1010,6 +1034,7 @@ def phase_flux(fa):
         run_s.append(time.perf_counter() - t0)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     _, profiled = _device_profile(lambda: edit(SEED + 60))
+    dist_ref = _flux_dist_reference(pipe)
     result = {
         "phase": "flux_edit", "resolution": 1024, "steps": FLUX_STEPS, "guidance": FLUX_GUIDANCE,
         "joint_tokens": 8704, "launches": launches, "launches_by_route": by_route,
@@ -1018,9 +1043,59 @@ def phase_flux(fa):
         "peak_mem_gib": peak_gib, "image_min": lo, "image_max": hi, **profiled,
     }
     print(json.dumps(result), flush=True)
+    result["dist_ref"] = dist_ref
     del pipe, transformer, t5, clip, vae, images
     torch.cuda.empty_cache()
     return result
+
+
+DIST_T5_TOKENS = 512  # 4096 + 4096 + 512 = 8704 joint tokens, as FLUX_CASES
+
+
+def _dit_probe_inputs():
+    """One DiT forward's inputs at the edit's shapes (8192 image and 512 text
+    tokens), drawn on the card from a seed: the same in every process."""
+    import torch
+
+    from consolver_torch.models.flux import latent_image_ids
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    img = torch.randn((1, 8192, 64), device="cuda", generator=g)
+    txt = torch.randn((1, DIST_T5_TOKENS, 4096), device="cuda", generator=g)
+    pooled = torch.randn((1, 768), device="cuda", generator=g)
+    ids = torch.cat([latent_image_ids(128, 128, device="cuda"),
+                     latent_image_ids(128, 128, offset=1.0, device="cuda")])
+    return (img, txt, pooled, torch.full((1,), 500.0, device="cuda"),
+            torch.full((1,), FLUX_GUIDANCE, device="cuda"), ids,
+            torch.zeros((DIST_T5_TOKENS, 3), device="cuda"))
+
+
+def _dist_edit_request():
+    import numpy as np
+
+    from consolver_torch.serve import EditRequest
+
+    image = np.random.default_rng(SEED + 71).integers(0, 256, (1024, 1024, 3), np.uint8)
+    return EditRequest(instruction="make the sky a sunset orange", image=image, seed=SEED + 72,
+                       num_inference_steps=FLUX_STEPS, guidance_scale=FLUX_GUIDANCE,
+                       deterministic=True)
+
+
+def _flux_dist_reference(pipe):
+    """phase_flux's unsharded references for phase_dist's TP-2 edit: one DiT
+    forward's output, one deterministic edit through EditInferenceEngine,
+    and the policy those used."""
+    import torch
+
+    from consolver_torch.serve import EditInferenceEngine
+
+    with torch.inference_mode():
+        dit_out = pipe.transformer(*_dit_probe_inputs()).float().cpu()
+    with EditInferenceEngine(pipe, resolution=1024, batch_size=1,
+                             t5_max_length=DIST_T5_TOKENS) as engine:
+        edit = engine.generate(_dist_edit_request(), timeout=600)
+    return {"dit_out": dit_out, "edit": edit,
+            "policy": {k: v.cpu() for k, v in pipe.factor_net.state_dict().items()}}
 
 
 def phase_tiny_flux(fa):
@@ -2743,6 +2818,501 @@ def phase_serve_int8(fa, pipe, edit_pipe, policy_cfg, edit_body):
     torch.cuda.empty_cache()
     return out
 
+# phase_dist: data and tensor parallelism over two ranks.  On one card both
+# ranks share cuda:0 over gloo (NCCL refuses two ranks on a device); with two
+# or more cards each rank takes its own over NCCL.
+DIST_RANKS = 2
+DIST_SD_PPO_ROWS = 2 * SD_PPO_BATCH  # 80 per data rank, in 2 groups
+DIST_SD_PPO_N = 6  # the step range pinned to one count
+DIST_SERVE_BATCHES = 2  # one to warm, one timed
+DIST_TIMEOUT_S = 900
+# (a) the data-parallel update against the one-process update of the same
+# gathered PPO batch (the same rows, rewards and advantages) from the same
+# start: the summed gradient the optimizer is handed, as the largest
+# difference over the largest entry, and the pre-clip gradient norm, within
+# one bf16 ulp (2^-8), over the 160 x (n - 1) PPO rows.  The policy runs in
+# f32, so the two differ only in the order of the row sum (about 1e-6); a
+# row share left out, or a missing all_reduce, moves them by a half or more
+# (checked on the CPU at a tiny size).  Then the data-parallel step against
+# the one-process step at num_groups = 2 on the same 160 rows, in bf16: the
+# policy's draws are the same global draws, so the actions agree except
+# where a probability's last bf16 bits move an argmax (share of (row, step)
+# pairs), and the mean reward agrees within DIST_REWARD_RTOL.
+DIST_GRAD_RTOL = 2.0 ** -8
+DIST_ACTIONS_AGREE = 0.99
+DIST_REWARD_RTOL = 1e-2
+# (b) the TP-2 DiT against the unsharded DiT (phase_flux) on one forward, as
+# a share of the output's largest value (each rank rounds its bf16 partial
+# products before the sum; measured 2.1 % on the H100 before this limit was
+# set), and the TP-2 edit against the unsharded edit, in uint8 levels
+# (measured 1).
+DIST_DIT_LIMIT = 5e-2
+DIST_EDIT_MAX_LEVELS = 2
+# (c) the data-parallel engine is bit-equal to the unsharded engine serving
+# one rank's batch shape (4), the same program; against the unsharded batch-8
+# engine, whose GEMMs cuBLAS picks for twice the rows, within this many uint8
+# levels (measured 1).
+DIST_SERVE_BATCH8_LEVELS = 1
+
+
+def _depth_model(seed):
+    """Depth-Anything-V2-S in bf16, PyTorch's default init from ``seed``, its
+    last conv made non-negative (``_backbone_models``)."""
+    import torch
+
+    from consolver_torch.models.depth_anything import DepthAnything, DepthAnythingConfig
+
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+        torch.manual_seed(seed)
+        model = DepthAnything(DepthAnythingConfig.small_v2(), device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        for p in model.head.conv3.parameters():
+            p.abs_()
+    return model
+
+
+def _sd_serving_policy(seed):
+    import torch
+
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+        torch.manual_seed(seed)
+        return FactorNet(FactorNetConfig(order_dim=4, scaler_dim=0, num_actions=11,
+                                         family="sd"), device="cuda")
+
+
+def _dist_sd_ppo(rank, p, fa, mesh):
+    """(a) One SD-1.5 PPO step over the data ranks, the rank-0 checkpoint
+    and every rank's resume; on rank 0 the one-process update of the same
+    gathered PPO batch (rows, rewards, advantages) from the same start, and
+    the one-process step on the same 160 rows at num_groups = 2."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from consolver_torch.core.schedules import DiffusionSchedule
+    from consolver_torch.data.tokenizer import HashTokenizer
+    from consolver_torch.dist import mesh as meshlib
+    from consolver_torch.models.depth_anything import make_depth_fn
+    from consolver_torch.pipelines.t2i import TextToImagePipeline
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+    from consolver_torch.rewards.registry import RewardModel, make_reward_fn
+    from consolver_torch.rl import ppo
+    from consolver_torch.rl.train import PPOTrainer, TrainConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    unet, text, vae = _sd15_models(gen)
+    depth = make_reward_fn("depth", RewardModel(depth=make_depth_fn(_depth_model(SEED + 81))))
+    policy_cfg = FactorNetConfig(order_dim=4, scaler_dim=0, num_actions=11, hidden_dim=256,
+                                 family="sd")
+
+    def pipeline(state=None):
+        net = FactorNet(policy_cfg, device="cuda")
+        if state is not None:
+            net.load_state_dict(state)
+        return TextToImagePipeline(unet, text, vae, DiffusionSchedule.sd15(), factor_net=net,
+                                   tokenizer=HashTokenizer(), device="cuda")
+
+    config = TrainConfig(
+        max_train_steps=1, guidance_scale=CFG, min_inference_steps=DIST_SD_PPO_N,
+        max_inference_steps=DIST_SD_PPO_N + 1, seed=PPO_SEED,
+        output_dir=os.path.join(p["tmp"], "dp_run"), checkpointing_steps=1,
+        decode_chunk=SD_PPO_DECODE_CHUNK,
+        ppo=ppo.PPOConfig(ppo_epochs=SD_PPO_EPOCHS, learning_rate=SD_PPO_LR,
+                          weight_decay=SD_PPO_WD, advantage_scale=SD_PPO_ADV_SCALE))
+    captured = []  # (actions, flat PPO batch) of each train_step
+    flatten = ppo.flatten_trajectory
+
+    def record(traj, advantages):
+        flat = flatten(traj, advantages)
+        captured.append((traj.actions, flat))
+        return flat
+
+    ppo.flatten_trajectory = record
+    pipe = pipeline()
+    trainer = PPOTrainer(pipe, depth, config, mesh=mesh)
+    start = {k: v.clone() for k, v in pipe.factor_net.state_dict().items()}  # rank 0's, broadcast
+    dp_grads = []  # the summed gradient the optimizer is handed, before its clip
+    optimizer_step = trainer.optimizer.step
+
+    def record_grads():
+        dp_grads.append([q.grad.detach().clone() for q in trainer.optimizer.params])
+        optimizer_step()
+
+    trainer.optimizer.step = record_grads
+    fa.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = trainer.train_step(p["sd_batch"])
+    torch.cuda.synchronize()
+    out = {"s_step": time.perf_counter() - t0, "metrics": metrics,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "grad_all_reduce_ms": trainer.grad_sync.last_ms,
+           "launches": fa.flash_attention.launches,
+           "launches_by_route": dict(fa.flash_attention.launches_by_route),
+           "launches_want": sd_ppo_launches(DIST_SD_PPO_N, reward=BACKBONE_LAUNCHES["depth"]),
+           "num_groups": trainer.num_groups}
+    out["param_sum"] = trainer.param_sum()  # raises when the ranks differ
+    out["params_finite"] = all(bool(q.isfinite().all()) for q in trainer.factor_net.parameters())
+    trainer.save_checkpoint()  # rank 0 writes, every rank waits
+    out["checkpoints"] = sorted(os.listdir(config.output_dir))
+    resumed = PPOTrainer(pipeline(), depth, config, mesh=mesh)
+    out["resumed"] = resumed.resume_from_checkpoint("latest")
+    out["resume_bit_equal"] = _bit_equal(_trainer_state(resumed), _trainer_state(trainer))
+    dp_actions, dp_flat = captured[0]
+    actions = mesh.all_gather(dp_actions.contiguous(), "data")
+    conds, *rest = meshlib.gather_batch(mesh, list(dp_flat))  # the global PPO batch
+    del resumed
+    torch.cuda.empty_cache()
+    if rank == 0:
+        net = FactorNet(policy_cfg, device="cuda")
+        net.load_state_dict(start)
+        optimizer = ppo.make_optimizer(net, config.ppo)
+        one_grads = []
+        optimizer.step = lambda: one_grads.append([q.grad.detach() for q in optimizer.params])
+        aux = ppo.make_update_fn(net, optimizer, config.ppo)(conds, *rest)
+        scale = max(float(g.abs().max()) for g in one_grads[0])
+        out["grad_check"] = {
+            "max_rel_err": max(float((a - b).abs().max()) for a, b in zip(
+                dp_grads[0], one_grads[0], strict=True)) / scale,
+            "grad_norm": [metrics["grad_norm"], float(aux["grad_norm"])],
+            "loss": [metrics["loss"], float(aux["loss"])], "rows": int(rest[0].shape[0])}
+        del net, optimizer, one_grads
+        single = PPOTrainer(pipeline(start), depth,
+                            dataclasses.replace(config, num_groups=2,
+                                                output_dir=os.path.join(p["tmp"], "single")))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single_metrics = single.train_step(p["sd_batch"])
+        torch.cuda.synchronize()
+        out["single"] = {"s_step": time.perf_counter() - t0, "metrics": single_metrics}
+        single_actions = captured[-1][0]
+        out["actions_agree"] = float((single_actions == actions).all(dim=-1).float().mean())
+        out["reward_rel_diff"] = abs(metrics["reward"] - single_metrics["reward"]) / abs(
+            single_metrics["reward"])
+        del single
+    ppo.flatten_trajectory = flatten
+    mesh.barrier()
+    del trainer, pipe, unet, text, vae, depth, conds, rest, dp_flat, captured
+    return out
+
+
+def _fill_sharded_(model, gen, mesh, rules, device="cuda"):
+    """Materialise a ``meta`` model on ``device`` one unit at a time (each
+    block of a ModuleList, each other child), filling its parameters from
+    ``gen`` in the model's parameter order, and split each block by
+    ``rules`` before the next is made: the full model never exists on the
+    card.  Returns the split report."""
+    import torch
+
+    from consolver_torch.dist.tp import shard_module_by_rules
+
+    report = {}
+    for name, child in model.named_children():
+        units = ([(f"{name}.{i}.", c) for i, c in enumerate(child)]
+                 if isinstance(child, torch.nn.ModuleList) else [(None, child)])
+        for prefix, unit in units:
+            unit.to_empty(device=device)
+            _random_fill_(unit, gen)
+            if prefix is not None:
+                for kind, paths in shard_module_by_rules(mesh, unit, rules, prefix).items():
+                    report.setdefault(kind, []).extend(paths)
+    for kind, paths in shard_module_by_rules(mesh, model, rules).items():
+        report.setdefault(kind, []).extend(paths)
+    return report
+
+
+def _dist_flux_tp(rank, p, fa, mesh):
+    """(b) The FLUX-Kontext DiT split over two model ranks: one forward held
+    against phase_flux's unsharded forward, with the TP collectives counted
+    and timed, then one deterministic 1024^2 edit through
+    ``EditInferenceEngine(mesh=)`` held against phase_flux's."""
+    import numpy as np
+    import torch
+
+    from consolver_torch.dist import tp
+    from consolver_torch.kernels.quant import module_bytes
+    from consolver_torch.models.clip_text import ClipTextConfig, ClipTextEncoder
+    from consolver_torch.models.flux import FluxConfig, FluxTransformer
+    from consolver_torch.models.t5 import T5Config, T5Encoder
+    from consolver_torch.models.vae import AutoencoderKL, VaeConfig
+    from consolver_torch.pipelines.edit import FluxKontextPipeline
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+    from consolver_torch.serve import EditInferenceEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)  # phase_flux's weights
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    transformer = FluxTransformer(FluxConfig.flux_kontext(), device="meta", dtype=bf16)
+    report = _fill_sharded_(transformer, gen, mesh, tp.FLUX_TP_RULES)
+    others = [T5Encoder(T5Config.xxl(), device="meta", dtype=bf16),
+              ClipTextEncoder(ClipTextConfig.sd15(), device="meta", dtype=bf16),
+              AutoencoderKL(VaeConfig(latent_channels=16, scaling_factor=0.3611), device="meta",
+                            dtype=bf16)]
+    for m in others:
+        _random_fill_(m.to_empty(device="cuda"), gen)
+    policy = FactorNet(FactorNetConfig(order_dim=2, scaler_dim=0, mu_dim=0, num_actions=11,
+                                       hidden_dim=256, family="fm"), device="cuda")
+    policy.load_state_dict(p["flux_ref"]["policy"])
+    pipe = FluxKontextPipeline(transformer, *others, factor_net=policy, device="cuda")
+    out = {"build_s": time.perf_counter() - t0, "dit_bytes": module_bytes(transformer),
+           "t5_bytes": module_bytes(others[0]),
+           "split": {k: len(v) for k, v in report.items()}}
+    fa.reset_counts()
+    tp.stats.reset()
+    tp.stats.timing = True
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dit = transformer(*_dit_probe_inputs()).float().cpu()
+        torch.cuda.synchronize()
+    tp.stats.timing = False
+    ref = p["flux_ref"]["dit_out"]
+    out["forward"] = {"s": time.perf_counter() - t0, "collectives": dict(tp.stats.counts),
+                      "collective_ms": dict(tp.stats.ms),
+                      "max_abs_diff": float((dit - ref).abs().max()),
+                      "mean_abs_diff": float((dit - ref).abs().mean()),
+                      "ref_max_abs": float(ref.abs().max()),
+                      "finite": bool(torch.isfinite(dit).all()),
+                      "launches": fa.flash_attention.launches}
+    fa.reset_counts()
+    engine = EditInferenceEngine(pipe, resolution=1024, batch_size=1,
+                                 t5_max_length=DIST_T5_TOKENS, mesh=mesh)
+    if rank == 0:
+        t0 = time.perf_counter()
+        image = engine.generate(_dist_edit_request(), timeout=600)
+        out["s_edit"] = time.perf_counter() - t0
+        diff = np.abs(image.astype(np.int32) - p["flux_ref"]["edit"].astype(np.int32))
+        out["edit_max_diff"], out["edit_mean_diff"] = int(diff.max()), float(diff.mean())
+        out["edit_shape"] = list(image.shape)
+    engine.shutdown()
+    out["edit_launches"] = fa.flash_attention.launches
+    out["edit_launches_by_route"] = dict(fa.flash_attention.launches_by_route)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del engine, pipe, transformer, others, policy
+    return out
+
+
+def _dist_gen_request(i):
+    from consolver_torch.serve import GenerationRequest
+
+    return GenerationRequest(prompt=PROMPTS[i % len(PROMPTS)], seed=3000 + i,
+                             num_inference_steps=STEPS, guidance_scale=CFG, deterministic=True)
+
+
+def _dist_serve(rank, p, fa, mesh):
+    """(c) The SD-1.5 engine over the data ranks: two batches of 8
+    deterministic requests (4 per rank), the second timed, held against the
+    unsharded engines' images (phase_dist's parent)."""
+    import numpy as np
+    import torch
+
+    from consolver_torch.core.schedules import DiffusionSchedule
+    from consolver_torch.data.tokenizer import HashTokenizer
+    from consolver_torch.pipelines.t2i import TextToImagePipeline
+    from consolver_torch.serve import InferenceEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    unet, text, vae = _sd15_models(gen)
+    pipe = TextToImagePipeline(unet, text, vae, DiffusionSchedule.sd15(),
+                               factor_net=_sd_serving_policy(SEED + 91),
+                               tokenizer=HashTokenizer(), device="cuda")
+    fa.reset_counts()
+    engine = InferenceEngine(pipe, batch_size=BATCH, latent_size=64, flush_ms=SERVE_FLUSH_MS,
+                             mesh=mesh)
+    out = {}
+    if rank == 0:
+        times, images = [], []
+        for _ in range(DIST_SERVE_BATCHES):
+            t0 = time.perf_counter()
+            futs = [engine.submit(_dist_gen_request(i)) for i in range(BATCH)]
+            images = [f.result(timeout=600) for f in futs]
+            times.append(time.perf_counter() - t0)
+        out["s_batch"] = times
+        out["img_per_s"] = BATCH / times[-1]
+        out["batches"] = engine.stats()["batches"]
+        for size in (BATCH, BATCH // DIST_RANKS):
+            ref = p["serve_ref"][size]
+            out[f"equal_batch{size}"] = all(np.array_equal(a, b) for a, b in zip(images, ref))
+            out[f"max_diff_batch{size}"] = max(
+                int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+                for a, b in zip(images, ref))
+    engine.shutdown()
+    out["launches"] = fa.flash_attention.launches
+    out["launches_by_route"] = dict(fa.flash_attention.launches_by_route)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del engine, pipe, unet, text, vae
+    return out
+
+
+def _dist_rank(rank, payload):
+    """One rank of phase_dist: (a), (b) and (c) in turn, the card released
+    between them."""
+    import pickle
+
+    import torch
+
+    from consolver_torch.dist import mesh as meshlib
+    from consolver_torch.kernels import flash_attention as fa
+
+    p = pickle.loads(payload)
+    # the parent's math settings: its references ran under them (the
+    # models' f32 convolutions and products differ with TF32 on)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = p["tf32"]
+    fa.build()
+    dp = meshlib.init_mesh(DIST_RANKS)
+    tp2 = meshlib.init_mesh(1, DIST_RANKS)
+    out = {"rank": rank, "backend": dp.backend, "device": str(dp.device)}
+    out["sd_ppo"] = _dist_sd_ppo(rank, p, fa, dp)
+    _release_card()
+    out["flux_tp"] = _dist_flux_tp(rank, p, fa, tp2)
+    _release_card()
+    out["serve"] = _dist_serve(rank, p, fa, dp)
+    torch.cuda.synchronize()
+    return out
+
+
+def _dist_nccl_rank(rank):
+    """(d) A world-1 NCCL group on the card: all_reduce, all_gather and
+    broadcast of CUDA tensors through the mesh's collectives."""
+    import torch
+
+    from consolver_torch.dist import mesh as meshlib
+
+    mesh = meshlib.init_mesh(1, device="cuda")
+    x = torch.arange(4.0, device="cuda")
+    reduced = mesh.all_reduce(x.clone()).tolist()
+    gathered = mesh.all_gather(x, "world").tolist()
+    sent = mesh.broadcast(x + 1).tolist()
+    return {"backend": mesh.backend, "device": str(mesh.device), "world": mesh.world,
+            "ok": reduced == x.tolist() and gathered == x.tolist() and sent == (x + 1).tolist()}
+
+
+def phase_dist(fa, flux_ref):
+    """Data and tensor parallelism on the card: (d) a world-1 NCCL group,
+    then two ranks (gloo sharing cuda:0 on one card; NCCL, a card each, on
+    two or more) run (a) SD-1.5 PPO over 2 data ranks (80 rows each, 2
+    groups, ``sd15_ppo()``, depth, n = 6) against the one-process step,
+    (b) the FLUX-Kontext DiT split over 2 model ranks, a forward and an
+    edit through ``EditInferenceEngine(mesh=)`` against phase_flux's, (c)
+    the SD-1.5 engine over 2 data ranks against the unsharded engines."""
+    _release_card()
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from consolver_torch.core.schedules import DiffusionSchedule
+    from consolver_torch.data.tokenizer import HashTokenizer
+    from consolver_torch.dist import launch
+    from consolver_torch.pipelines.t2i import TextToImagePipeline
+    from consolver_torch.serve import InferenceEngine
+
+    # (c)'s references: the unsharded engine at batch 8 and at batch 4 (one
+    # data rank's program), on the same models and requests
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    unet, text, vae = _sd15_models(gen)
+    pipe = TextToImagePipeline(unet, text, vae, DiffusionSchedule.sd15(),
+                               factor_net=_sd_serving_policy(SEED + 91),
+                               tokenizer=HashTokenizer(), device="cuda")
+    serve_ref = {}
+    for size in (BATCH, BATCH // DIST_RANKS):
+        with InferenceEngine(pipe, batch_size=size, latent_size=64,
+                             flush_ms=SERVE_FLUSH_MS) as engine:
+            futs = [engine.submit(_dist_gen_request(i)) for i in range(BATCH)]
+            serve_ref[size] = [f.result(timeout=600) for f in futs]
+    del engine, pipe, unet, text, vae
+    _release_card()
+    rng = np.random.default_rng(PPO_SEED)
+    sd_batch = {"noise": rng.standard_normal((DIST_SD_PPO_ROWS, 64, 64, 4)).astype(np.float32),
+                "latent": rng.standard_normal((DIST_SD_PPO_ROWS, 64, 64, 4)).astype(np.float32),
+                "prompt_ids": rng.integers(1, 49407, (DIST_SD_PPO_ROWS, 77)).astype(np.int64)}
+    backend = "nccl" if torch.cuda.device_count() >= DIST_RANKS else "gloo"
+    t0 = time.perf_counter()
+    nccl = launch.spawn(_dist_nccl_rank, 1, backend="nccl", timeout_s=300)[0]
+    nccl["s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        payload = pickle.dumps({"tmp": tmp, "sd_batch": sd_batch, "flux_ref": flux_ref,
+                                "serve_ref": serve_ref, "tf32": tf32})
+        t0 = time.perf_counter()
+        ranks = launch.spawn(_dist_rank, DIST_RANKS, backend=backend, timeout_s=DIST_TIMEOUT_S,
+                             args=(payload,))
+        wall_s = time.perf_counter() - t0
+    result = {"phase": "dist", "ranks": DIST_RANKS, "backend": ranks[0]["backend"],
+              "devices": [r["device"] for r in ranks], "card_count": torch.cuda.device_count(),
+              "nccl_world1": nccl, "wall_s": wall_s,
+              **{part: [r[part] for r in ranks] for part in ("sd_ppo", "flux_tp", "serve")}}
+    print(json.dumps(result, default=str), flush=True)
+    _check_dist(result, backend)
+    return result
+
+
+def _check_dist(result, backend):
+    nccl = result["nccl_world1"]
+    if not (nccl["ok"] and nccl["backend"] == "nccl"):
+        raise AssertionError(f"the world-1 NCCL collectives failed: {nccl}")
+    if result["backend"] != backend:
+        raise AssertionError(f"the ranks ran {result['backend']}, want {backend}")
+    a = result["sd_ppo"]
+    for r in a:
+        _check_metrics(r["metrics"], ("loss", "reward", "grad_norm"))
+        if r["launches"] != r["launches_want"] or r["launches_by_route"].get("mma") != r["launches"]:
+            raise AssertionError(f"(a) rank launches {r['launches']} ({r['launches_by_route']}), "
+                                 f"want {r['launches_want']} on mma")
+        if not (r["resumed"] and r["resume_bit_equal"] and r["checkpoints"] == ["checkpoint-1"]):
+            raise AssertionError(f"(a) checkpoint / resume: {r['checkpoints']} resumed "
+                                 f"{r['resumed']} bit-equal {r['resume_bit_equal']}")
+        if not r["params_finite"]:
+            raise AssertionError("(a) a post-update parameter is not finite")
+    if a[0]["param_sum"] != a[1]["param_sum"]:
+        raise AssertionError(f"(a) post-update parameters differ: {a[0]['param_sum']} "
+                             f"{a[1]['param_sum']}")
+    g = a[0]["grad_check"]
+    dp_norm, one_norm = g["grad_norm"]
+    if (g["rows"] != DIST_SD_PPO_ROWS * (DIST_SD_PPO_N - 1)
+            or not g["max_rel_err"] <= DIST_GRAD_RTOL
+            or not abs(dp_norm - one_norm) <= DIST_GRAD_RTOL * one_norm):
+        raise AssertionError(f"(a) data-parallel vs one-process update of the same batch: {g}")
+    if a[0]["actions_agree"] < DIST_ACTIONS_AGREE or a[0]["reward_rel_diff"] > DIST_REWARD_RTOL:
+        raise AssertionError(f"(a) data-parallel vs one-process step: actions agree "
+                             f"{a[0]['actions_agree']}, reward rel diff {a[0]['reward_rel_diff']}")
+    want_edit = DIT_LAUNCHES * FLUX_STEPS + 2 * FLUX_VAE_LAUNCHES
+    want_collectives = 2 * 19 + 38 + 1  # per double block, per single block, the final proj_out
+    for r in result["flux_tp"]:
+        fwd = r["forward"]
+        if not all(r["split"].get(kind) for kind in ("column", "row", "gathered")):
+            raise AssertionError(f"(b) the DiT was not split: {r['split']}")
+        if not fwd["finite"] or fwd["max_abs_diff"] > DIST_DIT_LIMIT * fwd["ref_max_abs"]:
+            raise AssertionError(f"(b) TP-2 DiT forward vs unsharded: {fwd}")
+        if fwd["collectives"] != {"all_reduce": want_collectives, "all_gather": want_collectives}:
+            raise AssertionError(f"(b) TP collectives {fwd['collectives']}, want "
+                                 f"{want_collectives} each")
+        if (fwd["launches"] != DIT_LAUNCHES or r["edit_launches"] != want_edit
+                or r["edit_launches_by_route"].get("mma") != want_edit):
+            raise AssertionError(f"(b) launches {fwd['launches']} / {r['edit_launches']} "
+                                 f"({r['edit_launches_by_route']}), want {DIT_LAUNCHES} / "
+                                 f"{want_edit} on mma")
+    b0 = result["flux_tp"][0]
+    if b0["edit_shape"] != [1024, 1024, 3] or b0["edit_max_diff"] > DIST_EDIT_MAX_LEVELS:
+        raise AssertionError(f"(b) TP-2 edit vs unsharded: {b0}")
+    want_serve = DIST_SERVE_BATCHES * LAUNCHES_PER_GENERATION
+    for r in result["serve"]:
+        if r["launches"] != want_serve or r["launches_by_route"].get("mma") != want_serve:
+            raise AssertionError(f"(c) launches {r['launches']} ({r['launches_by_route']}), "
+                                 f"want {want_serve} on mma")
+    c0 = result["serve"][0]
+    if (c0["batches"] != DIST_SERVE_BATCHES or not c0["equal_batch4"]
+            or c0["max_diff_batch8"] > DIST_SERVE_BATCH8_LEVELS):
+        raise AssertionError(f"(c) sharded engine vs unsharded: {c0}")
+
+
 
 def _kernel1_entry(rows, runs_by_path):
     """Kernel #1's line.  Its top-level numbers are per SD-1.5 generation
@@ -2815,6 +3385,14 @@ def _kernel1_entry(rows, runs_by_path):
     by_path["serve_int8"] = {"generate_rounds": run["throughput"]["launches"],
                              "edit": run["edit"]["launches"],
                              "per": f"2 batches of {BATCH} requests; one /v1/edit"}
+    run = runs_by_path["dist"]
+    by_path["dist"] = {
+        "per_rank": {part: [r["launches"] for r in run[part]] for part in ("sd_ppo", "serve")},
+        "flux_tp_per_rank": [{"forward": r["forward"]["launches"], "edit": r["edit_launches"]}
+                             for r in run["flux_tp"]],
+        "backend": run["backend"],
+        "per": "(a) one DP PPO step (n = 6, 80 rows a rank); (b) one TP-2 DiT forward and one "
+               "edit; (c) two DP serving batches of 8"}
     sd = by_path["sd15_generation"]
     return {
         "name": "flash_attention", "route": "cuda",
@@ -2910,6 +3488,7 @@ def main() -> int:
     runs_by_path["flux_ppo"] = phase_flux_ppo(fa)
     phase_tiny_train(fa)
     runs_by_path["serve"] = phase_serve(fa, runs_by_path)
+    runs_by_path["dist"] = phase_dist(fa, runs_by_path["flux"]["dist_ref"])
 
     kernels = [_kernel1_entry(rows, runs_by_path)]
     kernels += [_variant_entry(k.__name__, variant_rows, probe["launches"][k.__name__],

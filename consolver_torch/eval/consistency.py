@@ -8,7 +8,13 @@ same statistics (mean / std / min / max / median and counts) and per-item
 ``errors`` records ``{path, reason}``.  Images are read as PNG
 (``utils/png.py``; the port has no JPEG decoder, so a JPEG pair becomes an
 error record, as any load failure does) and, given ``size``, resized with
-``data/edit_prep``'s PIL-exact Lanczos.
+``data/edit_prep``'s PIL-exact Lanczos.  With ``mesh=`` every rank reads
+the pairs, each data rank scores its slice of every chunk (padded to a
+multiple of the data ranks by repeating the last pair), the scores are
+all_gathered and the padding dropped, so every rank returns the statistics
+of the unsharded run; rank 0 writes ``output_json``.  A reward that fails
+on one rank fails the chunk on every rank (one all_reduce of a flag before
+the gather), so all ranks score it item by item together.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 from consolver_torch.data.edit_prep import lanczos_resize
 from consolver_torch.device import resolve_device
+from consolver_torch.dist.mesh import gather_batch, shard_batch
 from consolver_torch.utils.png import read_png
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg")
@@ -52,10 +59,30 @@ def _load_image(path: str, size: Optional[Tuple[int, int]] = None) -> np.ndarray
     return np.asarray(img, np.float32) / 255.0
 
 
-def _score_batch(reward_fn, gen: np.ndarray, ref: np.ndarray, device) -> np.ndarray:
-    with torch.no_grad():
-        rewards = reward_fn(torch.as_tensor(gen, device=device), torch.as_tensor(ref, device=device))
-    return rewards.float().cpu().numpy().reshape(-1)
+def _score_batch(reward_fn, gen: np.ndarray, ref: np.ndarray, device, mesh=None) -> np.ndarray:
+    n = gen.shape[0]
+    if mesh is not None:
+        pad = (-n) % mesh.dp
+        gen, ref = (np.concatenate([x, np.repeat(x[-1:], pad, axis=0)]) for x in (gen, ref))
+        gen, ref = shard_batch(mesh, (gen, ref))
+    failed = None
+    try:
+        with torch.no_grad():
+            rewards = reward_fn(torch.as_tensor(gen, device=device),
+                                torch.as_tensor(ref, device=device)).float().reshape(-1)
+    except Exception as e:  # noqa: BLE001  (re-raised below, after the ranks agree)
+        failed = e
+    if mesh is not None:
+        # every rank learns of a failure on any rank before the gather, so
+        # that all of them fall back together and the collectives stay matched
+        flag = mesh.all_reduce(torch.tensor([float(failed is not None)], device=mesh.device))
+        if failed is None and float(flag) > 0:
+            failed = RuntimeError("the reward failed on another rank")
+    if failed is not None:
+        raise failed
+    if mesh is not None:
+        rewards = gather_batch(mesh, rewards)
+    return rewards.cpu().numpy()[:n]
 
 
 def evaluate_consistency(
@@ -71,11 +98,8 @@ def evaluate_consistency(
     """Reward statistics over all paired images, in the reference's
     aggregate shape (compute_reward.py:332-365,447-463) with per-item
     ``errors`` (compute_reward.py:171-181).  ``reward_fn`` takes two image
-    batches on ``device`` (None = the GPU)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded evaluation is not ported yet (ROADMAP Queue A.15)")
-    device = resolve_device(device)
+    batches on ``device`` (None = the GPU; the mesh's device with ``mesh``)."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     pairs = pair_images(dir_generated, dir_reference)
     if not pairs:
         raise FileNotFoundError(f"No paired images between {dir_generated} and {dir_reference}")
@@ -97,13 +121,14 @@ def evaluate_consistency(
         try:
             gen = np.stack([g for _, g, _ in loaded])
             ref = np.stack([r for _, _, r in loaded])
-            scores.extend(float(r) for r in _score_batch(reward_fn, gen, ref, device))
+            scores.extend(float(r) for r in _score_batch(reward_fn, gen, ref, device, mesh))
         except Exception:
             # mixed shapes or a model failure: score item by item, so one bad
             # pair does not discard the chunk
             for a, g, r in loaded:
                 try:
-                    scores.append(float(_score_batch(reward_fn, g[None], r[None], device)[0]))
+                    scores.append(float(_score_batch(reward_fn, g[None], r[None], device,
+                                                     mesh)[0]))
                 except Exception as e:  # recorded per item, as the reference does
                     record_error(a, e)
     arr = np.asarray(scores)
@@ -118,7 +143,7 @@ def evaluate_consistency(
         "max": float(arr.max()) if len(arr) else float("nan"),
         "median": float(np.median(arr)) if len(arr) else float("nan"),
     }
-    if output_json:
+    if output_json and (mesh is None or mesh.is_primary):
         with open(output_json, "w") as f:
             json.dump(stats, f, indent=2)
     return stats

@@ -17,6 +17,8 @@ Numerics kept from the JAX package:
   * block modulations split as (shift, scale, gate, ...), the final
     ``norm_out_linear`` as (scale, shift);
   * ``proj_out`` computes in f32;
+  * under a tensor-parallel split (``consolver_torch/dist/tp.py``) a block
+    runs ``num_heads // tp`` heads, taken from its projections' widths.
   * the guidance embedding is ``timestep_embedding(guidance * 1000)``.
 """
 
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from consolver_torch.device import resolve_device
+from consolver_torch.dist.tp import row_parallel_pair
 from consolver_torch.kernels.attention import attention as attention_op
 from consolver_torch.kernels.quant import cast_float_layers
 from consolver_torch.models.layers import TimestepEmbedding, make_dense, timestep_embedding
@@ -183,7 +186,7 @@ class DoubleStreamBlock(nn.Module):
         h, hd = cfg.hidden_size, cfg.head_dim
         mlp_h = int(h * cfg.mlp_ratio)
         q = cfg.quant_mode
-        self.num_heads = cfg.num_heads
+        self.head_dim = hd
         self.norm1_linear = make_dense(q, h, 6 * h)
         self.norm1_context_linear = make_dense(q, h, 6 * h)
         for prefix in ("attn_to_", "attn_add_"):
@@ -201,9 +204,9 @@ class DoubleStreamBlock(nn.Module):
         self.ff_context_net_2 = make_dense(q, mlp_h, h)
 
     def _qkv(self, x: torch.Tensor, prefix: str):
-        b = x.shape[0]
-        return tuple(getattr(self, prefix + name)(x).reshape(b, -1, self.num_heads,
-                                                              x.shape[-1] // self.num_heads)
+        # heads from the projection's width: num_heads // tp under a TP split
+        b, s = x.shape[:2]
+        return tuple(getattr(self, prefix + name)(x).reshape(b, s, -1, self.head_dim)
                      for name in "qkv")
 
     def forward(self, img, txt, vec, cos, sin):
@@ -222,18 +225,21 @@ class DoubleStreamBlock(nn.Module):
         k = torch.cat([self.attn_norm_added_k(tk), self.attn_norm_k(ik)], dim=1)
         v = torch.cat([tv, iv], dim=1)
         out = attention_op(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
-        out = out.reshape(b, -1, img.shape[-1])
+        out = out.reshape(b, q.shape[1], -1)
         txt_attn, img_attn = out[:, :s_txt], out[:, s_txt:]
 
-        img = img + i_gate_a[:, None, :] * self.attn_to_out_0(img_attn)
-        txt = txt + t_gate_a[:, None, :] * self.attn_to_add_out(txt_attn)
+        # under TP each pair of row-parallel projections sums in one all_reduce
+        img_out, txt_out = row_parallel_pair(self.attn_to_out_0, img_attn,
+                                             self.attn_to_add_out, txt_attn)
+        img = img + i_gate_a[:, None, :] * img_out
+        txt = txt + t_gate_a[:, None, :] * txt_out
 
         img_m = _modulate(_layer_norm(img).to(dtype), i_shift_m, i_scale_m)
         txt_m = _modulate(_layer_norm(txt).to(dtype), t_shift_m, t_scale_m)
-        img = img + i_gate_m[:, None, :] * self.ff_net_2(_gelu(self.ff_net_0_proj(img_m)))
-        txt = txt + t_gate_m[:, None, :] * self.ff_context_net_2(
-            _gelu(self.ff_context_net_0_proj(txt_m)))
-        return img, txt
+        img_out, txt_out = row_parallel_pair(
+            self.ff_net_2, _gelu(self.ff_net_0_proj(img_m)),
+            self.ff_context_net_2, _gelu(self.ff_context_net_0_proj(txt_m)))
+        return img + i_gate_m[:, None, :] * img_out, txt + t_gate_m[:, None, :] * txt_out
 
 
 class SingleStreamBlock(nn.Module):
@@ -244,7 +250,7 @@ class SingleStreamBlock(nn.Module):
         h, hd = cfg.hidden_size, cfg.head_dim
         mlp_h = int(h * cfg.mlp_ratio)
         q = cfg.quant_mode
-        self.num_heads = cfg.num_heads
+        self.head_dim = hd
         self.norm_linear = make_dense(q, h, 3 * h)
         self.attn_to_q = make_dense(q, h, h)
         self.attn_to_k = make_dense(q, h, h)
@@ -253,17 +259,18 @@ class SingleStreamBlock(nn.Module):
         self.attn_norm_k = QKNorm(hd)
         self.proj_mlp = make_dense(q, h, mlp_h)
         self.proj_out = make_dense(q, h + mlp_h, h)
+        self.proj_out.tp_parts = (h, mlp_h)  # reads [attn | mlp]: a TP split slices each
 
     def forward(self, x, vec, cos, sin):
         dtype = self.attn_norm_q.weight.dtype
-        b, s, h = x.shape
-        shape = (b, s, self.num_heads, h // self.num_heads)
+        b, s, _ = x.shape
+        shape = (b, s, -1, self.head_dim)  # num_heads // tp heads under a TP split
         shift, scale, gate = self.norm_linear(F.silu(vec)).chunk(3, dim=-1)
         x_n = _modulate(_layer_norm(x).to(dtype), shift, scale)
         q = self.attn_norm_q(self.attn_to_q(x_n).reshape(shape))
         k = self.attn_norm_k(self.attn_to_k(x_n).reshape(shape))
         v = self.attn_to_v(x_n).reshape(shape)
-        attn = attention_op(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v).reshape(b, s, h)
+        attn = attention_op(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v).reshape(b, s, -1)
         mlp = _gelu(self.proj_mlp(x_n))
         return x + gate[:, None, :] * self.proj_out(torch.cat([attn, mlp], dim=-1))
 
@@ -318,4 +325,6 @@ class FluxTransformer(nn.Module):
         scale, shift = self.norm_out_linear(F.silu(vec)).chunk(2, dim=-1)
         x = _layer_norm(x).to(dtype)
         x = x * (1 + scale[:, None, :]) + shift[:, None, :]
-        return F.linear(x.float(), self.proj_out.weight.float(), self.proj_out.bias.float())
+        if isinstance(self.proj_out, nn.Linear):
+            return F.linear(x.float(), self.proj_out.weight.float(), self.proj_out.bias.float())
+        return self.proj_out(x.float())  # a TP split computes in its input's dtype

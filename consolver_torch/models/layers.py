@@ -211,13 +211,15 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([make_dense(quant, inner, inner, bias=out_bias)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        # the head count comes from to_q's width: num_heads // tp under a
+        # tensor-parallel split (dist/tp.py), num_heads otherwise
         context = x if context is None else context
         b, sq = x.shape[:2]
         sk = context.shape[1]
-        q = self.to_q(x).reshape(b, sq, self.num_heads, self.head_dim)
-        k = self.to_k(context).reshape(b, sk, self.num_heads, self.head_dim)
-        v = self.to_v(context).reshape(b, sk, self.num_heads, self.head_dim)
-        out = attention_op(q, k, v).reshape(b, sq, self.num_heads * self.head_dim)
+        q = self.to_q(x).reshape(b, sq, -1, self.head_dim)
+        k = self.to_k(context).reshape(b, sk, -1, self.head_dim)
+        v = self.to_v(context).reshape(b, sk, -1, self.head_dim)
+        out = attention_op(q, k, v).reshape(b, sq, -1)
         return self.to_out[0](out)
 
 
@@ -225,6 +227,7 @@ class GEGLU(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, quant=False):
         super().__init__()
         self.proj = make_dense(quant, dim_in, dim_out * 2)
+        self.proj.tp_parts = (dim_out, dim_out)  # [h | gate]: a TP split slices each
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)

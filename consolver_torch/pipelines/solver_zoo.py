@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from consolver_torch.core import schedules
+from consolver_torch.policy.factor_net import ShardedGenerator
 
 NoiseFn = Callable[[int, tuple], torch.Tensor]
 
@@ -621,7 +622,7 @@ def make_baseline_denoise_fn(
                 raise ValueError(f"{solver_name} (eta={eta}) needs a generator")
 
             def draw(i, shape):
-                return torch.randn(shape, generator=generator, device=x.device)
+                return ShardedGenerator.of(generator, shape[0]).randn(shape, x.device)
 
         solver = make_solver(solver_name, schedule, num_inference_steps, noise_fn=draw, eta=eta)
         batch = x.shape[0]

@@ -16,7 +16,7 @@ The grid-kind rule uses the corrected condition ``i == 1 and i < order_dim - 1``
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -96,6 +96,36 @@ def _cosine_features(epsilon: torch.Tensor, order_dim: int, eps: float = 1e-8) -
     return torch.stack(sims, dim=-1)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedGenerator:
+    """A data-parallel rank's view of the policy's draws: ``generator``
+    draws for the global batch of ``rows`` rows and the rank keeps rows
+    ``start : start + its batch``, so that every rank samples what the
+    unsharded rollout samples for those rows.  One process is the shard
+    ``start = 0`` of its own batch (:meth:`of`)."""
+
+    generator: Optional[torch.Generator]
+    start: int
+    rows: int
+
+    @classmethod
+    def of(cls, generator, rows: int) -> "ShardedGenerator":
+        """``generator`` itself when it is a shard, else a plain generator's
+        (or the default one's, for None) draws for all ``rows`` rows."""
+        return generator if isinstance(generator, cls) else cls(generator, 0, rows)
+
+    def randn(self, shape, device) -> torch.Tensor:
+        """This shard's rows of a global ``[rows, *shape[1:]]`` normal draw."""
+        full = torch.randn((self.rows, *shape[1:]), generator=self.generator, device=device)
+        return full[self.start:self.start + shape[0]]
+
+    def exponential(self, shape, device, dtype) -> torch.Tensor:
+        """This shard's rows of a global ``[rows, *shape[1:]]`` Exp(1) draw."""
+        full = torch.empty((self.rows, *shape[1:]), device=device, dtype=dtype)
+        full.exponential_(1, generator=self.generator)
+        return full[self.start:self.start + shape[0]]
+
+
 class FactorNet(nn.Module):
     """The policy MLP (``fc0``/``fc1``/``head``) with its action grids."""
 
@@ -141,14 +171,17 @@ class FactorNet(nn.Module):
         return self.action_values[dims, idx], probs
 
     def sample_action(
-        self, conds: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None
+        self, conds: Dict[str, torch.Tensor],
+        generator: Union[torch.Generator, ShardedGenerator, None] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One sampled action per dimension: (values ``[B, A]``, their
-        probabilities ``[B, A]``)."""
+        probabilities ``[B, A]``).  A :class:`ShardedGenerator` draws for the
+        whole batch and keeps this shard's rows."""
         logp = self.log_probs(conds)
         b, a, n = logp.shape
-        idx = torch.multinomial(logp.exp().reshape(b * a, n), 1, generator=generator)
-        return self._values_and_probs(logp, idx.reshape(b, a))
+        # torch.multinomial's draw of one sample, bit for bit: argmax(p / q), q ~ Exp(1)
+        q = ShardedGenerator.of(generator, b).exponential((b, a, n), logp.device, logp.dtype)
+        return self._values_and_probs(logp, (logp.exp() / q).argmax(dim=-1))
 
     def mode_action(self, conds: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         """The most likely action per dimension; same contract as

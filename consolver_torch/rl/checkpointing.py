@@ -4,8 +4,11 @@ resume that restores the policy, the optimizer (with its accumulation
 buffer) and ``global_step``.
 
 Port of ``consolver_tpu/rl/checkpointing.py`` with ``torch.save`` /
-``torch.load`` in place of orbax.  The port trains in one process, so every
-save (the periodic ones and the failure / interrupt save) is its own.
+``torch.load`` in place of orbax.  On a data-parallel mesh (``self.mesh``)
+only rank 0 writes, and every rank waits at a barrier after the periodic
+saves so that none reads a checkpoint before it exists; every rank resumes
+the same file.  The failure / interrupt save skips the barrier: the other
+ranks may never reach it.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import warnings
 
 import torch
 
+from consolver_torch.dist.mesh import assert_params_synced
 from consolver_torch.policy.io import TRAINER_STATE_FILE as STATE_FILE
 from consolver_torch.policy.io import save_factor_net
 
@@ -24,7 +28,10 @@ class CheckpointMixin:
     """Requires ``self.config`` (output_dir, checkpoints_total_limit,
     checkpointing_steps, max_train_steps, log_every), ``self.factor_net``,
     ``self.optimizer`` (:class:`~consolver_torch.rl.ppo.PolicyOptimizer`),
-    ``self.global_step`` and ``train_step``."""
+    ``self.global_step``, ``self.mesh`` (None for one process) and
+    ``train_step``."""
+
+    mesh = None
 
     def fit(self, batches, log_fn=None):
         """The training loop: ``train_step`` over the host batches, with the
@@ -49,11 +56,11 @@ class CheckpointMixin:
                         metrics["param_sum"] = self.param_sum()
                     log_fn(self.global_step, metrics)
         except KeyboardInterrupt:
-            self.save_checkpoint()
+            self.save_checkpoint(barrier=False)
             raise
         except Exception:
             try:
-                self.save_checkpoint()
+                self.save_checkpoint(barrier=False)
             except (OSError, RuntimeError) as save_error:  # report the step's own error
                 warnings.warn(f"the failure checkpoint was not written: {save_error}")
             raise
@@ -61,23 +68,29 @@ class CheckpointMixin:
 
     def param_sum(self) -> float:
         """The sum of the policy's parameters (the reference's DDP param-sum
-        print; one process here)."""
-        return float(sum(p.detach().double().sum() for p in self.factor_net.parameters()))
+        print); on a mesh it also checks that every rank holds the same sum
+        (:func:`~consolver_torch.dist.mesh.assert_params_synced`)."""
+        return assert_params_synced(self.factor_net, self.mesh)
 
-    def save_checkpoint(self) -> str:
+    def save_checkpoint(self, barrier: bool = True) -> str:
+        """Write ``checkpoint-{global_step}`` (rank 0 only on a mesh, then a
+        barrier unless ``barrier`` is False); returns its path."""
         path = os.path.abspath(
             os.path.join(self.config.output_dir, f"checkpoint-{self.global_step}")
         )
-        os.makedirs(path, exist_ok=True)
-        payload = {
-            "policy": self.factor_net.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "global_step": self.global_step,
-        }
-        tmp = os.path.join(path, STATE_FILE + ".tmp")
-        torch.save(payload, tmp)
-        os.replace(tmp, os.path.join(path, STATE_FILE))
-        self._enforce_total_limit()
+        if self.mesh is None or self.mesh.is_primary:
+            os.makedirs(path, exist_ok=True)
+            payload = {
+                "policy": self.factor_net.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "global_step": self.global_step,
+            }
+            tmp = os.path.join(path, STATE_FILE + ".tmp")
+            torch.save(payload, tmp)
+            os.replace(tmp, os.path.join(path, STATE_FILE))
+            self._enforce_total_limit()
+        if self.mesh is not None and barrier:
+            self.mesh.barrier()
         return path
 
     def _enforce_total_limit(self):
@@ -113,5 +126,11 @@ class CheckpointMixin:
         """The final policy: ``factor_net.pt`` (its ``state_dict``) and
         ``factor_net_config.json``, loadable as
         ``FactorNet(FactorNetConfig(**json)).load_state_dict(torch.load(...))``
-        or :func:`consolver_torch.policy.io.load_factor_ckpt`."""
-        return save_factor_net(self.factor_net, output_dir)
+        or :func:`consolver_torch.policy.io.load_factor_ckpt`.  Rank 0
+        writes it on a mesh."""
+        if self.mesh is None or self.mesh.is_primary:
+            path = save_factor_net(self.factor_net, output_dir)
+        if self.mesh is not None:
+            self.mesh.barrier()
+            path = self.mesh.broadcast_object(path if self.mesh.is_primary else None)
+        return path

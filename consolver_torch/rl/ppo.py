@@ -204,17 +204,30 @@ def make_update_fn(
     """The PPO update: ``update(conds, actions, old_probs, advantages,
     valid=None) -> aux`` runs the loss, its gradient and one optimizer call
     in place.  ``aux["grad_norm"]`` is this call's gradient norm before any
-    clip.  Data-parallel gradient sync (``grad_sync``) waits for ROADMAP
-    Queue A.15."""
-    if grad_sync is not None:
-        raise NotImplementedError(
-            "data-parallel gradient sync is not ported yet (ROADMAP Queue A.15)")
+    clip.
+
+    ``grad_sync`` (:func:`consolver_torch.dist.mesh.make_grad_sync`) makes
+    it a data-parallel update over this rank's shard of the batch: the
+    loss is the GLOBAL masked mean, as the JAX mesh update's (the shards of
+    a padded program hold different ``valid`` counts, so an average of
+    per-rank means would differ), so each rank scales its loss by its share
+    of the global row count before the gradients are summed; the aux
+    metrics are the global values, and the gradient norm and the clip come
+    after the sum, as in optax's chain."""
 
     def update(conds, actions, old_probs, advantages, valid=None):
         factor_net.zero_grad(set_to_none=True)
         loss, aux = ppo_loss(factor_net, conds, actions, old_probs, advantages,
                              config.clip_range, config.entropy_coef, valid=valid)
+        if grad_sync is not None:
+            rows = (valid.sum() if valid is not None
+                    else torch.tensor(float(actions.shape[0]), device=actions.device))
+            share = grad_sync.share(rows.float())
+            loss = loss * share
+            aux = grad_sync.sum({name: value.detach() * share for name, value in aux.items()})
         loss.backward()
+        if grad_sync is not None:
+            grad_sync([p.grad for p in optimizer.params])
         aux = {name: value.detach() for name, value in aux.items()}
         aux["grad_norm"] = global_norm(p.grad for p in optimizer.params)
         optimizer.step()

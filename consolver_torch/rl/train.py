@@ -6,6 +6,16 @@ run replays an uninterrupted one: the inference-step count
 (``f"{seed}-{step}"``), the group picks (``f"{seed}-group-{step}"``) and
 the seed of the rollout's ``torch.Generator`` (``f"{seed}-rollout-{step}"``).
 
+With ``mesh=`` (:mod:`consolver_torch.dist.mesh`) the trainer is one
+data-parallel rank: every rank forms the same global group batch, keeps its
+data shard, draws the global batch's policy samples and keeps its rows
+(:class:`~consolver_torch.policy.factor_net.ShardedGenerator`), so that at
+``num_groups`` fixed it computes what the one-process trainer computes.
+Rewards are all_gathered for the group advantages; the update sums the
+gradients of the global masked mean over the data group.  The policy is
+broadcast from rank 0 at the start; the frozen models are the caller's (every
+rank builds or loads the same weights).
+
 The rollout, the prompt encode and the decodes run under
 ``torch.no_grad()``: the frozen models keep ``requires_grad``, and a
 recorded UNet graph per step would fill the card.  The trainer calls
@@ -23,7 +33,9 @@ import numpy as np
 import torch
 
 from consolver_torch.data.group import repeat_random_sample_groups
+from consolver_torch.dist import mesh as meshlib
 from consolver_torch.pipelines.t2i import TextToImagePipeline, padded_ladder
+from consolver_torch.policy.factor_net import ShardedGenerator
 from consolver_torch.rl import ppo
 from consolver_torch.rl.checkpointing import CheckpointMixin
 from consolver_torch.rl.ppo import PPOConfig
@@ -51,8 +63,41 @@ class TrainConfig:
 
 class PPOStepMixin:
     """What the SD and FLUX trainers' steps share: the host draws keyed by
-    ``(seed, global_step)`` and the PPO epochs.  Needs ``self.config``,
-    ``self.global_step``, ``self.device`` and ``self._update``."""
+    ``(seed, global_step)``, the data-parallel plumbing and the PPO epochs.
+    Needs ``self.config``, ``self.global_step``, ``self.device`` and
+    ``self.factor_net``; :meth:`_setup` makes ``self.optimizer`` and
+    ``self._update``."""
+
+    def _setup(self, mesh) -> None:
+        self.mesh = mesh
+        self.num_groups = meshlib.resolve_num_groups(self.config.num_groups, mesh)
+        self.optimizer = ppo.make_optimizer(self.factor_net, self.config.ppo)
+        self.grad_sync = None
+        if mesh is not None:
+            meshlib.replicate(mesh, self.factor_net)  # every rank starts from rank 0's policy
+            self.grad_sync = meshlib.make_grad_sync(mesh)
+        self._update = ppo.make_update_fn(self.factor_net, self.optimizer, self.config.ppo,
+                                          grad_sync=self.grad_sync)
+
+    def _shard(self, batch):
+        """This rank's data shard of a host batch (the batch without a mesh)."""
+        return batch if self.mesh is None else meshlib.shard_batch(self.mesh, batch)
+
+    def _gathered(self, t: torch.Tensor) -> torch.Tensor:
+        """The global batch of a per-shard tensor."""
+        return t if self.mesh is None else meshlib.gather_batch(self.mesh, t)
+
+    def _local(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global-batch tensor."""
+        return t if self.mesh is None else t[meshlib.shard_slice(self.mesh, t.shape[0])]
+
+    def _rollout_generator(self, rows: int):
+        """The policy's generator of this step; on a mesh, its draws for the
+        global batch of ``rows`` cut to this shard."""
+        gen = self._generator("rollout")
+        if self.mesh is None:
+            return gen
+        return ShardedGenerator(gen, meshlib.shard_slice(self.mesh, rows).start, rows)
 
     def _group_rng(self) -> random.Random:
         return random.Random(f"{self.config.seed}-group-{self.global_step}")
@@ -74,18 +119,10 @@ class PPOStepMixin:
         return {k: float(v) for k, v in metrics.items()}
 
 
-def _check_single_process(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh data parallelism is not ported yet (ROADMAP Queue A.15); "
-            "num_groups runs several groups on one device"
-        )
-
-
 class PPOTrainer(PPOStepMixin, CheckpointMixin):
     """PPO trainer over a :class:`TextToImagePipeline` whose solver is the
-    learnable one (a FactorNet attached); one process, the pipeline's
-    device."""
+    learnable one (a FactorNet attached), on the pipeline's device; one
+    process, or one data-parallel rank of ``mesh``."""
 
     def __init__(
         self,
@@ -96,25 +133,23 @@ class PPOTrainer(PPOStepMixin, CheckpointMixin):
     ):
         if pipeline.factor_net is None:
             raise ValueError("PPOTrainer needs a pipeline with a factor_net")
-        _check_single_process(mesh)
         self.pipe = pipeline
         self.reward_fn = reward_fn
         self.config = config
         self.device = pipeline.device
-        self.num_groups = config.num_groups or 1
         self.factor_net = pipeline.factor_net
-        self.optimizer = ppo.make_optimizer(self.factor_net, config.ppo)
         self.global_step = 0
-        self._update = ppo.make_update_fn(self.factor_net, self.optimizer, config.ppo)
+        self._setup(mesh)
 
     def _decode_and_reward(self, pred_latents, target_latents):
+        """(the global batch's rewards, this shard's advantages)."""
         chunk = self.config.decode_chunk
         pred = self.pipe.decode_latents(pred_latents, chunk=chunk)
         target = self.pipe.decode_latents(target_latents, chunk=chunk)
-        rewards = self.reward_fn(pred, target)
-        adv = ppo.group_advantages(rewards.reshape(-1), self.config.ppo.advantage_scale,
+        rewards = self._gathered(self.reward_fn(pred, target).reshape(-1))
+        adv = ppo.group_advantages(rewards, self.config.ppo.advantage_scale,
                                    num_groups=self.num_groups)
-        return rewards, adv
+        return rewards, self._local(adv)
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
         """One PPO step on a host batch with keys ``noise`` ``[B, h, w, c]``,
@@ -122,6 +157,8 @@ class PPOTrainer(PPOStepMixin, CheckpointMixin):
         ``prompt_ids`` ``[B, S]`` and optionally ``uncond_ids``."""
         cfg = self.config
         batch = repeat_random_sample_groups(batch, self._group_rng(), self.num_groups)
+        rows = len(batch["noise"])
+        batch = self._shard(batch)
         num_inference = self._num_inference_for_step(self.global_step)
         pipe = self.pipe
 
@@ -133,7 +170,7 @@ class PPOTrainer(PPOStepMixin, CheckpointMixin):
             uncond_ids = (on_device("uncond_ids") if "uncond_ids" in batch
                           else pipe.uncond_ids_for(prompt_ids))
             context, uncond_context = pipe._encode(prompt_ids, uncond_ids)
-            generator = self._generator("rollout")
+            generator = self._rollout_generator(rows)
             if cfg.padded_rollout:
                 max_steps = cfg.max_inference_steps - 1  # exclusive upper bound
                 denoise = pipe.padded_denoise_fn(max_steps, cfg.guidance_scale)

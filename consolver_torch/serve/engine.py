@@ -29,6 +29,18 @@ stochastic exceptions remain when sampling is on:
 - the ``sde-*`` solvers draw their per-step noise from that generator too.
 
 The batch generator is seeded from the first row's seed.
+
+``mesh=`` (:mod:`consolver_torch.dist.mesh`) serves one batch over several
+ranks, one process each.  Rank 0 owns the queue, the flush window and the
+HTTP server; for each batch it broadcasts the request tensors (seeds,
+token ids, references, the program key, and the policy's parameters when
+they changed since the last batch), every data rank runs its contiguous
+slice of the batch, drawing the global batch's policy samples and keeping
+its rows, and rank 0 all_gathers the uint8 images.  The other ranks run a
+follower loop from construction until rank 0 shuts its engine down.  On a
+2-D mesh each model group splits the UNet (:data:`~consolver_torch.dist.tp.
+UNET_TP_RULES`) or the DiT (:data:`~consolver_torch.dist.tp.FLUX_TP_RULES`)
+in place.  Every batch shape must divide by the data ranks.
 """
 
 from __future__ import annotations
@@ -49,12 +61,14 @@ import torch
 
 from consolver_torch.data.edit_prep import center_crop_resize
 from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
+from consolver_torch.dist.mesh import gather_batch, shard_slice
+from consolver_torch.dist.tp import FLUX_TP_RULES, UNET_TP_RULES, shard_module_by_rules
 from consolver_torch.policy import io as policy_io
+from consolver_torch.policy.factor_net import ShardedGenerator
 
 # solvers with a policy whose actions the deterministic knob affects; for
 # zoo solvers the knob is a no-op and must not fork programs or batches
 LEARNABLE_SOLVERS = frozenset({"consistencysolver", "fmppo"})
-MESH_NOT_PORTED = "mesh serving is not ported yet (ROADMAP Queue A.15)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,17 +139,14 @@ def seed_noise(seeds: Sequence[int], shape: Tuple[int, ...]) -> torch.Tensor:
                         for s in seeds])
 
 
-def _check_no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
-
-
 class _BatchingEngine:
     """Resident worker thread that coalesces requests into padded batches.
 
-    Subclasses implement :meth:`_dispatch` (list of requests -> on-device
-    uint8 image batch).  Partial batches are padded by repeating the last
-    row (pad rows are computed and discarded).
+    Subclasses implement :meth:`_message` (list of requests -> the padded
+    batch's program key and host arrays) and :meth:`_execute` (message ->
+    on-device uint8 image batch; on a mesh, this data rank's rows, gathered).
+    Partial batches are padded by repeating the last row (pad rows are
+    computed and discarded).
 
     The worker dispatches a batch (the host launches its kernels; it may
     block where the pipeline synchronises), records a CUDA event after it
@@ -159,6 +170,8 @@ class _BatchingEngine:
         SMALLEST listed size that fits.  Defaults to ``(batch_size,)``.
         Batches holding a ``deterministic`` request always pad to the max
         shape (see :meth:`_pick_size`).
+    mesh : Mesh, optional
+        Serve over the mesh's ranks (module docstring); ranks > 0 follow.
     adaptive_flush : bool
         Scale the flush window with the observed arrival rate: wait
         ``min(flush_ms, (batch_size - pending) * EMA inter-arrival gap)``,
@@ -170,10 +183,16 @@ class _BatchingEngine:
     def __init__(self, batch_size: int = 8, flush_ms: float = 30.0,
                  max_queue: int = 256, max_wait_s: Optional[float] = None,
                  batch_sizes: Optional[Tuple[int, ...]] = None,
-                 adaptive_flush: bool = False, device=None):
+                 adaptive_flush: bool = False, device=None, mesh=None):
         sizes = sorted({int(s) for s in (batch_sizes or (batch_size,))})
         if sizes[0] < 1:
             raise ValueError(f"batch sizes must be >= 1, got {sizes}")
+        if mesh is not None and any(size % mesh.dp for size in sizes):
+            raise ValueError(f"batch sizes {sizes} must divide by the mesh's data axis ({mesh.dp})")
+        self.mesh = mesh
+        self._mesh_lock = threading.Lock()  # one batch's collectives at a time
+        self._sent_net = None  # the policy whose parameters the followers hold
+        self._mesh_closed = False
         self.batch_sizes = tuple(sizes)
         self.batch_size = sizes[-1]
         self.device = torch.device(device) if device is not None else torch.device("cpu")
@@ -207,6 +226,11 @@ class _BatchingEngine:
                              else None)
         self._stop = threading.Event()
         self._fetch_queue: queue.Queue = queue.Queue(maxsize=2)
+        if self.is_follower:
+            self._follower = threading.Thread(target=lambda: self._on_device(self._follow),
+                                              name="consolver-serve-follower", daemon=True)
+            self._follower.start()
+            return
         self._fetcher = threading.Thread(target=self._fetch_loop, name="consolver-serve-fetcher",
                                          daemon=True)
         self._fetcher.start()
@@ -214,9 +238,34 @@ class _BatchingEngine:
                                         daemon=True)
         self._worker.start()
 
+    @property
+    def is_follower(self) -> bool:
+        """A rank > 0 of a mesh: it takes no requests and runs the batches
+        rank 0 broadcasts."""
+        return self.mesh is not None and not self.mesh.is_primary
+
+    def _check_leader(self) -> None:
+        if self.is_follower:
+            raise RuntimeError("requests go to rank 0's engine; this rank follows it")
+
+    def _follow(self) -> None:
+        while True:
+            msg = self.mesh.broadcast_object()
+            if msg is None:  # rank 0 shut down
+                return
+            if "factor_state" in msg:
+                self.update_factor_params(msg["factor_state"])
+            self._execute(msg)
+
+    def join(self) -> None:
+        """A follower: wait until rank 0 shuts the engine down (the rank's
+        next collectives must not start before)."""
+        self._follower.join()
+
     # ------------------------------------------------------------- public
     def submit(self, request) -> Future:
         """Enqueue; the Future resolves to an ``[H, W, 3]`` uint8 image."""
+        self._check_leader()
         if self._stop.is_set():
             raise EngineShutDown("engine is shut down")
         fut: Future = Future()
@@ -251,6 +300,7 @@ class _BatchingEngine:
         that hangs raises ``TimeoutError`` to the caller (and is
         abandoned on a daemon thread).  Returns the number of (signature,
         batch size) programs warmed."""
+        self._check_leader()
         unique = {}
         for r in requests:
             unique.setdefault(r.program_key, r)
@@ -310,13 +360,22 @@ class _BatchingEngine:
         is in flight is safe: that batch completes through the fetcher and
         the worker fails the leftovers on its way out.  Only after the
         worker has exited does shutdown drain the queue again, to catch a
-        submit that raced past the stop check."""
+        submit that raced past the stop check.  On a mesh, rank 0 then tells
+        the followers to stop, and a follower waits for that, however long."""
         self._stop.set()
+        if self.is_follower:
+            self.join()
+            return
         deadline = time.monotonic() + timeout
         self._worker.join(timeout)
         if not self._worker.is_alive():
             self._fetcher.join(max(0.0, deadline - time.monotonic()))
             self._drain_on_stop()
+        if self.mesh is not None:
+            with self._mesh_lock:
+                if not self._mesh_closed:
+                    self._mesh_closed = True
+                    self.mesh.broadcast_object(None)
 
     def _drain_on_stop(self) -> None:
         """Fail everything still pending or queued with EngineShutDown."""
@@ -491,8 +550,41 @@ class _BatchingEngine:
                 fut.set_result(img)
 
     def _dispatch(self, requests):
-        """list of requests -> on-device uint8 image batch."""
+        """list of requests -> on-device uint8 image batch; on a mesh, the
+        batch is broadcast to the followers first."""
+        msg = self._message(requests)
+        if self.mesh is None:
+            return self._execute(msg)
+        with self._mesh_lock:
+            net = getattr(self.pipeline, "factor_net", None)
+            if net is not None and net is not self._sent_net:  # first batch, or a hot reload
+                msg["factor_state"] = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+                self._sent_net = net
+            self.mesh.broadcast_object(msg)
+            return self._execute(msg)
+
+    def _message(self, requests) -> dict:
+        """The padded batch: ``{"key": program key, ...host arrays}``."""
         raise NotImplementedError
+
+    def _execute(self, msg: dict):
+        """Run a batch message: the on-device uint8 images."""
+        raise NotImplementedError
+
+    def _rows(self, msg: dict, names: Sequence[str]):
+        """(this data rank's rows of ``msg[name]`` for each name, the batch
+        generator seeded from the batch's first seed: on a mesh it draws for
+        the whole batch and keeps this rank's rows)."""
+        seeds = msg["seeds"]
+        generator = torch.Generator(self.pipeline.device).manual_seed(int(seeds[0]))
+        if self.mesh is None:
+            return [msg[n] for n in names], generator
+        rows = shard_slice(self.mesh, len(seeds))
+        return ([msg[n][rows] for n in names],
+                ShardedGenerator(generator, rows.start, len(seeds)))
+
+    def _gathered(self, images: torch.Tensor) -> torch.Tensor:
+        return images if self.mesh is None else gather_batch(self.mesh, images)
 
     # ------------------------------------------------------------ helpers
     def _flush_window(self) -> float:
@@ -617,7 +709,8 @@ class InferenceEngine(_BatchingEngine):
     ``padded_max_steps``: serve every ``num_inference_steps`` in ``[1,
     padded_max_steps]`` of the learnable solver from one pad-to-max
     program (zoo solvers keep per-count programs).
-    ``mesh``: not ported (ROADMAP Queue A.15).
+    ``mesh``: serve over its ranks (module docstring); with a model axis
+    the UNet's transformer blocks are split in place.
     """
 
     def __init__(
@@ -634,15 +727,16 @@ class InferenceEngine(_BatchingEngine):
         batch_sizes: Optional[Tuple[int, ...]] = None,
         adaptive_flush: bool = False,
     ):
-        _check_no_mesh(mesh)
         self.padded_max_steps = padded_max_steps
         self.pipeline = pipeline
+        if mesh is not None:
+            shard_module_by_rules(mesh, pipeline.unet, UNET_TP_RULES)
         self.latent_size = int(latent_size)
         self.max_length = int(max_length if max_length is not None
                               else pipeline.text_encoder.cfg.max_position_embeddings)
         self._programs: dict = {}
         super().__init__(batch_size, flush_ms, max_queue, max_wait_s, batch_sizes=batch_sizes,
-                         adaptive_flush=adaptive_flush, device=pipeline.device)
+                         adaptive_flush=adaptive_flush, device=pipeline.device, mesh=mesh)
 
     def _serve_program(self, program_key):
         """The batch's whole hot path for one program key: per-seed noise ->
@@ -655,10 +749,9 @@ class InferenceEngine(_BatchingEngine):
                       if solver == "consistencysolver" and self.padded_max_steps is not None
                       and steps <= self.padded_max_steps else None)
 
-            def run(pipe, seeds, ids):
+            def run(pipe, generator, seeds, ids):
                 shape = (self.latent_size, self.latent_size, pipe.unet.cfg.in_channels)
                 noise = seed_noise(seeds, shape).to(pipe.device)
-                generator = torch.Generator(pipe.device).manual_seed(int(seeds[0]))
                 images, _ = pipe(generator, ids, noise, num_inference_steps=steps,
                                  guidance_scale=cfg_scale, solver=solver,
                                  deterministic_policy=deterministic, padded_max_steps=padded,
@@ -668,14 +761,19 @@ class InferenceEngine(_BatchingEngine):
             self._programs[program_key] = run
         return self._programs[program_key]
 
-    def _dispatch(self, requests):
+    def _message(self, requests) -> dict:
         pipe = self.pipeline
         prompts = self._pad([r.prompt for r in requests], requests)
         tok = pipe.tokenizer or HashTokenizer(max_length=self.max_length)
         ids = tokenize_batch(tok, prompts, self.max_length,
                              vocab_size=pipe.text_encoder.cfg.vocab_size)
         seeds = self._pad([int(r.seed) for r in requests], requests)
-        return self._serve_program(requests[0].program_key)(pipe, seeds, ids)
+        return {"key": requests[0].program_key, "seeds": np.asarray(seeds), "ids": ids}
+
+    def _execute(self, msg: dict):
+        (seeds, ids), generator = self._rows(msg, ("seeds", "ids"))
+        program = self._serve_program(msg["key"])
+        return self._gathered(program(self.pipeline, generator, seeds.tolist(), ids))
 
 
 class EditInferenceEngine(_BatchingEngine):
@@ -683,7 +781,8 @@ class EditInferenceEngine(_BatchingEngine):
     :class:`FluxKontextPipeline`.  The image resolution is pinned per
     engine; reference images are center-crop-resized on the host.
     ``t5_tokenizer`` / ``clip_tokenizer``: real tokenizers, else hashing.
-    ``mesh``: not ported (ROADMAP Queue A.15)."""
+    ``mesh``: serve over its ranks (module docstring); with a model axis
+    the DiT is split in place."""
 
     def __init__(
         self,
@@ -702,9 +801,10 @@ class EditInferenceEngine(_BatchingEngine):
         batch_sizes: Optional[Tuple[int, ...]] = None,
         adaptive_flush: bool = False,
     ):
-        _check_no_mesh(mesh)
         self.padded_max_steps = padded_max_steps
         self.pipeline = pipeline
+        if mesh is not None:
+            shard_module_by_rules(mesh, pipeline.transformer, FLUX_TP_RULES)
         self.resolution = int(resolution)
         vae_factor = 2 ** (len(pipeline.vae.cfg.block_out_channels) - 1)
         if self.resolution % (2 * vae_factor):
@@ -717,7 +817,7 @@ class EditInferenceEngine(_BatchingEngine):
         self.clip_max_length = int(clip_max_length)
         self._programs: dict = {}
         super().__init__(batch_size, flush_ms, max_queue, max_wait_s, batch_sizes=batch_sizes,
-                         adaptive_flush=adaptive_flush, device=pipeline.device)
+                         adaptive_flush=adaptive_flush, device=pipeline.device, mesh=mesh)
 
     def _serve_program(self, program_key):
         """The edit's whole hot path for one program key: per-seed noise ->
@@ -729,10 +829,9 @@ class EditInferenceEngine(_BatchingEngine):
                       if solver == "fmppo" and self.padded_max_steps is not None
                       and steps <= self.padded_max_steps else None)
 
-            def run(pipe, seeds, t5_ids, clip_ids, ref):
+            def run(pipe, generator, seeds, t5_ids, clip_ids, ref):
                 shape = (self.latent_size, self.latent_size, pipe.vae.cfg.latent_channels)
                 noise = seed_noise(seeds, shape).to(pipe.device)
-                generator = torch.Generator(pipe.device).manual_seed(int(seeds[0]))
                 images, _ = pipe(generator, t5_ids, clip_ids, ref, noise,
                                  num_inference_steps=steps, guidance_scale=cfg_scale,
                                  solver=solver, deterministic_policy=deterministic,
@@ -742,7 +841,7 @@ class EditInferenceEngine(_BatchingEngine):
             self._programs[program_key] = run
         return self._programs[program_key]
 
-    def _dispatch(self, requests):
+    def _message(self, requests) -> dict:
         pipe = self.pipeline
         instructions = self._pad([r.instruction for r in requests], requests)
         refs01 = self._pad([center_crop_resize(np.asarray(r.image), self.resolution)
@@ -755,7 +854,15 @@ class EditInferenceEngine(_BatchingEngine):
         clip_ids = tokenize_batch(clip_tok, instructions, self.clip_max_length,
                                   vocab_size=pipe.clip.cfg.vocab_size)
         seeds = self._pad([int(r.seed) for r in requests], requests)
-        return self._serve_program(requests[0].program_key)(pipe, seeds, t5_ids, clip_ids, ref)
+        return {"key": requests[0].program_key, "seeds": np.asarray(seeds), "t5_ids": t5_ids,
+                "clip_ids": clip_ids, "ref": ref}
+
+    def _execute(self, msg: dict):
+        (seeds, t5_ids, clip_ids, ref), generator = self._rows(
+            msg, ("seeds", "t5_ids", "clip_ids", "ref"))
+        program = self._serve_program(msg["key"])
+        return self._gathered(program(self.pipeline, generator, seeds.tolist(), t5_ids,
+                                      clip_ids, ref))
 
 
 # ---------------------------------------------------------------- replicas

@@ -723,3 +723,60 @@ def test_tiny_backbone_card_matches_cpu(cuda, monkeypatch, name):
                           images.to(cuda)).cpu()
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= SLICE_TOL * want.abs().max().item()
+
+
+# ----------------------------------------------------- data / tensor parallel
+def _two_rank_backend():
+    return "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+
+
+def test_kernel1_at_the_tp2_flux_joint_shape(cuda, monkeypatch):
+    """The FLUX joint attention at TP 2 (12 local heads of 24), on the
+    tensor cores."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _bf16_qkv((1, 8704, 12, 128), 8704, 21, cuda)
+    assert _kernel1_route(q, k, v, ref_rows=1) == "mma"
+
+
+def test_two_rank_collectives_of_cuda_tensors(cuda):
+    """Two ranks (gloo sharing one card, or NCCL with a card each) reduce,
+    gather and broadcast CUDA tensors where they lie."""
+    import torch_dist_workers as workers  # tests/ is on sys.path under pytest
+
+    from consolver_torch.dist import launch
+
+    ranks = launch.spawn(workers.card_collectives_rank, 2, backend=_two_rank_backend(),
+                         timeout_s=300)
+    for r in ranks:
+        assert r["device"].startswith("cuda") and r["backend"] == _two_rank_backend()
+        assert r["sum"] == [3.0, 3.0, 3.0] and r["gathered"] == [0.0, 1.0]
+        assert r["broadcast"] == [5.0, 5.0]
+
+
+def test_tp2_flux_on_the_card_matches_the_cpu(cuda):
+    """A tiny f32 DiT split over two ranks on the card against the unsharded
+    DiT on the CPU, within SLICE_TOL (TF32 off)."""
+    import pickle
+
+    import numpy as np
+    import torch_dist_workers as workers  # tests/ is on sys.path under pytest
+
+    from consolver_torch.dist import launch
+    from consolver_torch.models.flux import FluxConfig, FluxTransformer, latent_image_ids
+
+    cfg = FluxConfig.tiny()
+    model = workers._fill(FluxTransformer(cfg, device="cpu"), torch.Generator().manual_seed(4))
+    g = torch.Generator().manual_seed(5)
+    args = [torch.randn((2, 32, cfg.in_channels), generator=g),
+            torch.randn((2, 4, cfg.joint_text_dim), generator=g),
+            torch.randn((2, cfg.pooled_text_dim), generator=g),
+            torch.tensor([999.0, 350.5]), torch.full((2,), 2.5),
+            torch.cat([latent_image_ids(8, 8), latent_image_ids(8, 8, offset=1.0)]),
+            torch.zeros((4, 3))]
+    with torch.no_grad():
+        ref = model(*args).numpy()
+    ranks = launch.spawn(workers.tp_flux_on_card_rank, 2, backend=_two_rank_backend(),
+                         timeout_s=300, args=(pickle.dumps((model, args)),))
+    for r in ranks:
+        assert r["device"].startswith("cuda")
+        np.testing.assert_allclose(r["out"], ref, rtol=0, atol=SLICE_TOL)

@@ -47,6 +47,7 @@ from consolver_tpu.rewards import vlm as jvlm
 from consolver_tpu.rl import ppo as jppo
 from consolver_tpu.rl import train as jtrain
 from consolver_tpu.rl import train_edit as jtrain_edit
+from tests.torch_dist_workers import world1_mesh
 from tests.test_torch_backbones import _perturb, _port_config
 from tests.test_torch_pipeline import stacks  # noqa: F401  (fixture)
 from tests.test_torch_train import _capture, assert_params_close, inject_actions
@@ -203,9 +204,11 @@ def test_consistency_records_jpeg_and_mismatched_pairs(tmp_path):
     assert stats["num_pairs"] == 6 and stats["num_scored"] == 3
     assert sorted(e["path"] for e in stats["errors"]) == ["bad.png", "odd.png", "photo.jpg"]
     assert all(e["reason"] for e in stats["errors"])
-    with pytest.raises(NotImplementedError, match="A.15"):
-        tcons.evaluate_consistency(treg.make_reward_fn("image_psnr"), gen_dir, ref_dir,
-                                   mesh=object(), device="cpu")
+    with world1_mesh() as mesh:  # the mesh path (pad, shard, gather) on one rank
+        meshed = tcons.evaluate_consistency(treg.make_reward_fn("image_psnr"), gen_dir, ref_dir,
+                                            batch_size=8, mesh=mesh)
+    assert {k: v for k, v in meshed.items() if k != "errors"} == {
+        k: v for k, v in stats.items() if k != "errors"}
     with pytest.raises(FileNotFoundError):
         tcons.evaluate_consistency(treg.make_reward_fn("image_psnr"), gen_dir,
                                    str(tmp_path / "empty"), device="cpu")

@@ -130,3 +130,28 @@ def test_sample_action_on_grid_with_matching_probs():
     again, _ = tnet.sample_action(conds, torch.Generator().manual_seed(0))
     other, _ = tnet.sample_action(conds, torch.Generator().manual_seed(1))
     assert torch.equal(values, again) and not torch.equal(values, other)
+
+
+@pytest.mark.parametrize("kwargs", CONFIGS)
+def test_sample_action_is_torch_multinomial_draw(kwargs):
+    """The one draw path (argmax of p / q, q ~ Exp(1), from the generator)
+    takes the indices torch.multinomial takes for one sample on the same
+    generator state, bit for bit; a shard of the global draw
+    (ShardedGenerator) keeps the global draw's rows."""
+    from consolver_torch.policy.factor_net import ShardedGenerator
+
+    _, _, tnet = _pair(kwargs)
+    conds = _tconds(_conds(kwargs, batch=12))
+    with torch.no_grad():
+        probs = tnet.log_probs(conds).exp()
+        b, a, n = probs.shape
+        for seed in range(4):
+            want = torch.multinomial(probs.reshape(b * a, n), 1,
+                                     generator=torch.Generator().manual_seed(seed))
+            values, _ = tnet.sample_action(conds, torch.Generator().manual_seed(seed))
+            np.testing.assert_array_equal(tnet.actions_to_indices(values).numpy(),
+                                          want.reshape(b, a).numpy())
+            shard = {k: v[4:8] for k, v in conds.items()}
+            part, _ = tnet.sample_action(
+                shard, ShardedGenerator(torch.Generator().manual_seed(seed), 4, b))
+            assert torch.equal(part, values[4:8])

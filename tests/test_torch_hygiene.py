@@ -49,9 +49,11 @@ def _is_torch_compile(name, owner):
 def test_port_files_exist():
     """The port's modules, the serving path's included (solver zoo, preview,
     PNG codec, edit prep, policy IO, engines and HTTP), the int8 / int4
-    layers, and the reward and eval backbones with the eval stack."""
+    layers, the reward and eval backbones with the eval stack, and the
+    distributed layer."""
     names = {str(p.relative_to(ROOT / "consolver_torch")) for p in PORT_FILES}
-    assert len(PORT_FILES) >= 62 and SMOKE.exists()
+    assert len(PORT_FILES) >= 66 and SMOKE.exists()
+    assert {"dist/__init__.py", "dist/mesh.py", "dist/tp.py", "dist/launch.py"} <= names
     assert {"utils/png.py", "pipelines/solver_zoo.py", "pipelines/preview.py",
             "eval/gen_sweep.py", "data/edit_prep.py", "policy/io.py", "serve/engine.py",
             "serve/http.py", "kernels/quant.py", "utils/resize.py", "models/vit.py",

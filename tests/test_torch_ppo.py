@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from consolver_torch.data import group as tgroup
+from consolver_torch.dist.mesh import make_grad_sync
 from consolver_torch.models.convert import load_jax_params
 from consolver_torch.pipelines.t2i import Trajectory as TTrajectory
 from consolver_torch.policy.factor_net import FactorNet as TFactorNet
@@ -33,6 +34,7 @@ from consolver_tpu.policy.factor_net import FactorNet, FactorNetConfig
 from consolver_tpu.rewards import metrics as jmetrics
 from consolver_tpu.rewards import registry as jregistry
 from consolver_tpu.rl import ppo as jppo
+from tests.torch_dist_workers import world1_mesh
 
 FNET = dict(order_dim=3, scaler_dim=1, num_actions=7, hidden_dim=16, family="sd")
 
@@ -217,8 +219,18 @@ def test_update_reports_the_norm_before_the_clip(adv_scale):
                      torch.from_numpy(old), torch.from_numpy(adv), torch.from_numpy(w))
     np.testing.assert_allclose(float(t_aux["grad_norm"]), float(j_aux["grad_norm"]), rtol=1e-5)
     assert (float(t_aux["grad_norm"]) > 1.0) == (adv_scale > 1)
-    with pytest.raises(NotImplementedError, match="A.15"):
-        tppo.make_update_fn(tnet, t_opt, tppo.PPOConfig(), grad_sync=lambda g: g)
+    # a one-rank data-parallel update is the plain update
+    _, _, dp_net = _policies(seed=3)
+    dp_opt = tppo.make_optimizer(dp_net, tppo.PPOConfig())
+    with world1_mesh() as mesh:
+        dp_update = tppo.make_update_fn(dp_net, dp_opt, tppo.PPOConfig(),
+                                        grad_sync=make_grad_sync(mesh))
+        dp_aux = dp_update({"x": torch.from_numpy(conds["x"])}, torch.from_numpy(actions),
+                           torch.from_numpy(old), torch.from_numpy(adv), torch.from_numpy(w))
+    for name, value in t_aux.items():
+        np.testing.assert_allclose(float(dp_aux[name]), float(value), rtol=1e-6, err_msg=name)
+    for a, b in zip(dp_net.parameters(), tnet.parameters(), strict=True):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), rtol=1e-6, atol=1e-7)
 
 
 def _images(seed, dtype=np.float32):

@@ -8,7 +8,8 @@ batch, because its noise comes from its seed and every model op is per
 sample.  These tests pin that, the batching and padding accounting,
 program-key isolation, the hot reload and the HTTP surface.  Added here:
 the uint8 conversion bit-equal to the JAX package's (ties included), a hot
-reload that must not reuse the old denoise cache, and ``mesh=`` raising.
+reload that must not reuse the old denoise cache, and a mesh whose data axis
+does not divide the batch raising.
 """
 
 import base64
@@ -48,6 +49,7 @@ from consolver_torch.serve import (
     make_replicas,
     make_server,
 )
+from consolver_torch.dist.mesh import Mesh
 from consolver_torch.serve import engine as tengine
 from consolver_torch.serve.http import (
     EDIT_REFINE_DEFAULTS,
@@ -154,8 +156,13 @@ def test_seed_noise_is_a_function_of_the_seed():
 
 
 def test_mesh_raises_naming_the_roadmap_item(pipeline):
-    with pytest.raises(NotImplementedError, match="A.15"):
-        InferenceEngine(pipeline, batch_size=2, latent_size=LATENT, mesh=object())
+    """Mesh serving landed (ROADMAP A.15); what still raises is a batch
+    shape that does not divide by the mesh's data ranks (checked before any
+    collective, so a mesh without process groups shows it)."""
+    mesh = Mesh(rank=0, world=2, dp=2, tp=1, data_rank=0, model_rank=0, data_group=None,
+                model_group=None, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="divide"):
+        InferenceEngine(pipeline, batch_size=3, latent_size=LATENT, mesh=mesh)
 
 
 def test_prewarm_compiles_one_program_per_signature(engine):

@@ -41,6 +41,7 @@ from consolver_tpu.rewards import metrics as jmetrics
 from consolver_tpu.rl import ppo as jppo
 from consolver_tpu.rl import train as jtrain
 from tests.test_torch_pipeline import _factor, stacks  # noqa: F401  (fixture)
+from tests.torch_dist_workers import world1_mesh
 
 FNET = dict(order_dim=4, scaler_dim=0, num_actions=11, family="sd")
 PROB_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -315,8 +316,9 @@ def test_save_pretrained_round_trips(stacks, tmp_path):  # noqa: F811
 def test_mesh_and_missing_policy_raise(stacks):  # noqa: F811
     _, tpipe = _pipelines(stacks)
     _, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="A.15"):
-        ttrain.PPOTrainer(tpipe, make_reward_fn("image_psnr"), cfg, mesh=object())
+    with world1_mesh() as mesh:  # a mesh is accepted: one data-parallel rank
+        trainer = ttrain.PPOTrainer(tpipe, make_reward_fn("image_psnr"), cfg, mesh=mesh)
+        assert trainer.num_groups == 1 and trainer.grad_sync is not None
     tpipe.factor_net = None
     with pytest.raises(ValueError, match="factor_net"):
         ttrain.PPOTrainer(tpipe, make_reward_fn("image_psnr"), cfg)

@@ -50,6 +50,7 @@ from consolver_tpu.rl import train as jtrain
 from consolver_tpu.rl import train_edit as jtrain_edit
 from tests.test_edit import make_tiny_flux_pipeline
 from tests.test_torch_train import _capture, assert_params_close, inject_actions
+from tests.torch_dist_workers import world1_mesh
 
 # temperature 1, not the FM family's 0.01, so that the rows sample different
 # actions and the group's rewards spread
@@ -154,8 +155,9 @@ def test_edit_train_step_matches_jax(base, monkeypatch, padded):
 
 
 def test_edit_trainer_unported_options_raise(base, tmp_path):
-    """Data parallelism waits for Queue A.15; ``dump_samples_to`` writes the
-    step's first policy images as PNGs named by their advantage."""
+    """``dump_samples_to`` writes the step's first policy images as PNGs named
+    by their advantage; data parallelism (ROADMAP A.15) is ported, so a mesh
+    is accepted (a one-rank mesh here, ``tests/test_torch_tp.py`` for more)."""
     _, tpipe = _pipelines(base)
     _, cfg = _configs()
     trainer = ttrain_edit.EditPPOTrainer(tpipe, tmetrics.image_psnr_reward, cfg,
@@ -165,8 +167,9 @@ def test_edit_trainer_unported_options_raise(base, tmp_path):
     assert len(names) == 2 and all(n.startswith("sample_") and "_adv_" in n for n in names)
     img = png.read_png(str(tmp_path / "step_0" / names[0]))
     assert img.shape == (16, 16, 3) and img.dtype == np.uint8
-    with pytest.raises(NotImplementedError, match="A.15"):
-        ttrain_edit.EditPPOTrainer(tpipe, tmetrics.image_psnr_reward, cfg, mesh=object())
+    with world1_mesh() as mesh:
+        meshed = ttrain_edit.EditPPOTrainer(tpipe, tmetrics.image_psnr_reward, cfg, mesh=mesh)
+        assert meshed.num_groups == 1 and meshed.grad_sync is not None
 
 
 def _toy_denoise(noise, ids):
