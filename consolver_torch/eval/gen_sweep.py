@@ -45,11 +45,18 @@ def generate_sweep(
     batch_size: int = 8,
     seed: int = 0,
     device=None,
+    mesh=None,
 ) -> List[str]:
     """Run ``generate_batch(generator, prompt_batch) -> images [B, H, W, 3]
     in [0, 1]`` over all prompts, saving ``{idx}.png`` + ``{idx}.txt`` pairs.
-    The last batch is padded by repeating its last prompt."""
-    device = resolve_device(device)
+    The last batch is padded by repeating its last prompt.
+
+    On a data-parallel ``mesh`` (:mod:`consolver_torch.dist.mesh`) every
+    rank runs the sweep on its device and ``generate_batch`` shards each
+    batch (and gathers the images); rank 0 writes the files.  The returned
+    paths are the same on every rank."""
+    device = mesh.device if mesh is not None else resolve_device(device)
+    write = mesh is None or mesh.is_primary
     os.makedirs(output_dir, exist_ok=True)
     written = []
     for batch_idx in range(0, (len(prompts) + batch_size - 1) // batch_size):
@@ -61,10 +68,13 @@ def generate_sweep(
         for j, (img, prompt) in enumerate(zip(images[:len(chunk)], chunk)):
             idx = batch_idx * batch_size + j
             png = os.path.join(output_dir, f"{idx:06d}.png")
-            save_png(png, img)
-            with open(os.path.join(output_dir, f"{idx:06d}.txt"), "w") as f:
-                f.write(prompt)
+            if write:
+                save_png(png, img)
+                with open(os.path.join(output_dir, f"{idx:06d}.txt"), "w") as f:
+                    f.write(prompt)
             written.append(png)
+    if mesh is not None:
+        mesh.barrier()
     return written
 
 

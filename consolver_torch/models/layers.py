@@ -78,28 +78,37 @@ def batch_norm_f32(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
             + bn.bias.float().view(view))
 
 
-def conv_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """A conv run in f32 whatever its weights' dtype (the models' ``conv_out``)."""
-    return F.conv2d(
-        x.float(), conv.weight.float(), conv.bias.float(), conv.stride, conv.padding
-    )
+def conv_f32(conv: nn.Conv2d, x: torch.Tensor, per_sample: bool = False) -> torch.Tensor:
+    """A conv run in f32 whatever its weights' dtype (the models' ``conv_out``);
+    ``per_sample`` runs it one sample at a time, as :func:`slot_invariant_conv`."""
+    weight, bias = conv.weight.float(), conv.bias.float()
+    if per_sample:
+        return _per_sample_conv(conv, x.float(), weight, bias)
+    return F.conv2d(x.float(), weight, bias, conv.stride, conv.padding)
 
 
 def slot_invariant_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """``conv(x)`` one sample at a time: one im2col of the batch, then one GEMM
-    per sample, so that a row's bits do not depend on its batch slot.  On an
-    H100, cuDNN's batched bf16 3x3 convolutions below the UNet's top
-    resolution reduce some slots in another order than others
-    (``python -m consolver_torch.probes.slot_convs``); one GEMM shape gives
-    the same bits at every call."""
+    per sample, so that a row's bits depend neither on its batch slot nor on
+    the batch size.  On an H100, cuDNN's batched bf16 3x3 convolutions below
+    the UNet's top resolution reduce some slots in another order than others
+    (``python -m consolver_torch.probes.slot_convs``), and the top level's
+    stride-2 downsampler and the f32 ``conv_out`` pick another algorithm for
+    another batch size (``python -m consolver_torch.probes.dp_shapes``); one
+    GEMM shape gives the same bits at every call."""
+    return _per_sample_conv(conv, x, conv.weight, conv.bias)
+
+
+def _per_sample_conv(conv: nn.Conv2d, x: torch.Tensor, weight: torch.Tensor,
+                     bias: Optional[torch.Tensor]) -> torch.Tensor:
     b, _, h, w = x.shape
     kh, kw = conv.kernel_size
     (ph, pw), (sh, sw) = conv.padding, conv.stride
     cols = F.unfold(x, (kh, kw), padding=(ph, pw), stride=(sh, sw))  # [B, C*kh*kw, L]
-    weight = conv.weight.reshape(conv.out_channels, -1)
+    weight = weight.reshape(conv.out_channels, -1)
     ho, wo = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
     out = torch.stack([weight @ col for col in cols]).reshape(b, conv.out_channels, ho, wo)
-    return out if conv.bias is None else out + conv.bias[:, None, None]
+    return out if bias is None else out + bias[:, None, None]
 
 
 def run_conv(conv: nn.Module, x: torch.Tensor, per_sample: bool = False) -> torch.Tensor:

@@ -12,10 +12,12 @@ W8A8 int8 layers (their resnet, transformer and resample projections; the
 time projections, norms, ``conv_in`` / ``conv_out`` and the time embedding
 stay float); :meth:`TextToImagePipeline.quantize` skips level 0.
 
-``forward(..., slot_invariant=True)`` gives each sample bits that do not
-depend on its batch slot: every float 3x3 convolution outside the top level
-runs one sample at a time (``layers.slot_invariant_conv``).  Deterministic
-programs take it; sampled ones keep the batched convolutions.
+``forward(..., slot_invariant=True)`` gives each sample bits that depend
+neither on its batch slot nor on the batch size: every float 3x3
+convolution outside the top level, the top level's downsampler and the f32
+``conv_out`` run one sample at a time (``layers.slot_invariant_conv``).
+Deterministic programs take it; sampled ones keep the batched
+convolutions.
 """
 
 from __future__ import annotations
@@ -105,7 +107,7 @@ class CrossAttnDownBlock(nn.Module):
             if add_downsample else None
         )
 
-    def forward(self, x, temb, context, per_sample=False):
+    def forward(self, x, temb, context, per_sample=False, downsample_per_sample=None):
         skips = []
         for i, resnet in enumerate(self.resnets):
             x = resnet(x, temb, per_sample)
@@ -113,7 +115,8 @@ class CrossAttnDownBlock(nn.Module):
                 x = self.attentions[i](x, context)
             skips.append(x)
         if self.downsamplers is not None:
-            x = self.downsamplers[0](x, per_sample)
+            down = per_sample if downsample_per_sample is None else downsample_per_sample
+            x = self.downsamplers[0](x, down)
             skips.append(x)
         return x, skips
 
@@ -228,11 +231,12 @@ class UNet2DCondition(nn.Module):
         skips = [x]
         last = len(self.down_blocks) - 1
         for level, block in enumerate(self.down_blocks):
-            x, block_skips = block(x, temb, context, slot_invariant and level > 0)
+            x, block_skips = block(x, temb, context, slot_invariant and level > 0,
+                                   downsample_per_sample=slot_invariant)
             skips.extend(block_skips)
         x = self.mid_block(x, temb, context, slot_invariant)
         for i, block in enumerate(self.up_blocks):
             x = block(x, skips, temb, context, slot_invariant and last - i > 0)
 
         x = F.silu(group_norm_f32(self.conv_norm_out, x)).to(dtype)
-        return conv_f32(self.conv_out, x).permute(0, 2, 3, 1)
+        return conv_f32(self.conv_out, x, per_sample=slot_invariant).permute(0, 2, 3, 1)

@@ -1,9 +1,12 @@
 """Policy checkpoint IO, shared by the serving engines' hot reload and the
 trainers' export.
 
-Port of ``consolver_tpu/policy/io.py`` for the port's own two formats: a
-trainer ``checkpoint-{step}/state.pt`` (``rl/checkpointing.py``) and a
-``save_pretrained`` export (``factor_net.pt`` + ``factor_net_config.json``).
+Port of ``consolver_tpu/policy/io.py`` for the port's own three formats: a
+trainer ``checkpoint-{step}/state.pt`` (``rl/checkpointing.py``), a
+``save_pretrained`` export (``factor_net.pt`` + ``factor_net_config.json``)
+and a converted reference ``model.ckpt`` (``python -m consolver_torch
+convert --kind factor_net``: ``model.safetensors`` + a sibling
+``{dir}_factor_net_config.json``).
 The dims ride with the checkpoint in the JSON sidecar, so a load cannot
 silently mismatch the trained action grid.
 """
@@ -22,6 +25,7 @@ from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
 CONFIG_FILE = "factor_net_config.json"
 EXPORT_FILE = "factor_net.pt"
 TRAINER_STATE_FILE = "state.pt"
+CONVERTED_FILE = "model.safetensors"
 
 
 def save_factor_net(net: FactorNet, output_dir: str) -> str:
@@ -52,21 +56,28 @@ def _sidecar_config(path: str, default_cfg: FactorNetConfig) -> FactorNetConfig:
 def _state_file(path: str) -> str:
     if os.path.isfile(path):
         return path
-    for name in (TRAINER_STATE_FILE, EXPORT_FILE):
+    for name in (TRAINER_STATE_FILE, EXPORT_FILE, CONVERTED_FILE):
         if os.path.isfile(os.path.join(path, name)):
             return os.path.join(path, name)
-    raise FileNotFoundError(f"no {TRAINER_STATE_FILE} or {EXPORT_FILE} at {path}")
+    raise FileNotFoundError(f"no {TRAINER_STATE_FILE}, {EXPORT_FILE} or {CONVERTED_FILE} at "
+                            f"{path}")
 
 
 def load_factor_ckpt(path: str, default_cfg: FactorNetConfig
                      ) -> Tuple[FactorNetConfig, Dict[str, torch.Tensor]]:
     """``(FactorNetConfig, state_dict on the CPU)`` from a trainer
-    ``checkpoint-{step}`` directory or a ``save_pretrained`` export (its
-    directory or its ``factor_net.pt``).  A ``factor_net_config.json``
+    ``checkpoint-{step}`` directory, a ``save_pretrained`` export (its
+    directory or its ``factor_net.pt``) or a converted component.  A ``factor_net_config.json``
     beside the checkpoint (or in its parent) overrides ``default_cfg``;
     parameters whose shapes do not fit the config raise ``ValueError``."""
     cfg = _sidecar_config(path, default_cfg)
-    payload = torch.load(_state_file(path), map_location="cpu", weights_only=True)
+    state_file = _state_file(path)
+    if state_file.endswith(".safetensors"):
+        from consolver_torch.models.checkpoint import load_file
+
+        payload = load_file(state_file)
+    else:
+        payload = torch.load(state_file, map_location="cpu", weights_only=True)
     # a trainer checkpoint holds the policy beside the optimizer and step
     state = payload["policy"] if "optimizer" in payload else payload
     want = {k: tuple(v.shape) for k, v in FactorNet(cfg, device="meta").state_dict().items()}

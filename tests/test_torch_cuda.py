@@ -780,3 +780,92 @@ def test_tp2_flux_on_the_card_matches_the_cpu(cuda):
     for r in ranks:
         assert r["device"].startswith("cuda")
         np.testing.assert_allclose(r["out"], ref, rtol=0, atol=SLICE_TOL)
+
+
+def _host_rss():
+    with open("/proc/self/status") as f:
+        return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmRSS:"))
+
+
+def _peak_host_rss(fn):
+    """(``fn()``, the RSS before, the largest RSS while it ran: sampled every
+    2 ms by a thread)."""
+    import threading
+    import time
+
+    before = _host_rss()
+    peak, stop = [before], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            peak[0] = max(peak[0], _host_rss())
+            time.sleep(0.002)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        out = fn()
+    finally:
+        stop.set()
+        thread.join()
+    return out, before, max(peak[0], _host_rss())
+
+
+def test_loader_puts_every_tensor_on_the_card_in_the_model_dtype(cuda, tmp_path):
+    """A float hub checkpoint (f32 files) lands on the card in the model's
+    bf16, every tensor equal to its file value cast; a quantized component
+    lands verbatim (int8 kernels, f32 scales)."""
+    from consolver_torch.kernels.quant import quantize_like
+    from consolver_torch.models import checkpoint as ck
+    from consolver_torch.models.unet_2d import UNet2DCondition, UNetConfig
+
+    import dataclasses
+
+    unet = UNet2DCondition(UNetConfig.tiny(), device="cpu")
+    ck.save_file(ck.hub_state_dict(unet, "unet"), str(tmp_path / "unet.safetensors"))
+    loaded = ck.load_hub(UNet2DCondition(UNetConfig.tiny(), device="meta", dtype=torch.bfloat16),
+                         "unet", str(tmp_path / "unet.safetensors"), device=cuda)
+    for k, v in loaded.state_dict().items():
+        assert v.device.type == "cuda" and v.dtype == torch.bfloat16, k
+        assert torch.equal(v.cpu(), unet.state_dict()[k].to(torch.bfloat16)), k
+    qcfg = dataclasses.replace(UNetConfig.tiny(), quant_int8=True, quant_skip_levels=(0,))
+    quant = quantize_like(UNet2DCondition(qcfg, device="meta"), unet)
+    ck.save_component(quant, str(tmp_path / "int8"), qcfg)
+    back = ck.load_component(UNet2DCondition(qcfg, device="meta"), str(tmp_path / "int8"),
+                             device=cuda, verbatim=True)
+    for k, v in back.state_dict().items():
+        assert v.device.type == "cuda" and v.dtype == quant.state_dict()[k].dtype, k
+        assert torch.equal(v.cpu(), quant.state_dict()[k]), k
+
+
+def test_a_component_loads_without_a_host_copy_of_the_model(cuda, tmp_path):
+    """The full-width SD-1.5 UNet as an f32 component (3.4 GB) loads onto the
+    card while the host's resident memory grows by far less than the model:
+    one tensor at a time, its pages of the mapping dropped once copied."""
+    from consolver_torch.cli.train_sd15 import load_component_module
+    from consolver_torch.models import checkpoint as ck
+    from consolver_torch.models.unet_2d import UNet2DCondition, UNetConfig
+
+    unet = UNet2DCondition(UNetConfig.sd15(), device="meta").to_empty(device=cuda)
+    ck.save_component(unet, str(tmp_path / "unet"), UNetConfig.sd15())
+    nbytes = sum(f.stat().st_size for f in (tmp_path / "unet").iterdir())
+    del unet
+    torch.cuda.empty_cache()
+
+    def load():
+        module = load_component_module(str(tmp_path / "unet"), "unet", UNetConfig.sd15(),
+                                       torch.bfloat16, cuda)
+        torch.cuda.synchronize()
+        return module
+
+    loaded, before, peak = _peak_host_rss(load)
+    assert all(v.device.type == "cuda" for v in loaded.state_dict().values())
+    assert nbytes > 3e9 and peak - before < nbytes / 4, (before, peak, nbytes)
+
+
+def test_the_command_line_runs_on_the_card_by_default(cuda, tmp_path):
+    """``python -m consolver_torch selftest`` with no --device: convert ->
+    generate -> evaluate on the card."""
+    from consolver_torch.__main__ import main
+
+    assert main(["selftest", "--workdir", str(tmp_path)]) == 0

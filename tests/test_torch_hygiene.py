@@ -1,7 +1,9 @@
 """Boundaries of the PyTorch port, checked on a machine without a GPU.
 
 * No file of ``consolver_torch/`` or ``chip_smoke.py`` imports jax, flax,
-  optax, orbax, PIL or consolver_tpu, or calls ``torch.compile``.
+  optax, orbax, PIL or consolver_tpu, or calls ``torch.compile``; none
+  imports the ``safetensors`` package, which a GPU host need not have (the
+  port reads and writes the format itself, ``models/checkpoint.py``).
 * The port never calls ``scaled_dot_product_attention``; ``chip_smoke.py``
   times it as a yardstick inside ``_library_ms`` only.
 * ``device=None`` means the GPU and raises without one; importing the
@@ -49,10 +51,17 @@ def _is_torch_compile(name, owner):
 def test_port_files_exist():
     """The port's modules, the serving path's included (solver zoo, preview,
     PNG codec, edit prep, policy IO, engines and HTTP), the int8 / int4
-    layers, the reward and eval backbones with the eval stack, and the
-    distributed layer."""
+    layers, the reward and eval backbones with the eval stack, the
+    distributed layer, and the command line with its config, utilities and
+    checkpoints."""
     names = {str(p.relative_to(ROOT / "consolver_torch")) for p in PORT_FILES}
-    assert len(PORT_FILES) >= 66 and SMOKE.exists()
+    assert len(PORT_FILES) >= 85 and SMOKE.exists()
+    assert {"__main__.py", "configs/__init__.py", "configs/config.py", "utils/trees.py",
+            "utils/logging.py", "utils/profiling.py", "data/prompts.py", "models/checkpoint.py",
+            "probes/dp_shapes.py", "cli/__init__.py", "cli/train_sd15.py", "cli/train_flux.py",
+            "cli/generate_teacher.py", "cli/generate.py", "cli/evaluate.py",
+            "cli/convert_checkpoints.py", "cli/quantize_checkpoint.py", "cli/preview_demo.py",
+            "cli/selftest_eval.py"} <= names
     assert {"dist/__init__.py", "dist/mesh.py", "dist/tp.py", "dist/launch.py"} <= names
     assert {"utils/png.py", "pipelines/solver_zoo.py", "pipelines/preview.py",
             "eval/gen_sweep.py", "data/edit_prep.py", "policy/io.py", "serve/engine.py",
@@ -68,6 +77,14 @@ def test_no_jax_imports_or_torch_compile(path):
         assert module.split(".")[0] not in BANNED_IMPORTS, f"{path.name} imports {module}"
     for name, owner in _called_names(tree):
         assert not _is_torch_compile(name, owner), f"{path.name} calls torch.compile"
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [SMOKE], ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_safetensors_package(path):
+    """A GPU host need not have the ``safetensors`` package: the port's own
+    reader and writer take its place."""
+    for module in _imports(ast.parse(path.read_text())):
+        assert module.split(".")[0] != "safetensors", f"{path.name} imports {module}"
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

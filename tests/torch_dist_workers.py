@@ -462,3 +462,13 @@ def card_collectives_rank(rank: int) -> dict:
     sent = mesh.broadcast(torch.full((2,), float(rank + 5), device=mesh.device))
     return {"sum": x.tolist(), "gathered": gathered.tolist(), "broadcast": sent.tolist(),
             "device": str(x.device), "backend": mesh.backend}
+
+
+def cli_dp_rank(rank: int, commands):
+    """Each command line of ``commands`` through ``consolver_torch.__main__``
+    on this rank of the spawned world (one intra-op thread a rank); returns
+    their exit codes."""
+    from consolver_torch.__main__ import main
+
+    torch.set_num_threads(1)
+    return [main(list(argv)) for argv in commands]
