@@ -153,6 +153,32 @@ non-zero, printing nothing on stdout, without them.  Phases:
    deterministic requests against the unsharded engines at batch 8 and 4,
    bit-equal to both.  Phase 2 gates kernel #1 at the shapes they add (12 local heads at TP 2;
    one rank's UNet batch 8).
+22. Images read by content: every JPEG fixture of ``tests/data/jpeg``
+   (baseline 4:4:4 / 4:2:2 / 4:2:0, gray, progressive, restart intervals,
+   odd sizes, Adobe RGB, 512^2) decoded by ``utils/jpeg.py`` bit-equal to
+   the PNG of PIL's decode committed beside it; host ms per 512^2 decode
+   (run first, on the host alone).
+23. The policy variants (``ContinuousFactorNet``, ``MuNet``) on the card
+   against the CPU (after phase 18).
+24. The learning checks (``cli/learning_check.py`` SD, SD with the int8
+   rollout, ``cli/learning_check_edit.py`` FLUX), each in a process of its
+   own on the card, running beside phase 19: "LEARNING" (the last window's
+   mean reward beats the first's by more than 0.05), kernel #1 on "fma".
+25. ``serve --family both`` through the CLI's ``main`` in this process on
+   phase 19's SD-1.5 and depth-cut FLUX-Kontext directories (batch shapes 1
+   and 8, adaptive flush, ``--prewarm 8``): start-up seconds, 2 rounds of 8
+   concurrent generates (img/s, p50 / p95; 257 launches a batch), a refine,
+   an edit (6 x 5 + 2 launches), then SIGTERM with a batch of 8 in flight,
+   all answered before ``main`` returns; a deterministic request bit-equal
+   to an in-memory engine over the same weights.
+26. ``generate-edit`` over a kontext-bench-shaped folder (two JPEG
+   fixtures, one keyed) on the depth-cut FLUX directory at 1024^2, at
+   batch sizes 1 and 2: folder names, ``score_results`` (PSNR scorer) with
+   no error, the noise per example the same at both sizes, launches.
+27. LoRA: a rank-64 LoRA on all 128 attention projections of the full-width
+   SD-1.5 UNet (peft and kohya keys of the same pairs) merged with
+   ``merge_lora``: kohya bit-equal to peft, within one bf16 ulp of an f32
+   ``addmm`` of ``W + (alpha / r) B A``; one generation of 8, 257 launches.
 5 also times the deterministic program (mode actions, slot-invariant UNet
 convolutions) beside the sampled one.
 
@@ -2085,14 +2111,15 @@ def _check_cli_launches(fa, want, what):
     return {"launches": launches, "launches_by_route": by_route}
 
 
-def phase_cli(fa):
+def phase_cli(fa, workdir):
     """The command line from checkpoints on disk (see the module docstring,
-    phase 19); every command through ``__main__.main`` in this process."""
+    phase 19); every command through ``__main__.main`` in this process.  The
+    converted SD-1.5 and FLUX-Kontext component directories stay under
+    ``workdir`` for the phases after this one (``sd_ckpts``, ``flux_ckpts``)."""
     import contextlib
     import dataclasses
     import io
     import resource
-    import tempfile
 
     import numpy as np
     import torch
@@ -2122,262 +2149,817 @@ def phase_cli(fa):
                 f"(published 19 + 38), T5-XXL {CLI_T5_LAYERS} layers (published 24); widths "
                 "published"}}
     sd_cfg = ExperimentConfig.sd15_ppo()
-    with tempfile.TemporaryDirectory(prefix="consolver_cli_") as tmp:
-        tmp = Path(tmp)
-        hub, ckpts = tmp / "hub", tmp / "ckpts" / "sd15"
+    tmp = Path(workdir)
+    hub, ckpts = tmp / "hub", tmp / "ckpts" / "sd15"
 
-        # 1. a full-width SD-1.5 hub directory in f32 (the UNet in 2 shards),
-        #    written from the in-memory bf16 models, converted component by component
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 150)
-        unet, text, vae = _sd15_models(gen)
-        torch.manual_seed(SEED + 151)  # InceptionV3 keeps PyTorch's default init
-        inception = InceptionV3(1000, device="cuda")
-        components = {}
-        for name, kind, module, shards in (("unet", "unet", unet, CLI_UNET_SHARDS),
-                                           ("vae", "vae", vae, 1),
-                                           ("text_encoder", "clip_text", text, 1),
-                                           ("inception", "inception", inception, 1)):
-            nbytes, write_s = _write_hub(hub / name, kind, module, torch.float32, shards)
-            dst = ckpts / kind if kind != "inception" else tmp / "ckpts" / "inception"
-            t0 = time.perf_counter()
-            _cli("convert", "--kind", kind, "--src", str(hub / name), "--dst", str(dst),
-                 "--config", CLI_SD_PRESET)
-            components[kind] = {"hub_bytes": nbytes,
-                                "hub_files": len(list((hub / name).glob("*.safetensors"))),
-                                "hub_write_s": write_s,
-                                "hub_write_gb_per_s": nbytes / write_s / 1e9,
-                                "convert_s": time.perf_counter() - t0,
-                                "component_bytes": _dir_bytes(dst)}
-            shutil.rmtree(hub / name)
-        # the CLIs' loader on each float component: f32 files -> bf16 on the card
-        for kind, default in (("unet", UNetConfig.sd15()), ("vae", VaeConfig.sd15()),
-                              ("clip_text", ClipTextConfig.sd15())):
-            loaded, stats = _timed_component_load(ckpts / kind, kind, default, bf16)
-            components[kind].update(stats)
-            want = {"unet": unet, "vae": vae, "clip_text": text}[kind].state_dict()
-            if not _states_equal(loaded.state_dict(), want):
-                raise AssertionError(f"{kind} loaded from disk differs from the in-memory model")
-            del loaded
-        out["components"] = components
-        out["process_peak_rss_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    # 1. a full-width SD-1.5 hub directory in f32 (the UNet in 2 shards),
+    #    written from the in-memory bf16 models, converted component by component
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 150)
+    unet, text, vae = _sd15_models(gen)
+    torch.manual_seed(SEED + 151)  # InceptionV3 keeps PyTorch's default init
+    inception = InceptionV3(1000, device="cuda")
+    components = {}
+    for name, kind, module, shards in (("unet", "unet", unet, CLI_UNET_SHARDS),
+                                       ("vae", "vae", vae, 1),
+                                       ("text_encoder", "clip_text", text, 1),
+                                       ("inception", "inception", inception, 1)):
+        nbytes, write_s = _write_hub(hub / name, kind, module, torch.float32, shards)
+        dst = ckpts / kind if kind != "inception" else tmp / "ckpts" / "inception"
+        t0 = time.perf_counter()
+        _cli("convert", "--kind", kind, "--src", str(hub / name), "--dst", str(dst),
+             "--config", CLI_SD_PRESET)
+        components[kind] = {"hub_bytes": nbytes,
+                            "hub_files": len(list((hub / name).glob("*.safetensors"))),
+                            "hub_write_s": write_s,
+                            "hub_write_gb_per_s": nbytes / write_s / 1e9,
+                            "convert_s": time.perf_counter() - t0,
+                            "component_bytes": _dir_bytes(dst)}
+        shutil.rmtree(hub / name)
+    # the CLIs' loader on each float component: f32 files -> bf16 on the card
+    for kind, default in (("unet", UNetConfig.sd15()), ("vae", VaeConfig.sd15()),
+                          ("clip_text", ClipTextConfig.sd15())):
+        loaded, stats = _timed_component_load(ckpts / kind, kind, default, bf16)
+        components[kind].update(stats)
+        want = {"unet": unet, "vae": vae, "clip_text": text}[kind].state_dict()
+        if not _states_equal(loaded.state_dict(), want):
+            raise AssertionError(f"{kind} loaded from disk differs from the in-memory model")
+        del loaded
+    out["components"] = components
+    out["process_peak_rss_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
-        # 2. generate from disk == the in-memory pipeline, bit for bit; 257 launches
-        prompts = PROMPTS[:BATCH]
-        (tmp / "prompts.txt").write_text("\n".join(prompts) + "\n")
-        pipe = TextToImagePipeline(unet, text, vae, DiffusionSchedule.sd15(),
-                                   factor_net=cli_sd.make_policy(sd_cfg.factor_net, 0, "cuda"),
-                                   tokenizer=HashTokenizer(), device="cuda")
-        _cli_sweep_reference(pipe, prompts, tmp / "ref_ours", STEPS, "consistencysolver")
-        del pipe, unet, text, vae, inception
+    # 2. generate from disk == the in-memory pipeline, bit for bit; 257 launches
+    prompts = PROMPTS[:BATCH]
+    (tmp / "prompts.txt").write_text("\n".join(prompts) + "\n")
+    pipe = TextToImagePipeline(unet, text, vae, DiffusionSchedule.sd15(),
+                               factor_net=cli_sd.make_policy(sd_cfg.factor_net, 0, "cuda"),
+                               tokenizer=HashTokenizer(), device="cuda")
+    _cli_sweep_reference(pipe, prompts, tmp / "ref_ours", STEPS, "consistencysolver")
+    del pipe, unet, text, vae, inception
+    _release_card()
+    common = ["--pretrained", str(ckpts), "--latent-size", str(CLI_LATENT),
+              "--batch-size", str(BATCH)]
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    _cli("generate", "--solver", "consistencysolver", "--steps", str(STEPS),
+         "--prompts", str(tmp / "prompts.txt"), "--out", str(tmp / "ours"), *common)
+    out["generate"] = {"s": time.perf_counter() - t0,
+                       **_check_cli_launches(fa, LAUNCHES_PER_GENERATION, "generate"),
+                       "max_levels_vs_in_memory": _same_pngs(tmp / "ours", tmp / "ref_ours",
+                                                             BATCH)}
+    if out["generate"]["max_levels_vs_in_memory"]:
+        raise AssertionError(f"generate from disk differs from the in-memory pipeline: "
+                             f"{out['generate']}")
+
+    # 3. a teacher set of one global batch, two PPO steps, a resume and one more
+    t0 = time.perf_counter()
+    fa.reset_counts()
+    _cli("generate-teacher", "--family", "sd", "--pretrained", str(ckpts), "--solver",
+         "ddim", "--steps", str(CLI_TEACHER_STEPS), "--max-prompts",
+         str(CLI_TEACHER_PROMPTS), "--batch-size", str(BATCH), "--out", str(tmp / "teacher"))
+    out["generate_teacher"] = {"s": time.perf_counter() - t0,
+                               "samples": len(list((tmp / "teacher").glob("*.npz"))),
+                               "launches": fa.flash_attention.launches}
+    if out["generate_teacher"]["samples"] != CLI_TEACHER_PROMPTS:
+        raise AssertionError(f"teacher set: {out['generate_teacher']}")
+    train = ["--preset", "sd15_ppo", "--set", f"model.pretrained_path={ckpts}",
+             "--set", f"data.batch_size={CLI_TEACHER_PROMPTS}",
+             "--set", f"data.train_data_dir={tmp / 'teacher'}",
+             "--set", f"train.output_dir={tmp / 'run'}",
+             "--set", f"train.decode_chunk={SD_PPO_DECODE_CHUNK}"]
+    records, undo = _timed_train_steps(PPOTrainer)
+    try:
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        _cli("train-sd", *train, "--set", f"train.max_train_steps={SD_PPO_TRAIN_STEPS}")
+        train_s = time.perf_counter() - t0
+        drawn = _drawn_steps(PPO_SEED, SD_PPO_STEP_RANGE, SD_PPO_TRAIN_STEPS + 1)
+        want = sum(sd_ppo_launches(n) for n in drawn[:SD_PPO_TRAIN_STEPS])
+        out["train_sd"] = {"command_s": train_s, "steps": list(records),
+                           **_check_cli_launches(fa, want, "train-sd")}
+        first = sorted(p.name for p in (tmp / "run").glob("checkpoint-*"))
+        fa.reset_counts()
+        _cli("train-sd", *train, "--set", f"train.max_train_steps={SD_PPO_TRAIN_STEPS + 1}")
+        out["train_sd_resumed"] = {
+            "steps": records[SD_PPO_TRAIN_STEPS:],
+            **_check_cli_launches(fa, sd_ppo_launches(drawn[SD_PPO_TRAIN_STEPS]),
+                                  "train-sd resumed")}
+    finally:
+        undo()
+    after = sorted(p.name for p in (tmp / "run").glob("checkpoint-*"))
+    out["checkpoints"] = after
+    if (first != [f"checkpoint-{SD_PPO_TRAIN_STEPS}"]
+            or f"checkpoint-{SD_PPO_TRAIN_STEPS + 1}" not in after
+            or [r["num_inference"] for r in records] != drawn):
+        raise AssertionError(f"train-sd: checkpoints {first} then {after}, steps "
+                             f"{records}, drawn {drawn}")
+    for r in records:
+        _check_metrics(r, ("loss", "reward"))
+
+    # 4. evaluation: consistency of the 8 previews against a DDIM-20
+    #    sweep, FID of 16 + 16 images through the converted InceptionV3
+    _cli("generate", "--solver", "ddim", "--steps", str(CLI_TEACHER_STEPS), "--max-prompts",
+         str(CLI_SWEEP_PROMPTS), "--out", str(tmp / "teacher_png"), *common)
+    _cli("generate", "--solver", "multistep-dpm", "--steps", str(STEPS), "--max-prompts",
+         str(CLI_SWEEP_PROMPTS), "--out", str(tmp / "dpm_png"), *common)
+    _cli("evaluate", "consistency", "--generated", str(tmp / "ours"), "--reference",
+         str(tmp / "teacher_png"), "--reward", "image_psnr", "--out", str(tmp / "stats.json"))
+    stats = json.loads((tmp / "stats.json").read_text())
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        _cli("evaluate", "fid", "--generated", str(tmp / "dpm_png"), "--reference",
+             str(tmp / "teacher_png"), "--encoder-ckpt", str(tmp / "ckpts" / "inception"))
+    fid = float(re.search(r"'fid': ([^}]+)", printed.getvalue()).group(1))
+    out["evaluate"] = {"consistency": {k: stats[k] for k in ("num_scored", "num_errors",
+                                                             "mean", "std")},
+                       "fid": fid, "fid_s": time.perf_counter() - t0}
+    if (stats["num_scored"] != BATCH or stats["num_errors"]
+            or not np.isfinite(stats["mean"]) or not np.isfinite(fid)):
+        raise AssertionError(f"evaluate: {out['evaluate']}")
+
+    # 5. the int8 hybrid serving checkpoint, reloaded == in-memory quantize()
+    _cli("quantize", "--family", "sd", "--pretrained", str(ckpts), "--dst",
+         str(tmp / "ckpts" / "sd15_int8"))
+    float_pipe = cli_sd.build_pipeline(
+        apply_overrides(sd_cfg, {"model.pretrained_path": str(ckpts)}),
+        cli_sd.make_policy(sd_cfg.factor_net, 0, "cuda"), "cuda")
+    float_pipe.tokenizer = HashTokenizer()
+    _cli_sweep_reference(float_pipe.quantize(), prompts, tmp / "ref_int8", STEPS,
+                         "consistencysolver")
+    del float_pipe
+    _release_card()
+    fa.reset_counts()
+    _cli("generate", "--solver", "consistencysolver", "--steps", str(STEPS), "--prompts",
+         str(tmp / "prompts.txt"), "--out", str(tmp / "int8"), "--pretrained",
+         str(tmp / "ckpts" / "sd15_int8"), "--latent-size", str(CLI_LATENT),
+         "--batch-size", str(BATCH))
+    out["int8_generate"] = {
+        **_check_cli_launches(fa, LAUNCHES_PER_GENERATION, "int8 generate"),
+        "max_levels_vs_in_memory": _same_pngs(tmp / "int8", tmp / "ref_int8", BATCH),
+        "unet_bytes": _dir_bytes(tmp / "ckpts" / "sd15_int8" / "unet")}
+    if out["int8_generate"]["max_levels_vs_in_memory"]:
+        raise AssertionError(f"the reloaded int8 checkpoint differs from quantize(): "
+                             f"{out['int8_generate']}")
+    shutil.rmtree(tmp / "ckpts" / "sd15_int8")
+
+    # 6. FLUX-Kontext at full width (depth cut) from a bf16 hub directory
+    fcfg = dataclasses.replace(FluxConfig.flux_kontext(), num_double_blocks=CLI_FLUX_DOUBLE,
+                               num_single_blocks=CLI_FLUX_SINGLE)
+    t5_cfg = dataclasses.replace(T5Config.xxl(), num_layers=CLI_T5_LAYERS)
+    vae_cfg = VaeConfig(latent_channels=16, scaling_factor=0.3611)
+    flux_ckpts = tmp / "ckpts" / "flux"
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 160)
+    flux_components = {}
+    for name, kind, build, cfg in (
+            ("transformer", "flux", FluxTransformer, fcfg),
+            ("t5", "t5", T5Encoder, t5_cfg),
+            ("clip_text", "clip_text", ClipTextEncoder, ClipTextConfig.sd15()),
+            ("vae", "vae", AutoencoderKL, vae_cfg)):
+        module = _random_fill_(build(cfg, device="meta", dtype=bf16).to_empty(device="cuda"),
+                               gen)
+        nbytes, write_s = _write_hub(hub / name, kind, module, bf16)
+        del module
+        cfg_file = tmp / f"{name}_preset.json"
+        cfg_file.write_text(json.dumps(dataclasses.asdict(cfg)))
+        t0 = time.perf_counter()
+        _cli("convert", "--kind", kind, "--src", str(hub / name), "--dst",
+             str(flux_ckpts / name), "--dtype", "bfloat16", "--config", str(cfg_file))
+        flux_components[name] = {"hub_bytes": nbytes, "hub_write_s": write_s,
+                                 "convert_s": time.perf_counter() - t0}
+        shutil.rmtree(hub / name)
         _release_card()
-        common = ["--pretrained", str(ckpts), "--latent-size", str(CLI_LATENT),
-                  "--batch-size", str(BATCH)]
+    out["flux_components"] = flux_components
+    rng = np.random.default_rng(SEED + 161)
+    (tmp / "edit_src").mkdir()
+    for i in range(CLI_FLUX_PAIRS):
+        write_png(str(tmp / "edit_src" / f"im{i}.png"),
+                  rng.integers(0, 256, EDIT_REF_SHAPE, dtype=np.uint8))
+        (tmp / "edit_src" / f"im{i}.txt").write_text(f"make the sky a sunset orange {i}")
+    prepared = prepare_edit_set(str(tmp / "edit_src"), str(tmp / "edit_prep"),
+                                resolution=CLI_FLUX_RES)
+    t0 = time.perf_counter()
+    _cli("generate-teacher", "--family", "flux", "--source", str(tmp / "edit_prep"),
+         "--pretrained", str(flux_ckpts), "--steps", str(FLUX_TEACHER_STEPS),
+         "--batch-size", str(CLI_FLUX_PAIRS), "--out", str(tmp / "flux_teacher"))
+    out["flux_teacher"] = {"prepared": prepared, "s": time.perf_counter() - t0,
+                           "samples": len(list((tmp / "flux_teacher").glob("*.npz")))}
+    if out["flux_teacher"]["samples"] != CLI_FLUX_PAIRS:
+        raise AssertionError(f"flux teacher: {out['flux_teacher']}")
+    records, undo = _timed_train_steps(EditPPOTrainer)
+    try:
         fa.reset_counts()
-        t0 = time.perf_counter()
-        _cli("generate", "--solver", "consistencysolver", "--steps", str(STEPS),
-             "--prompts", str(tmp / "prompts.txt"), "--out", str(tmp / "ours"), *common)
-        out["generate"] = {"s": time.perf_counter() - t0,
-                           **_check_cli_launches(fa, LAUNCHES_PER_GENERATION, "generate"),
-                           "max_levels_vs_in_memory": _same_pngs(tmp / "ours", tmp / "ref_ours",
-                                                                 BATCH)}
-        if out["generate"]["max_levels_vs_in_memory"]:
-            raise AssertionError(f"generate from disk differs from the in-memory pipeline: "
-                                 f"{out['generate']}")
+        _cli("train-flux", "--preset", "flux_ppo",
+             "--set", f"model.pretrained_path={flux_ckpts}",
+             "--set", f"data.train_data_dir={tmp / 'flux_teacher'}",
+             "--set", f"train.output_dir={tmp / 'flux_run'}",
+             "--set", "dist.data_parallel=1", "--set", f"data.batch_size={CLI_FLUX_PAIRS}",
+             "--set", "train.max_train_steps=1")
+    finally:
+        undo()
+    n = _drawn_steps(PPO_SEED, FLUX_PPO_STEP_RANGE, 1)[0]
+    dit = CLI_FLUX_DOUBLE + CLI_FLUX_SINGLE  # one joint attention per block
+    want = dit * 2 * n + (2 + 3) * FLUX_VAE_LAUNCHES
+    out["train_flux"] = {"steps": records, "dit_launches_per_forward": dit,
+                         **_check_cli_launches(fa, want, "train-flux")}
+    if ([r["num_inference"] for r in records] != [n]
+            or not (tmp / "flux_run" / "checkpoint-1").is_dir()):
+        raise AssertionError(f"train-flux: {out['train_flux']}")
+    _check_metrics(records[0], ("loss", "reward"))
 
-        # 3. a teacher set of one global batch, two PPO steps, a resume and one more
-        t0 = time.perf_counter()
-        fa.reset_counts()
-        _cli("generate-teacher", "--family", "sd", "--pretrained", str(ckpts), "--solver",
-             "ddim", "--steps", str(CLI_TEACHER_STEPS), "--max-prompts",
-             str(CLI_TEACHER_PROMPTS), "--batch-size", str(BATCH), "--out", str(tmp / "teacher"))
-        out["generate_teacher"] = {"s": time.perf_counter() - t0,
-                                   "samples": len(list((tmp / "teacher").glob("*.npz"))),
-                                   "launches": fa.flash_attention.launches}
-        if out["generate_teacher"]["samples"] != CLI_TEACHER_PROMPTS:
-            raise AssertionError(f"teacher set: {out['generate_teacher']}")
-        train = ["--preset", "sd15_ppo", "--set", f"model.pretrained_path={ckpts}",
-                 "--set", f"data.batch_size={CLI_TEACHER_PROMPTS}",
-                 "--set", f"data.train_data_dir={tmp / 'teacher'}",
-                 "--set", f"train.output_dir={tmp / 'run'}",
-                 "--set", f"train.decode_chunk={SD_PPO_DECODE_CHUNK}"]
-        records, undo = _timed_train_steps(PPOTrainer)
-        try:
-            fa.reset_counts()
-            t0 = time.perf_counter()
-            _cli("train-sd", *train, "--set", f"train.max_train_steps={SD_PPO_TRAIN_STEPS}")
-            train_s = time.perf_counter() - t0
-            drawn = _drawn_steps(PPO_SEED, SD_PPO_STEP_RANGE, SD_PPO_TRAIN_STEPS + 1)
-            want = sum(sd_ppo_launches(n) for n in drawn[:SD_PPO_TRAIN_STEPS])
-            out["train_sd"] = {"command_s": train_s, "steps": list(records),
-                               **_check_cli_launches(fa, want, "train-sd")}
-            first = sorted(p.name for p in (tmp / "run").glob("checkpoint-*"))
-            fa.reset_counts()
-            _cli("train-sd", *train, "--set", f"train.max_train_steps={SD_PPO_TRAIN_STEPS + 1}")
-            out["train_sd_resumed"] = {
-                "steps": records[SD_PPO_TRAIN_STEPS:],
-                **_check_cli_launches(fa, sd_ppo_launches(drawn[SD_PPO_TRAIN_STEPS]),
-                                      "train-sd resumed")}
-        finally:
-            undo()
-        after = sorted(p.name for p in (tmp / "run").glob("checkpoint-*"))
-        out["checkpoints"] = after
-        if (first != [f"checkpoint-{SD_PPO_TRAIN_STEPS}"]
-                or f"checkpoint-{SD_PPO_TRAIN_STEPS + 1}" not in after
-                or [r["num_inference"] for r in records] != drawn):
-            raise AssertionError(f"train-sd: checkpoints {first} then {after}, steps "
-                                 f"{records}, drawn {drawn}")
-        for r in records:
-            _check_metrics(r, ("loss", "reward"))
-
-        # 4. evaluation: consistency of the 8 previews against a DDIM-20
-        #    sweep, FID of 16 + 16 images through the converted InceptionV3
-        _cli("generate", "--solver", "ddim", "--steps", str(CLI_TEACHER_STEPS), "--max-prompts",
-             str(CLI_SWEEP_PROMPTS), "--out", str(tmp / "teacher_png"), *common)
-        _cli("generate", "--solver", "multistep-dpm", "--steps", str(STEPS), "--max-prompts",
-             str(CLI_SWEEP_PROMPTS), "--out", str(tmp / "dpm_png"), *common)
-        _cli("evaluate", "consistency", "--generated", str(tmp / "ours"), "--reference",
-             str(tmp / "teacher_png"), "--reward", "image_psnr", "--out", str(tmp / "stats.json"))
-        stats = json.loads((tmp / "stats.json").read_text())
-        t0 = time.perf_counter()
-        printed = io.StringIO()
-        with contextlib.redirect_stdout(printed):
-            _cli("evaluate", "fid", "--generated", str(tmp / "dpm_png"), "--reference",
-                 str(tmp / "teacher_png"), "--encoder-ckpt", str(tmp / "ckpts" / "inception"))
-        fid = float(re.search(r"'fid': ([^}]+)", printed.getvalue()).group(1))
-        out["evaluate"] = {"consistency": {k: stats[k] for k in ("num_scored", "num_errors",
-                                                                 "mean", "std")},
-                           "fid": fid, "fid_s": time.perf_counter() - t0}
-        if (stats["num_scored"] != BATCH or stats["num_errors"]
-                or not np.isfinite(stats["mean"]) or not np.isfinite(fid)):
-            raise AssertionError(f"evaluate: {out['evaluate']}")
-
-        # 5. the int8 hybrid serving checkpoint, reloaded == in-memory quantize()
-        _cli("quantize", "--family", "sd", "--pretrained", str(ckpts), "--dst",
-             str(tmp / "ckpts" / "sd15_int8"))
-        float_pipe = cli_sd.build_pipeline(
-            apply_overrides(sd_cfg, {"model.pretrained_path": str(ckpts)}),
-            cli_sd.make_policy(sd_cfg.factor_net, 0, "cuda"), "cuda")
-        float_pipe.tokenizer = HashTokenizer()
-        _cli_sweep_reference(float_pipe.quantize(), prompts, tmp / "ref_int8", STEPS,
-                             "consistencysolver")
-        del float_pipe
-        _release_card()
-        fa.reset_counts()
-        _cli("generate", "--solver", "consistencysolver", "--steps", str(STEPS), "--prompts",
-             str(tmp / "prompts.txt"), "--out", str(tmp / "int8"), "--pretrained",
-             str(tmp / "ckpts" / "sd15_int8"), "--latent-size", str(CLI_LATENT),
-             "--batch-size", str(BATCH))
-        out["int8_generate"] = {
-            **_check_cli_launches(fa, LAUNCHES_PER_GENERATION, "int8 generate"),
-            "max_levels_vs_in_memory": _same_pngs(tmp / "int8", tmp / "ref_int8", BATCH),
-            "unet_bytes": _dir_bytes(tmp / "ckpts" / "sd15_int8" / "unet")}
-        if out["int8_generate"]["max_levels_vs_in_memory"]:
-            raise AssertionError(f"the reloaded int8 checkpoint differs from quantize(): "
-                                 f"{out['int8_generate']}")
-        shutil.rmtree(tmp / "ckpts" / "sd15_int8")
-        shutil.rmtree(ckpts)
-
-        # 6. FLUX-Kontext at full width (depth cut) from a bf16 hub directory
-        fcfg = dataclasses.replace(FluxConfig.flux_kontext(), num_double_blocks=CLI_FLUX_DOUBLE,
-                                   num_single_blocks=CLI_FLUX_SINGLE)
-        t5_cfg = dataclasses.replace(T5Config.xxl(), num_layers=CLI_T5_LAYERS)
-        vae_cfg = VaeConfig(latent_channels=16, scaling_factor=0.3611)
-        flux_ckpts = tmp / "ckpts" / "flux"
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 160)
-        flux_components = {}
-        for name, kind, build, cfg in (
-                ("transformer", "flux", FluxTransformer, fcfg),
-                ("t5", "t5", T5Encoder, t5_cfg),
-                ("clip_text", "clip_text", ClipTextEncoder, ClipTextConfig.sd15()),
-                ("vae", "vae", AutoencoderKL, vae_cfg)):
-            module = _random_fill_(build(cfg, device="meta", dtype=bf16).to_empty(device="cuda"),
-                                   gen)
-            nbytes, write_s = _write_hub(hub / name, kind, module, bf16)
-            del module
-            cfg_file = tmp / f"{name}_preset.json"
-            cfg_file.write_text(json.dumps(dataclasses.asdict(cfg)))
-            t0 = time.perf_counter()
-            _cli("convert", "--kind", kind, "--src", str(hub / name), "--dst",
-                 str(flux_ckpts / name), "--dtype", "bfloat16", "--config", str(cfg_file))
-            flux_components[name] = {"hub_bytes": nbytes, "hub_write_s": write_s,
-                                     "convert_s": time.perf_counter() - t0}
-            shutil.rmtree(hub / name)
-            _release_card()
-        out["flux_components"] = flux_components
-        rng = np.random.default_rng(SEED + 161)
-        (tmp / "edit_src").mkdir()
-        for i in range(CLI_FLUX_PAIRS):
-            write_png(str(tmp / "edit_src" / f"im{i}.png"),
-                      rng.integers(0, 256, EDIT_REF_SHAPE, dtype=np.uint8))
-            (tmp / "edit_src" / f"im{i}.txt").write_text(f"make the sky a sunset orange {i}")
-        prepared = prepare_edit_set(str(tmp / "edit_src"), str(tmp / "edit_prep"),
-                                    resolution=CLI_FLUX_RES)
-        t0 = time.perf_counter()
-        _cli("generate-teacher", "--family", "flux", "--source", str(tmp / "edit_prep"),
-             "--pretrained", str(flux_ckpts), "--steps", str(FLUX_TEACHER_STEPS),
-             "--batch-size", str(CLI_FLUX_PAIRS), "--out", str(tmp / "flux_teacher"))
-        out["flux_teacher"] = {"prepared": prepared, "s": time.perf_counter() - t0,
-                               "samples": len(list((tmp / "flux_teacher").glob("*.npz")))}
-        if out["flux_teacher"]["samples"] != CLI_FLUX_PAIRS:
-            raise AssertionError(f"flux teacher: {out['flux_teacher']}")
-        records, undo = _timed_train_steps(EditPPOTrainer)
-        try:
-            fa.reset_counts()
-            _cli("train-flux", "--preset", "flux_ppo",
-                 "--set", f"model.pretrained_path={flux_ckpts}",
-                 "--set", f"data.train_data_dir={tmp / 'flux_teacher'}",
-                 "--set", f"train.output_dir={tmp / 'flux_run'}",
-                 "--set", "dist.data_parallel=1", "--set", f"data.batch_size={CLI_FLUX_PAIRS}",
-                 "--set", "train.max_train_steps=1")
-        finally:
-            undo()
-        n = _drawn_steps(PPO_SEED, FLUX_PPO_STEP_RANGE, 1)[0]
-        dit = CLI_FLUX_DOUBLE + CLI_FLUX_SINGLE  # one joint attention per block
-        want = dit * 2 * n + (2 + 3) * FLUX_VAE_LAUNCHES
-        out["train_flux"] = {"steps": records, "dit_launches_per_forward": dit,
-                             **_check_cli_launches(fa, want, "train-flux")}
-        if ([r["num_inference"] for r in records] != [n]
-                or not (tmp / "flux_run" / "checkpoint-1").is_dir()):
-            raise AssertionError(f"train-flux: {out['train_flux']}")
-        _check_metrics(records[0], ("loss", "reward"))
-
-        # 7. the int4 FLUX serving checkpoint, reloaded == in-memory quantize(bits=4)
-        _cli("quantize", "--family", "flux", "--bits", "4", "--pretrained", str(flux_ckpts),
-             "--dst", str(tmp / "ckpts" / "flux_int4"))
-        flux_cfg = ExperimentConfig.flux_ppo()
-        in_memory = cli_flux.build_pipeline(
-            apply_overrides(flux_cfg, {"model.pretrained_path": str(flux_ckpts)}),
-            cli_sd.make_policy(flux_cfg.factor_net, 0, "cuda"), "cuda").quantize(bits=4)
-        loaded = cli_flux.build_pipeline(
-            apply_overrides(flux_cfg, {"model.pretrained_path": str(tmp / "ckpts" / "flux_int4")}),
-            cli_sd.make_policy(flux_cfg.factor_net, 0, "cuda"), "cuda")
-        prompt = ["make the sky a sunset orange"]
-        t5_ids = tokenize_batch(HashTokenizer(vocab_size=32128, max_length=128), prompt, 128,
-                                vocab_size=loaded.t5.cfg.vocab_size)
-        clip_ids = tokenize_batch(HashTokenizer(), prompt, 77, vocab_size=loaded.clip.cfg.vocab_size)
-        with np.load(sorted((tmp / "edit_prep").glob("*.npz"))[0]) as z:
-            ref = torch.as_tensor(z["ref_image"][None], device="cuda")
-        side = CLI_FLUX_RES // 2 ** (len(vae_cfg.block_out_channels) - 1)
-        noise = torch.randn((1, side, side, vae_cfg.latent_channels), device="cuda",
-                            generator=gen)
-        edits = []
-        for pipe in (in_memory, loaded):
-            edits.append(pipe(torch.Generator(device="cuda").manual_seed(SEED + 162), t5_ids,
-                              clip_ids, ref, noise, num_inference_steps=CLI_FLUX_QUANT_STEPS,
-                              guidance_scale=FLUX_GUIDANCE, record=False)[0])
-        out["int4_flux"] = {
-            "dit_bit_equal": _states_equal(in_memory.transformer.state_dict(),
-                                        loaded.transformer.state_dict()),
-            "vae_bit_equal": _states_equal(in_memory.vae.state_dict(), loaded.vae.state_dict()),
-            "edit_bit_equal": bool(torch.equal(edits[0], edits[1])),
-            "dit_bytes": _dir_bytes(tmp / "ckpts" / "flux_int4" / "transformer")}
-        if not all(out["int4_flux"][k] for k in ("dit_bit_equal", "vae_bit_equal",
-                                                 "edit_bit_equal")):
-            raise AssertionError(f"the reloaded int4 checkpoint differs from quantize(bits=4): "
-                                 f"{out['int4_flux']}")
-        del in_memory, loaded, edits
+    # 7. the int4 FLUX serving checkpoint, reloaded == in-memory quantize(bits=4)
+    _cli("quantize", "--family", "flux", "--bits", "4", "--pretrained", str(flux_ckpts),
+         "--dst", str(tmp / "ckpts" / "flux_int4"))
+    flux_cfg = ExperimentConfig.flux_ppo()
+    in_memory = cli_flux.build_pipeline(
+        apply_overrides(flux_cfg, {"model.pretrained_path": str(flux_ckpts)}),
+        cli_sd.make_policy(flux_cfg.factor_net, 0, "cuda"), "cuda").quantize(bits=4)
+    loaded = cli_flux.build_pipeline(
+        apply_overrides(flux_cfg, {"model.pretrained_path": str(tmp / "ckpts" / "flux_int4")}),
+        cli_sd.make_policy(flux_cfg.factor_net, 0, "cuda"), "cuda")
+    prompt = ["make the sky a sunset orange"]
+    t5_ids = tokenize_batch(HashTokenizer(vocab_size=32128, max_length=128), prompt, 128,
+                            vocab_size=loaded.t5.cfg.vocab_size)
+    clip_ids = tokenize_batch(HashTokenizer(), prompt, 77, vocab_size=loaded.clip.cfg.vocab_size)
+    with np.load(sorted((tmp / "edit_prep").glob("*.npz"))[0]) as z:
+        ref = torch.as_tensor(z["ref_image"][None], device="cuda")
+    side = CLI_FLUX_RES // 2 ** (len(vae_cfg.block_out_channels) - 1)
+    noise = torch.randn((1, side, side, vae_cfg.latent_channels), device="cuda",
+                        generator=gen)
+    edits = []
+    for pipe in (in_memory, loaded):
+        edits.append(pipe(torch.Generator(device="cuda").manual_seed(SEED + 162), t5_ids,
+                          clip_ids, ref, noise, num_inference_steps=CLI_FLUX_QUANT_STEPS,
+                          guidance_scale=FLUX_GUIDANCE, record=False)[0])
+    out["int4_flux"] = {
+        "dit_bit_equal": _states_equal(in_memory.transformer.state_dict(),
+                                    loaded.transformer.state_dict()),
+        "vae_bit_equal": _states_equal(in_memory.vae.state_dict(), loaded.vae.state_dict()),
+        "edit_bit_equal": bool(torch.equal(edits[0], edits[1])),
+        "dit_bytes": _dir_bytes(tmp / "ckpts" / "flux_int4" / "transformer")}
+    if not all(out["int4_flux"][k] for k in ("dit_bit_equal", "vae_bit_equal",
+                                             "edit_bit_equal")):
+        raise AssertionError(f"the reloaded int4 checkpoint differs from quantize(bits=4): "
+                             f"{out['int4_flux']}")
+    del in_memory, loaded, edits
+    shutil.rmtree(tmp / "ckpts" / "flux_int4")
+    out["sd_ckpts"], out["flux_ckpts"] = str(ckpts), str(flux_ckpts)
     _release_card()
     out["s"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The rest of the JAX package (ROADMAP A.16.2, A.16.5-A.16.8): images read by
+# content (the port's JPEG decoder), the learning checks, ``serve`` from
+# ``phase_cli``'s checkpoint directories, LoRA merging into the full-width
+# UNet, ``generate-edit`` with the edit scores, and the policy variants.
+# ---------------------------------------------------------------------------
+
+JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"
+JPEG_TIMED = "big_420_512"
+JPEG_REPEATS = 5
+LEARNING_CHECKS = ("sd", "sd_quantize", "edit")
+LEARNING_MARGIN = 0.05  # the JAX scripts' verdict: last window beats the first by more
+LEARNING_TIMEOUT_S = 900
+SERVE_CLI_ROUNDS = 2
+SERVE_CLI_UP_S = 600  # load + prewarm before the port answers
+LORA_RANK = 64
+LORA_ALPHA = 32.0
+GENERATE_EDIT_SOURCES = ("big_420_512", "progressive_420")
+GENERATE_EDIT_BATCHES = (1, 2)
+
+
+def phase_image_io():
+    """Every JPEG fixture of ``tests/data/jpeg`` through ``utils/image``
+    (read by its bytes) against the PNG of PIL's decode committed beside it,
+    bit for bit; the host time of the 512^2 fixture's decode."""
+    import numpy as np
+
+    from consolver_torch.utils.image import decode_image
+    from consolver_torch.utils.png import decode_png
+
+    t_phase = time.perf_counter()
+    fixtures = sorted(JPEG_FIXTURES.glob("*.jpg"))
+    if len(fixtures) < 8:
+        raise AssertionError(f"only {len(fixtures)} JPEG fixtures under {JPEG_FIXTURES}")
+    shapes = {}
+    for path in fixtures:
+        got = decode_image(path.read_bytes())
+        want = decode_png(path.with_suffix(".png").read_bytes())
+        if got.shape != want.shape or not np.array_equal(got, want):
+            diff = (np.abs(got.astype(int) - want.astype(int)).max()
+                    if got.shape == want.shape else f"{got.shape} vs {want.shape}")
+            raise AssertionError(f"{path.name} decodes unlike PIL: {diff}")
+        shapes[path.stem] = list(got.shape)
+    raw = (JPEG_FIXTURES / f"{JPEG_TIMED}.jpg").read_bytes()
+    times = []
+    for _ in range(JPEG_REPEATS):
+        t0 = time.perf_counter()
+        img = decode_image(raw)
+        times.append(time.perf_counter() - t0)
+    median = sorted(times)[len(times) // 2]
+    out = {"phase": "image_io", "bit_equal_fixtures": shapes,
+           "timed": {"fixture": JPEG_TIMED, "jpeg_bytes": len(raw),
+                     "decode_ms_median": 1e3 * median, "decode_ms_min": 1e3 * min(times),
+                     "rgb_mb_per_s": img.nbytes / median / 1e6,
+                     "jpeg_mb_per_s": len(raw) / median / 1e6, "repeats": JPEG_REPEATS},
+           "s": time.perf_counter() - t_phase}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def learning_worker(check: str) -> int:
+    """One learning check on the card in a process of its own (started by
+    :func:`start_learning_checks`): the check's lines, then its result as
+    the last line (JSON)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from consolver_torch.cli import learning_check, learning_check_edit
+    from consolver_torch.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 tiny stacks, as the tiny phases
+    torch.backends.cudnn.allow_tf32 = False
+    fa.reset_counts()
+    marks = {}
+
+    def log(line):
+        if line == "teacher built":
+            marks["teacher"] = time.perf_counter()
+        print(line, flush=True)
+
+    t0 = time.perf_counter()
+    if check == "edit":
+        first, last, delta, rewards = learning_check_edit.run(device="cuda", log=log)
+    else:
+        first, last, delta, rewards = learning_check.run(quantize=check == "sd_quantize",
+                                                         device="cuda", log=log)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    print(json.dumps({"check": check, "first": first, "last": last, "delta": delta,
+                      "steps": len(rewards), "finite": bool(np.isfinite(rewards).all()),
+                      "teacher_s": marks["teacher"] - t0,
+                      "s_per_step": (end - marks["teacher"]) / len(rewards),
+                      "launches": fa.flash_attention.launches,
+                      "launches_by_route": dict(fa.flash_attention.launches_by_route)}),
+          flush=True)
+    return 0
+
+
+def start_learning_checks(workdir):
+    """The three learning checks (SD, SD with the int8 rollout, FLUX), each
+    in a process of its own on the card, started together: they run beside
+    ``phase_cli``, whose time is the disk's and the host's."""
+    procs, logs = {}, {}
+    for check in LEARNING_CHECKS:
+        logs[check] = Path(workdir) / f"learning_{check}.log"
+        with open(logs[check], "w") as log:
+            procs[check] = subprocess.Popen(
+                [sys.executable, "-c",
+                 "import sys, chip_smoke; sys.exit(chip_smoke.learning_worker(sys.argv[1]))",
+                 check], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    return {"procs": procs, "logs": logs, "t0": time.perf_counter()}
+
+
+def stop_learning_checks(started):
+    for proc in started["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def phase_learning(started):
+    """The learning checks' results: each printed "LEARNING" (its delta
+    above 0.05), its rewards are finite, and kernel #1 ran on the "fma"
+    route (f32) and nowhere else."""
+    t_wait = time.perf_counter()
+    checks = {}
+    for check, proc in started["procs"].items():
+        left = LEARNING_TIMEOUT_S - (time.perf_counter() - started["t0"])
+        try:
+            code = proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired as err:
+            raise AssertionError(f"learning check {check} ran past {LEARNING_TIMEOUT_S} s") from err
+        lines = started["logs"][check].read_text().strip().splitlines()
+        if code != 0 or not lines:
+            raise AssertionError(f"learning check {check} exited {code}: {lines[-30:]}")
+        result = json.loads(lines[-1])
+        routes = result["launches_by_route"]
+        if ("LEARNING" not in lines or not result["delta"] > LEARNING_MARGIN
+                or not result["finite"] or result["launches"] == 0
+                or routes.get("fma") != result["launches"]):
+            raise AssertionError(f"learning check {check}: {result}, {lines[-3:]}")
+        checks[check] = result
+    out = {"phase": "learning", "checks": checks,
+           "wall_s": time.perf_counter() - started["t0"],
+           "waited_after_cli_s": time.perf_counter() - t_wait,
+           "overlapped_with": "phase_cli"}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def phase_serve_cli(fa, cli):
+    """``python -m consolver_torch serve --family both`` in this process (the
+    CLI's ``main``) on ``phase_cli``'s SD-1.5 and depth-cut FLUX-Kontext
+    directories, batch shapes 1 and 8, adaptive flush, prewarm at 8 steps:
+    rounds of 8 concurrent generates, a refine and an edit over HTTP, then a
+    SIGTERM while a batch of 8 is in flight (taken from the queue, not yet
+    answered): all 8 answered before ``main`` returns; a deterministic
+    request bit-equal to an in-memory engine over the same weights."""
+    import base64
+    import os
+    import signal
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from consolver_torch.cli import serve as cli_serve
+    from consolver_torch.cli import train_sd15 as cli_sd
+    from consolver_torch.configs.config import ExperimentConfig
+    from consolver_torch.core.schedules import DiffusionSchedule
+    from consolver_torch.data.tokenizer import HashTokenizer
+    from consolver_torch.dist.launch import free_port
+    from consolver_torch.pipelines.t2i import TextToImagePipeline
+    from consolver_torch.serve import GenerationRequest, InferenceEngine
+    from consolver_torch.utils import png
+
+    _release_card()
+    t_phase = time.perf_counter()
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    argv = ["--family", "both", "--pretrained", cli["sd_ckpts"], "--edit-pretrained",
+            cli["flux_ckpts"], "--batch-sizes", f"1,{BATCH}", "--adaptive-flush", "--flush-ms",
+            str(SERVE_FLUSH_MS), "--prewarm", str(STEPS), "--port", str(port)]
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # no proxy for localhost
+    dit_blocks = CLI_FLUX_DOUBLE + CLI_FLUX_SINGLE
+    edit_launches = dit_blocks * FLUX_STEPS + 2 * FLUX_VAE_LAUNCHES
+    client = {}
+
+    def get(path):
+        with opener.open(base + path, timeout=30) as r:
+            return json.load(r)
+
+    def gen_body(i, **kw):
+        return {"prompt": PROMPTS[i % len(PROMPTS)], "seed": 4000 + i, "num_inference_steps": STEPS,
+                "guidance_scale": CFG, **kw}
+
+    def concurrent(bodies):
+        barrier = threading.Barrier(len(bodies))
+
+        def one(body):
+            barrier.wait()
+            return _post(opener, base + "/v1/generate", body)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+            results = list(pool.map(one, bodies))
+        return results, time.perf_counter() - t0
+
+    def drive():
+        try:
+            deadline = time.perf_counter() + SERVE_CLI_UP_S
+            while True:
+                try:
+                    if get("/healthz") == {"ok": True}:
+                        break
+                except OSError:
+                    pass
+                if time.perf_counter() > deadline or not serving.is_set():
+                    raise AssertionError(f"serve did not answer within {SERVE_CLI_UP_S} s")
+                time.sleep(0.2)
+            client["startup_s"] = time.perf_counter() - t_phase
+            # rounds of 8 concurrent generates: kernel #1 257 times per batch formed
+            rounds, latencies = [], []
+            fa.reset_counts()
+            before = get("/v1/stats")["generate"]["batches"]
+            for r in range(SERVE_CLI_ROUNDS):
+                results, wall = concurrent([gen_body(r * BATCH + i) for i in range(BATCH)])
+                for code, body, sec in results:
+                    _check_image(_image(_ok(code, body, "serve generate")), 512, "serve generate")
+                    latencies.append(sec)
+                rounds.append(wall)
+            torch.cuda.synchronize()
+            batches = get("/v1/stats")["generate"]["batches"] - before
+            client["generate"] = {
+                "rounds_s": rounds, "batches": batches,
+                "img_per_s": SERVE_CLI_ROUNDS * BATCH / sum(rounds),
+                "latency_p50_s": _percentile(latencies, 0.5),
+                "latency_p95_s": _percentile(latencies, 0.95),
+                **dict(zip(("launches", "launches_by_route"),
+                           _check_launches(fa, batches * LAUNCHES_PER_GENERATION,
+                                           "serve generate rounds")))}
+            code, body, _ = _post(opener, base + "/v1/generate", gen_body(99, deterministic=True))
+            client["deterministic"] = _image(_ok(code, body, "serve deterministic"))
+            code, body, sec = _post(opener, base + "/v1/refine", {"prompt": PROMPTS[7], "seed": 7})
+            _check_image(_image(_ok(code, body, "serve refine")), 512, "serve refine")
+            client["refine_s"] = sec
+            ref = np.random.default_rng(SEED + 190).integers(0, 256, EDIT_REF_SHAPE, dtype=np.uint8)
+            fa.reset_counts()
+            code, body, sec = _post(opener, base + "/v1/edit", {
+                "instruction": "make the sky a sunset orange", "seed": 5,
+                "image_png_b64": base64.b64encode(png.encode_png(ref)).decode()})
+            _check_image(_image(_ok(code, body, "serve edit")), CLI_FLUX_RES, "serve edit")
+            torch.cuda.synchronize()
+            client["edit"] = {"s": sec, **dict(zip(("launches", "launches_by_route"),
+                                                   _check_launches(fa, edit_launches,
+                                                                   "serve edit")))}
+            # SIGTERM with a batch in flight: all 8 requests taken from the
+            # queue into a batch (queued requests would be failed by the
+            # drain, as in the JAX engine), not all of them answered yet;
+            # deterministic requests pin one batch shape, so the 8 ride together
+            engine = client["engines"][0]
+            stats = get("/v1/stats")["generate"]
+            want_requests, done_before = stats["requests"] + BATCH, stats["completed"]
+            with ThreadPoolExecutor(max_workers=BATCH) as pool:
+                futs = [pool.submit(_post, opener, base + "/v1/generate",
+                                    gen_body(200 + i, deterministic=True)) for i in range(BATCH)]
+                while (get("/v1/stats")["generate"]["requests"] < want_requests
+                       or not engine._queue.empty() or engine._pending):
+                    time.sleep(0.005)
+                client["sigterm_at"] = time.perf_counter()
+                os.kill(os.getpid(), signal.SIGTERM)
+                client["in_flight"] = BATCH - (engine.stats()["completed"] - done_before)
+                drained = [f.result() for f in futs]
+            client["drained_codes"] = [code for code, _, _ in drained]
+            if client["in_flight"] < 1:
+                raise AssertionError("the batch finished before SIGTERM: nothing was in flight")
+            for code, body, _ in drained:
+                _check_image(_image(_ok(code, body, "drained generate")), 512, "drained generate")
+        except BaseException as err:  # noqa: BLE001  (re-raised by the phase after main returns)
+            client["error"] = err
+            # stop a server that answered (its SIGTERM handler is installed): main returns
+            if "startup_s" in client and "sigterm_at" not in client and serving.is_set():
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    real_build = cli_serve.build_server
+
+    def capture_build(args):  # the engines, for the SIGTERM gate's view of the queue
+        server, engines, descs = real_build(args)
+        client["engines"] = engines
+        return server, engines, descs
+
+    old_handler = signal.getsignal(signal.SIGTERM)
+    serving = threading.Event()  # set while cli_serve.main runs
+    serving.set()
+    thread = threading.Thread(target=drive, name="serve-cli-client", daemon=True)
+    thread.start()
+    cli_serve.build_server = capture_build
+    try:
+        cli_serve.main(argv)
+    finally:
+        serving.clear()
+        cli_serve.build_server = real_build
+        signal.signal(signal.SIGTERM, old_handler)
+    exited_s = time.perf_counter() - client.get("sigterm_at", time.perf_counter())
+    thread.join(timeout=600)
+    if "error" in client:
+        raise AssertionError(f"serve CLI client: {client['error']!r}") from client["error"]
+    if thread.is_alive():
+        raise AssertionError("serve CLI client did not finish")
+    try:
+        with opener.open(base + "/healthz", timeout=5):
+            raise AssertionError("the server still answers after SIGTERM")
+    except OSError:
+        pass
+
+    # the same weights in memory (phase_cli's seeded models), one engine
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 150)
+    unet, text, vae = _sd15_models(gen)
+    sd_cfg = ExperimentConfig.sd15_ppo()
+    pipe = TextToImagePipeline(unet, text, vae, DiffusionSchedule.sd15(),
+                               factor_net=cli_sd.make_policy(sd_cfg.factor_net, 0, "cuda"),
+                               tokenizer=HashTokenizer(), device="cuda")
+    with InferenceEngine(pipe, batch_size=BATCH, batch_sizes=(1, BATCH),
+                         latent_size=CLI_LATENT) as engine:
+        want = engine.generate(GenerationRequest(**gen_body(99, deterministic=True)), timeout=600)
+    if not np.array_equal(client["deterministic"], want):
+        raise AssertionError("serve CLI's deterministic image differs from the in-memory engine's: "
+                             f"max {_max_diff(client['deterministic'], want)} levels")
+    del pipe, unet, text, vae
+    _release_card()
+    out = {"phase": "serve_cli", "argv": argv, "startup_s": client["startup_s"],
+           "generate": client["generate"], "refine_s": client["refine_s"], "edit": client["edit"],
+           "deterministic_bit_equal_in_memory": True,
+           "sigterm": {"requests": BATCH, "in_flight": client["in_flight"],
+                       "answered": client["drained_codes"].count(200),
+                       "main_returned_after_s": exited_s},
+           "reduced": cli["reduced"], "s": time.perf_counter() - t_phase}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def phase_lora(fa):
+    """A random rank-64 LoRA on every attention projection of the
+    full-width SD-1.5 UNet (128 pairs), as a peft file and as a kohya file of
+    the same pairs, merged with ``merge_lora``: the two merges bit-equal,
+    each merged weight within one bf16 ulp of ``W + (alpha / r) B A`` taken
+    layer by layer as one f32 ``addmm`` on the card and cast to bf16; then
+    one generation of 8 with the merged UNet (257 launches, all "mma")."""
+    import torch
+
+    from consolver_torch.core.schedules import DiffusionSchedule
+    from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
+    from consolver_torch.models.lora import merge_lora
+    from consolver_torch.pipelines.t2i import TextToImagePipeline
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+
+    _release_card()
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 170)
+    unet, text, vae = _sd15_models(gen)
+    sd = unet.state_dict()
+    targets = sorted(k[: -len(".weight")] for k in sd
+                     if re.search(r"\.attn[12]\.(to_q|to_k|to_v|to_out\.0)\.weight$", k))
+    peft, kohya, pairs = {}, {}, {}
+    for t in targets:
+        out_dim, in_dim = sd[t + ".weight"].shape
+        down = 0.02 * torch.randn((LORA_RANK, in_dim), device="cuda", generator=gen)
+        up = 0.02 * torch.randn((out_dim, LORA_RANK), device="cuda", generator=gen)
+        alpha = torch.tensor(LORA_ALPHA)
+        peft.update({f"{t}.lora_A.weight": down, f"{t}.lora_B.weight": up, f"{t}.alpha": alpha})
+        flat = "lora_unet_" + t.replace(".", "_")
+        kohya.update({f"{flat}_lora_down.weight": down, f"{flat}_lora_up.weight": up,
+                      f"{flat}.alpha": alpha})
+        pairs[t] = (down, up)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    merged = merge_lora(sd, peft)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    merged_kohya = merge_lora(sd, kohya)
+    if not all(torch.equal(merged[k], merged_kohya[k]) for k in sd):
+        raise AssertionError("the kohya LoRA merges unlike the peft LoRA of the same pairs")
+    worst = 0.0  # bf16 ulps between merge_lora and a layer-by-layer f32 addmm, cast alike
+    for t, (down, up) in pairs.items():
+        want = torch.addmm(sd[t + ".weight"].float(), up, down,
+                           alpha=LORA_ALPHA / LORA_RANK).to(torch.bfloat16).float()
+        ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+        worst = max(worst, float(((merged[t + ".weight"].float() - want).abs() / ulp).max()))
+    if worst > 1.0:
+        raise AssertionError(f"merged weights {worst} bf16 ulps off W + (alpha/r) B A")
+    changed = sum(not torch.equal(sd[k], merged[k]) for k in sd)
+    unet.load_state_dict(merged)
+    policy = FactorNet(FactorNetConfig(order_dim=4, scaler_dim=0, num_actions=11, family="sd"),
+                       device="cuda")
+    pipe = TextToImagePipeline(unet, text, vae, DiffusionSchedule.sd15(), factor_net=policy,
+                               tokenizer=HashTokenizer(), device="cuda")
+    ids = tokenize_batch(HashTokenizer(), PROMPTS[:BATCH], 77)
+    noise = torch.randn((BATCH, 64, 64, 4), device="cuda", generator=gen)
+    fa.reset_counts()
+    t0 = time.perf_counter()
+    images, _ = pipe(torch.Generator(device="cuda").manual_seed(SEED + 171), ids, noise,
+                     num_inference_steps=STEPS, guidance_scale=CFG, record=False)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches, by_route = _check_launches(fa, LAUNCHES_PER_GENERATION, "LoRA-merged generation")
+    lo, hi = float(images.min()), float(images.max())
+    if tuple(images.shape) != (BATCH, 512, 512, 3) or not 0.0 <= lo <= hi <= 1.0:
+        raise AssertionError(f"LoRA-merged images: {tuple(images.shape)} in [{lo}, {hi}]")
+    del pipe, policy, unet, text, vae, sd, merged, merged_kohya, peft, kohya, pairs
+    _release_card()
+    out = {"phase": "lora", "pairs": len(targets), "rank": LORA_RANK, "alpha": LORA_ALPHA,
+           "weights_changed": changed, "merge_s": merge_s,
+           "max_bf16_ulps_vs_f32_addmm": worst, "kohya_bit_equal_peft": True,
+           "generation": {"s": gen_s, "launches": launches, "launches_by_route": by_route},
+           "s": time.perf_counter() - t_phase}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def phase_generate_edit(fa, cli, workdir):
+    """``python -m consolver_torch generate-edit`` over a kontext-bench-shaped
+    source (a ``metadata.jsonl`` and two of the JPEG fixtures, the first
+    keyed) on ``phase_cli``'s depth-cut FLUX-Kontext directory at 1024^2,
+    at ``--batch-size`` 1 and 2: the folder layout, every example scored by
+    ``score_results`` with a plain PSNR scorer and no error, the noise the
+    command drew for each example the same at both batch sizes, and kernel
+    #1's launches per pipeline call."""
+    import numpy as np
+    import torch
+
+    from consolver_torch.cli import generate_edit as cli_edit
+    from consolver_torch.eval.edit_scores import list_examples, score_results
+
+    _release_card()
+    t_phase = time.perf_counter()
+    src = Path(workdir) / "kontext_src"
+    (src / "images").mkdir(parents=True)
+    with open(src / "metadata.jsonl", "w") as f:
+        for i, name in enumerate(GENERATE_EDIT_SOURCES):
+            shutil.copy(JPEG_FIXTURES / f"{name}.jpg", src / "images" / f"{name}.jpg")
+            record = {"file_name": f"images/{name}.jpg",
+                      "instruction": f"make it look like winter {i}"}
+            if i == 0:
+                record["key"] = "kontext_0000"
+            f.write(json.dumps(record) + "\n")
+    want_names = sorted(["kontext_0000", "00001_make_it_look_like_winter_1"])
+    drawn = {}
+    real_noise = cli_edit.example_noise
+
+    def recording_noise(seed, indices, shape):
+        noise = real_noise(seed, indices, shape)
+        for j, i in enumerate(indices):
+            drawn[batch].setdefault(i, noise[j].clone())
+        return noise
+
+    def psnr(ref, instruction, edited):
+        return float(10 * np.log10(1.0 / max(float(np.mean((ref - edited) ** 2)), 1e-10)))
+
+    dit_blocks = CLI_FLUX_DOUBLE + CLI_FLUX_SINGLE
+    runs = {}
+    cli_edit.example_noise = recording_noise
+    try:
+        for batch in GENERATE_EDIT_BATCHES:
+            drawn[batch] = {}
+            out_dir = Path(workdir) / f"edits_bs{batch}"
+            calls = -(-len(GENERATE_EDIT_SOURCES) // batch)
+            fa.reset_counts()
+            t0 = time.perf_counter()
+            _cli("generate-edit", "--source", str(src), "--out", str(out_dir), "--pretrained",
+                 cli["flux_ckpts"], "--steps", str(FLUX_STEPS), "--batch-size", str(batch),
+                 "--resolution", str(CLI_FLUX_RES))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, by_route = _check_launches(
+                fa, calls * (dit_blocks * FLUX_STEPS + 2 * FLUX_VAE_LAUNCHES),
+                f"generate-edit --batch-size {batch}")
+            names = sorted(p.name for p in out_dir.iterdir())
+            if names != want_names or len(list_examples(str(out_dir))) != len(want_names):
+                raise AssertionError(f"generate-edit --batch-size {batch} wrote {names}")
+            stats = score_results(str(out_dir), psnr)
+            if (stats["num_scored"] != len(want_names) or stats["num_errors"]
+                    or not np.isfinite(stats["mean"])):
+                raise AssertionError(f"score_results: {stats}")
+            runs[batch] = {"s": wall, "pipeline_calls": calls, "launches": launches,
+                           "launches_by_route": by_route, "scores": stats}
+    finally:
+        cli_edit.example_noise = real_noise
+    for i in range(len(GENERATE_EDIT_SOURCES)):
+        if not torch.equal(drawn[1][i], drawn[2][i]):
+            raise AssertionError(f"example {i}'s noise depends on --batch-size")
+    _release_card()
+    out = {"phase": "generate_edit", "examples": len(GENERATE_EDIT_SOURCES),
+           "folders": want_names, "noise_same_at_batch_1_and_2": True,
+           "by_batch_size": {str(k): v for k, v in runs.items()}, "reduced": cli["reduced"],
+           "s": time.perf_counter() - t_phase}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def phase_policy_variants():
+    """``ContinuousFactorNet`` and ``MuNet`` on the card against the CPU with
+    the same weights and inputs (f32, TF32 off): means, stds, densities,
+    entropies and log-probs within SLICE_TOL of each output's largest value;
+    the card's samples inside the bounds and on the grid."""
+    import torch
+
+    from consolver_torch.policy.continuous import ContinuousFactorNet, ContinuousFactorNetConfig
+    from consolver_torch.policy.mu_net import MuNet
+
+    t_phase = time.perf_counter()
+    torch.manual_seed(SEED + 180)
+    cfg = ContinuousFactorNetConfig(order_dim=4, scaler_dim=0, family="sd", use_conv=True)
+    cpu = ContinuousFactorNet(cfg, device="cpu")
+    mu_cpu = MuNet(device="cpu")
+    with torch.no_grad():
+        cpu.head.weight.normal_(0, 0.02)
+        cpu.log_std.normal_(-1.0, 0.1)
+    card, mu_card = copy.deepcopy(cpu).to("cuda"), copy.deepcopy(mu_cpu).to("cuda")
+    conds = {"x": torch.rand((64, 2)) * 999, "epsilon": torch.randn((64, 4, 4, 8, 8))}
+    actions, _ = cpu.sample_action(conds, torch.Generator().manual_seed(1))
+    x = torch.rand((64, 1)) * 4 - 2
+    mu_actions, _ = mu_cpu.sample_action(x, torch.Generator().manual_seed(2))
+
+    def on_card(tree):
+        return {k: v.cuda() for k, v in tree.items()}
+
+    with torch.no_grad():
+        pairs = {
+            "mean_std": (cpu.dist(conds), card.dist(on_card(conds))),
+            "density_entropy": (cpu.get_action_probs(conds, actions),
+                                card.get_action_probs(on_card(conds), actions.cuda())),
+            "mu_log_probs": ((mu_cpu.log_probs(x),), (mu_card.log_probs(x.cuda()),)),
+            "mu_probs_entropy": (mu_cpu.get_action_probs(x, mu_actions),
+                                 mu_card.get_action_probs(x.cuda(), mu_actions.cuda())),
+        }
+        errs = {}
+        for name, (want, got) in pairs.items():
+            errs[name] = max(float((g.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                             for w, g in zip(want, got))
+        sampled, _ = card.sample_action(on_card(conds), torch.Generator("cuda").manual_seed(3))
+        mu_sampled, _ = mu_card.sample_action(x.cuda(), torch.Generator("cuda").manual_seed(4))
+    if max(errs.values()) > SLICE_TOL:
+        raise AssertionError(f"policy variants card vs CPU: {errs}")
+    in_bounds = bool(((sampled >= card.low) & (sampled <= card.high)).all())
+    on_grid = bool((mu_sampled[:, None] == mu_card.action_values[None]).any(dim=1).all())
+    if not (in_bounds and on_grid):
+        raise AssertionError(f"samples: in bounds {in_bounds}, on the grid {on_grid}")
+    out = {"phase": "policy_variants", "max_rel_err": errs, "tolerance": SLICE_TOL,
+           "s": time.perf_counter() - t_phase}
     print(json.dumps(out), flush=True)
     return out
 
@@ -3901,6 +4483,29 @@ def _kernel1_entry(rows, runs_by_path):
                         "launches_by_route": run[part]["launches_by_route"],
                         "num_inference": [r["num_inference"] for r in run[part]["steps"]],
                         "per": per}
+    run = runs_by_path["learning"]["checks"]
+    by_path["learning_checks"] = {
+        **{check: {k: r[k] for k in ("launches", "launches_by_route", "steps")}
+           for check, r in run.items()},
+        "per": "one whole check: the teacher and every PPO step (tiny f32 stacks)"}
+    run = runs_by_path["serve_cli"]
+    by_path["serve_cli_generate"] = {
+        **{k: run["generate"][k] for k in ("launches", "launches_by_route", "batches")},
+        "per": f"{SERVE_CLI_ROUNDS} rounds of {BATCH} concurrent requests"}
+    by_path["serve_cli_edit"] = {
+        **{k: run["edit"][k] for k in ("launches", "launches_by_route")},
+        "per": f"one /v1/edit, DiT {CLI_FLUX_DOUBLE} + {CLI_FLUX_SINGLE} blocks"}
+    run = runs_by_path["lora"]["generation"]
+    by_path["lora_generation"] = {
+        **{k: run[k] for k in ("launches", "launches_by_route")},
+        "per": f"one generation of {BATCH} with the LoRA-merged UNet"}
+    run = runs_by_path["generate_edit"]["by_batch_size"]
+    by_path["generate_edit"] = {
+        **{f"batch_size_{bs}": {k: r[k] for k in ("launches", "launches_by_route",
+                                                   "pipeline_calls")}
+           for bs, r in run.items()},
+        "per": f"{len(GENERATE_EDIT_SOURCES)} examples, DiT {CLI_FLUX_DOUBLE} + "
+               f"{CLI_FLUX_SINGLE} blocks"}
     sd = by_path["sd15_generation"]
     return {
         "name": "flash_attention", "route": "cuda",
@@ -3944,6 +4549,8 @@ def main() -> int:
     if not (ROOT / "consolver_torch" / "csrc" / "flash_attention.cu").exists():
         print("chip_smoke.py needs the repository around it (consolver_torch/)", file=sys.stderr)
         return 2
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3972,6 +4579,7 @@ def main() -> int:
     print(json.dumps({"phase": "build", "build_s": build_s, "torch": torch.__version__,
                       "cuda": torch.version.cuda}), flush=True)
 
+    phase_image_io()
     phase_kernel1_build(fa)
     with torch.inference_mode():
         rows = phase_kernel(fa)
@@ -3995,7 +4603,17 @@ def main() -> int:
     runs_by_path["sd_ppo"] = phase_sd_ppo(fa)
     runs_by_path["flux_ppo"] = phase_flux_ppo(fa)
     phase_tiny_train(fa)
-    runs_by_path["cli"] = phase_cli(fa)
+    phase_policy_variants()
+    with tempfile.TemporaryDirectory(prefix="consolver_smoke_") as work:
+        learning = start_learning_checks(work)
+        try:
+            runs_by_path["cli"] = phase_cli(fa, work)
+            runs_by_path["learning"] = phase_learning(learning)
+        finally:
+            stop_learning_checks(learning)
+        runs_by_path["serve_cli"] = phase_serve_cli(fa, runs_by_path["cli"])
+        runs_by_path["generate_edit"] = phase_generate_edit(fa, runs_by_path["cli"], work)
+    runs_by_path["lora"] = phase_lora(fa)
     runs_by_path["serve"] = phase_serve(fa, runs_by_path)
     runs_by_path["dist"] = phase_dist(fa, runs_by_path["flux"]["dist_ref"])
 

@@ -7,10 +7,10 @@ each a module of ``consolver_torch/cli/`` named after the JAX script, whose
   train-sd        PPO-train the SD-1.5 consistency solver (cli/train_sd15.py)
   train-flux      PPO-train the FLUX-Kontext edit solver (cli/train_flux.py)
   generate        text-to-image sweeps over the solver zoo (cli/generate.py)
-  generate-edit   kontext-bench edit generation (not ported yet: ROADMAP A.16.8)
+  generate-edit   kontext-bench edit generation (cli/generate_edit.py)
   generate-teacher  teacher trajectory sets, both families (cli/generate_teacher.py)
-  evaluate        consistency / fid metrics (cli/evaluate.py)
-  serve           HTTP serving, t2i + edit engines (not ported yet: ROADMAP A.16.5)
+  evaluate        consistency / fid / edit-score metrics (cli/evaluate.py)
+  serve           HTTP serving, t2i + edit engines (cli/serve.py)
   convert         hub checkpoint -> port component conversion (cli/convert_checkpoints.py)
   quantize        int8/int4 serving checkpoints (cli/quantize_checkpoint.py)
   preview         preview/refine product demo (cli/preview_demo.py)
@@ -39,14 +39,11 @@ _COMMANDS = {
     "preview": "preview_demo",
     "selftest": "selftest_eval",
 }
-# commands whose module is not ported yet, and the ROADMAP item that ports it
-NOT_PORTED = {"serve": "A.16.5", "generate-edit": "A.16.8"}
 
 
 def _usage() -> str:
     lines = ["usage: python -m consolver_torch <command> [args...]", "", "commands:"]
-    lines += [f"  {name}" + (f"  (not ported yet: ROADMAP {NOT_PORTED[name]})"
-                             if name in NOT_PORTED else "") for name in _COMMANDS]
+    lines += [f"  {name}" for name in _COMMANDS]
     lines.append("")
     lines.append("run `python -m consolver_torch <command> --help` for per-command flags")
     return "\n".join(lines)
@@ -60,10 +57,6 @@ def main(argv=None) -> int:
     cmd = argv[0]
     if cmd not in _COMMANDS:
         print(f"unknown command: {cmd!r}\n\n{_usage()}", file=sys.stderr)
-        return 2
-    if cmd in NOT_PORTED:
-        print(f"{cmd} is not ported to consolver_torch yet (ROADMAP {NOT_PORTED[cmd]})",
-              file=sys.stderr)
         return 2
     module = importlib.import_module(f"consolver_torch.cli.{_COMMANDS[cmd]}")
     try:

@@ -1,16 +1,20 @@
-"""Consistency and FID evaluation: ``python -m consolver_torch evaluate``.
+"""Consistency, FID and edit-score evaluation: ``python -m consolver_torch
+evaluate``.
 
-Port of ``scripts/evaluate.py`` (compute_reward.sh + fid_test.py)::
+Port of ``scripts/evaluate.py`` (compute_reward.sh + fid_test.py +
+edit_ppo/compute_score.py)::
 
   python -m consolver_torch evaluate consistency --generated results/ours8 \\
       --reference results/teacher40 --reward image_psnr --out stats.json
   python -m consolver_torch evaluate fid --generated results/ours8 \\
       --reference results/teacher40 --encoder-ckpt ckpts/inception
+  python -m consolver_torch evaluate edit-score --results results/edits5 \\
+      --judge-ckpt ckpts/llava --out edit_stats.json
 
 ``--encoder-ckpt`` is a component directory that ``convert`` wrote (kinds
-dinov2 | clip_vision | inception).  ``edit-score`` (the VLM judge over
-edit results) waits for ROADMAP A.16.8 and exits 2.  Images are read as PNG
-(the port has no JPEG decoder yet, A.16.8).
+dinov2 | clip_vision | inception); ``--judge-ckpt`` a local transformers
+image-text-to-text checkpoint.  Images are read by their content, PNG or
+JPEG, whatever their names.
 """
 
 from __future__ import annotations
@@ -18,15 +22,12 @@ from __future__ import annotations
 import argparse
 import glob
 import os
-import sys
 
 import numpy as np
 import torch
 
 from consolver_torch.configs.config import add_device_flag
 from consolver_torch.device import resolve_device
-
-LEFT_OUT = {"edit-score": "A.16.8"}
 
 
 def _parser():
@@ -54,8 +55,14 @@ def _parser():
     f.add_argument("--batch-size", type=int, default=32)
     add_device_flag(f)
 
-    for name, item in LEFT_OUT.items():
-        sub.add_parser(name, help=f"not ported yet (ROADMAP {item})", add_help=False)
+    e = sub.add_parser("edit-score",
+                       help="score folder-per-example edit results with a local VLM "
+                       "(EditScore stand-in, edit_ppo/compute_score.py)")
+    e.add_argument("--results", required=True, help="dir of generate-edit outputs")
+    e.add_argument("--judge-ckpt", required=True,
+                   help="local transformers image-text-to-text checkpoint")
+    e.add_argument("--out", default=None)
+    add_device_flag(e)
     return ap
 
 
@@ -65,13 +72,17 @@ def main(argv=None):
     from consolver_torch.eval.fid import compute_fid
     from consolver_torch.rewards.registry import RewardModel, make_reward_fn
 
-    argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in LEFT_OUT:
-        print(f"evaluate {argv[0]} is not ported to consolver_torch yet "
-              f"(ROADMAP {LEFT_OUT[argv[0]]})", file=sys.stderr)
-        raise SystemExit(2)
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
+
+    if args.cmd == "edit-score":
+        from consolver_torch.eval.edit_scores import score_results
+        from consolver_torch.rewards.vlm import load_transformers_edit_scorer
+
+        stats = score_results(args.results, load_transformers_edit_scorer(args.judge_ckpt, device),
+                              output_json=args.out)
+        print(stats)
+        return stats
 
     if args.cmd == "consistency":
         model = RewardModel()

@@ -11,7 +11,9 @@ key names (``models.checkpoint.hub_state_dict``: diffusers' for the UNet and
 VAE, transformers' for CLIP), every step through ``__main__.main``.  With
 real checkpoints the same commands reproduce the BASELINE.md table; they are
 printed at the end.  The FLUX edit chain of the JAX selftest (generate-edit,
-edit-score) waits for ROADMAP A.16.8.
+then edit-score with a tiny transformers VLM) is not in this chain: the GPU
+host has no transformers.  ``tests/test_torch_edit_scores.py`` drives both
+commands on the CPU.
 
   python -m consolver_torch selftest [--workdir DIR] [--keep] [--device cpu]
 """

@@ -125,8 +125,14 @@ def build_reward(cfg: ExperimentConfig, device):
     if rtype in ("dino", "clip", "inception") and ckpt:
         model = RewardModel(encode=load_encoder(rtype, ckpt, device))
     elif rtype in ("llava", "qwen_vl") and ckpt:
-        raise SystemExit(f"reward {rtype!r}: the VLM judges' loaders are not ported yet "
-                         "(ROADMAP A.16.8)")
+        # encoder_checkpoint doubles as the local VLM-judge checkpoint; the
+        # qwen variant has its own messages and strict parse
+        from consolver_torch.rewards.vlm import (
+            load_transformers_judge, load_transformers_qwen_judge,
+        )
+
+        loader = load_transformers_qwen_judge if rtype == "qwen_vl" else load_transformers_judge
+        model = RewardModel(vlm_judge=loader(ckpt, device))
     elif rtype != "image_psnr" and not ckpt:
         print(f"[smoke mode] reward {rtype!r} needs encoder_checkpoint; using image_psnr")
         rtype = "image_psnr"

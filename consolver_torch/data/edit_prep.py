@@ -2,88 +2,22 @@
 input layout).
 
 Port of ``consolver_tpu/data/edit_prep.py``: center-crop reference images to
-a square resolution and pair them with edit instructions.  The resize is a
-Lanczos-3 resample of its own that follows the imaging library the JAX
-package calls: the filter's support grows with the downscale factor, each
-output's weights are normalised to sum to one and then quantised to 22
-fraction bits, the horizontal pass runs first, and each pass rounds to 8
-bits.  Images are read as PNG (``utils/png.py``).
+a square resolution and pair them with edit instructions.  The resize is
+``utils/resize.lanczos_resize``, which follows the imaging library the JAX
+package calls bit for bit.  Images are read by their content, PNG or JPEG
+(``utils/image.py``).
 """
 
 from __future__ import annotations
 
 import json
-import math
 import os
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-from consolver_torch.utils.png import read_png
-
-_SUPPORT = 3.0  # Lanczos-3
-_PRECISION_BITS = 32 - 8 - 2
-
-
-def _lanczos(x: float) -> float:
-    def sinc(v):
-        if v == 0.0:
-            return 1.0
-        v = v * math.pi
-        return math.sin(v) / v
-
-    return sinc(x) * sinc(x / 3) if -_SUPPORT <= x < _SUPPORT else 0.0
-
-
-def _coefficients(in_size: int, out_size: int):
-    """Per output index: the first input index and the fixed-point weights
-    ``[out_size, taps]`` (zero past each output's own window)."""
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = _SUPPORT * filterscale
-    ss = 1.0 / filterscale
-    taps = int(math.ceil(support)) * 2 + 1
-    first = np.zeros(out_size, np.int64)
-    weights = np.zeros((out_size, taps), np.int64)
-    for xx in range(out_size):
-        center = (xx + 0.5) * scale
-        xmin = max(int(center - support + 0.5), 0)
-        xmax = min(int(center + support + 0.5), in_size) - xmin
-        w = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
-        total = sum(w)
-        for x, wx in enumerate(w):
-            wx = wx / total if total != 0.0 else wx
-            # round half away from zero, as C's (int)(w * 2^22 +- 0.5)
-            weights[xx, x] = int(wx * (1 << _PRECISION_BITS) + (0.5 if wx >= 0 else -0.5))
-        first[xx] = xmin
-    return first, weights
-
-
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One 8-bit resampling pass along ``axis`` (0 = rows, 1 = columns)."""
-    in_size = img.shape[axis]
-    first, weights = _coefficients(in_size, out_size)
-    # 32-bit sums, as the library's: 255 * (sum of the positive weights, at
-    # most about 1.1 * 2^22) stays below 2^31
-    acc = np.full(img.shape[:axis] + (out_size,) + img.shape[axis + 1:],
-                  1 << (_PRECISION_BITS - 1), np.int32)
-    src = img.astype(np.int32)
-    for k in range(weights.shape[1]):
-        idx = np.minimum(first + k, in_size - 1)  # weight 0 past the window
-        w = weights[:, k].astype(np.int32).reshape((-1,) + (1,) * (img.ndim - axis - 1))
-        acc += np.take(src, idx, axis=axis) * w
-    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-
-
-def lanczos_resize(image: np.ndarray, width: int, height: int) -> np.ndarray:
-    """``[H, W, C]`` uint8 -> ``[height, width, C]`` uint8, horizontal pass
-    first; an axis whose size does not change is not resampled."""
-    out = image
-    if width != image.shape[1]:
-        out = _resample_axis(out, width, axis=1)
-    if height != image.shape[0]:
-        out = _resample_axis(out, height, axis=0)
-    return out
+from consolver_torch.utils.image import read_image
+from consolver_torch.utils.resize import lanczos_resize
 
 
 def center_crop_resize(image: np.ndarray, size: int) -> np.ndarray:
@@ -151,14 +85,14 @@ def prepare_edit_set(
     max_samples: Optional[int] = None,
 ) -> int:
     """Write ``{i}.npz`` with (ref_image in [-1, 1], instruction) pairs for
-    the teacher rollout.  Images that cannot be read as PNG (another format,
-    a corrupt file) are skipped.  Returns the number written."""
+    the teacher rollout.  Images that cannot be read (another format than
+    PNG or JPEG, a corrupt file) are skipped.  Returns the number written."""
     os.makedirs(output_dir, exist_ok=True)
     pairs = read_instruction_pairs(source_dir)[:max_samples]
     n = 0
     for i, (img_path, instruction) in enumerate(pairs):
         try:
-            image = read_png(img_path)
+            image = read_image(img_path)
         except (OSError, ValueError):
             continue
         cropped = center_crop_resize(image, resolution) * 2.0 - 1.0

@@ -5,10 +5,9 @@ Port of ``consolver_tpu/eval/consistency.py`` (the reference's
 compute_reward.py:52-465): files pair by relative path, the reward runs as
 one batched call per chunk of pairs on the card, and the result holds the
 same statistics (mean / std / min / max / median and counts) and per-item
-``errors`` records ``{path, reason}``.  Images are read as PNG
-(``utils/png.py``; the port has no JPEG decoder, so a JPEG pair becomes an
-error record, as any load failure does) and, given ``size``, resized with
-``data/edit_prep``'s PIL-exact Lanczos.  With ``mesh=`` every rank reads
+``errors`` records ``{path, reason}``.  Images are read by their content,
+PNG or JPEG (``utils/image.py``), and, given ``size``, resized with
+``utils/resize``'s PIL-exact Lanczos.  With ``mesh=`` every rank reads
 the pairs, each data rank scores its slice of every chunk (padded to a
 multiple of the data ranks by repeating the last pair), the scores are
 all_gathered and the padding dropped, so every rank returns the statistics
@@ -26,10 +25,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from consolver_torch.data.edit_prep import lanczos_resize
 from consolver_torch.device import resolve_device
 from consolver_torch.dist.mesh import gather_batch, shard_batch
-from consolver_torch.utils.png import read_png
+from consolver_torch.utils.image import read_image
+from consolver_torch.utils.resize import lanczos_resize
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg")
 
@@ -50,10 +49,9 @@ def pair_images(dir_a: str, dir_b: str) -> List[Tuple[str, str]]:
 
 
 def _load_image(path: str, size: Optional[Tuple[int, int]] = None) -> np.ndarray:
-    """A PNG as ``[H, W, 3]`` float32 in [0, 1]; ``size`` is (width, height)."""
-    if not path.lower().endswith(".png"):
-        raise ValueError(f"{os.path.basename(path)}: only PNG images are read (no JPEG decoder)")
-    img = read_png(path)
+    """A PNG or JPEG file, whatever its name, as ``[H, W, 3]`` float32 in
+    [0, 1]; ``size`` is (width, height)."""
+    img = read_image(path)
     if size is not None:
         img = lanczos_resize(img, *size)
     return np.asarray(img, np.float32) / 255.0

@@ -65,10 +65,13 @@ def _leaf(path: Tuple[str, ...], value: np.ndarray) -> Tuple[Tuple[str, ...], np
 
 
 def state_dict_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax param tree (with or without the ``{"params": ...}`` wrapper) ->
+    """Flax param tree (with or without the ``{"params": ...}`` wrapper, or
+    with more leaves beside it) ->
     torch state dict of CPU tensors: f32, or the integer leaves' own dtype."""
-    if set(tree.keys()) == {"params"}:
-        tree = tree["params"]
+    if isinstance(tree.get("params"), Mapping):
+        # {"params": ...} alone, or beside more leaves (the continuous
+        # FactorNet's log_std)
+        tree = {**tree["params"], **{k: v for k, v in tree.items() if k != "params"}}
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping[str, Any], prefix: Tuple[str, ...]) -> None:

@@ -6,17 +6,32 @@ similarity dimensions 0-100, retrying a failed parse up to 5 times with a
 50.0 fallback; the edit scorer rates an edit 0-10.  A judge is a host
 callable over numpy arrays and plugs into
 ``rewards.registry.RewardModel.vlm_judge``; the generation callable behind
-it is the caller's (a local VLM service).  The JAX module's
-``load_transformers_*`` loaders, which build that callable from a local
-transformers checkpoint through PIL, are not ported (ROADMAP Queue A.16).
+it is the caller's (a local VLM service), or a ``load_transformers_*``
+loader's, which builds it from a local transformers checkpoint.
+
+The loaders import transformers inside their bodies (the GPU host need not
+have it) and hand the processor uint8 numpy arrays where the JAX package
+hands it PIL images, made as the JAX package makes them: by truncation,
+``(clip(x, 0, 1) * 255).astype(uint8)``.  The qwen path resizes them to
+224 x 224 with ``utils/resize.bilinear_resize`` (the imaging library's
+``BILINEAR``, bit for bit), embeds them in the chat messages, applies the
+chat template with ``tokenize=False`` and extracts the images through
+``qwen_vl_utils.process_vision_info`` only when that package imports (as
+PNG data URIs, since it reads no arrays).  Each
+generation takes at most 5 new tokens.  ``device=None`` means the card.
 """
 
 from __future__ import annotations
 
+import base64
 import re
 from typing import Callable, List, Optional
 
 import numpy as np
+
+from consolver_torch.device import resolve_device
+from consolver_torch.utils.png import encode_png
+from consolver_torch.utils.resize import bilinear_resize
 
 # The four judged similarity dimensions (reward_model.py:25-30).
 SIMILARITY_DIMENSIONS = (
@@ -87,6 +102,88 @@ def make_vlm_judge(
     return judge
 
 
+def _uint8(image01: np.ndarray) -> np.ndarray:
+    """[0, 1] floats -> uint8 by truncation, as the JAX loaders feed PIL."""
+    return (np.clip(image01, 0, 1) * 255).astype(np.uint8)
+
+
+def _load_vlm(model_path: str, device):
+    from transformers import AutoModelForImageTextToText, AutoProcessor
+
+    processor = AutoProcessor.from_pretrained(model_path, local_files_only=True)
+    model = AutoModelForImageTextToText.from_pretrained(model_path, local_files_only=True)
+    return processor, model.to(device)
+
+
+def _generate(processor, model, device, text: str, images, **kwargs) -> str:
+    import torch
+
+    inputs = processor(text=[text], images=images, return_tensors="pt", **kwargs).to(device)
+    with torch.no_grad():
+        out = model.generate(**inputs, max_new_tokens=5)
+    gen = out[0][inputs["input_ids"].shape[1]:]
+    return processor.batch_decode(gen[None], skip_special_tokens=True)[0].strip()
+
+
+def load_transformers_generate_fn(model_path: str, device=None):
+    """Two-image generation callable from a local transformers checkpoint
+    (LLaVA-class image-text-to-text; reward_model.py:67-87)."""
+    device = resolve_device(device)
+    processor, model = _load_vlm(model_path, device)
+
+    def generate_fn(pred: np.ndarray, target: np.ndarray, prompt: str) -> str:
+        messages = [{"role": "user", "content": [
+            {"type": "image"}, {"type": "image"}, {"type": "text", "text": prompt}]}]
+        text = processor.apply_chat_template(messages, add_generation_prompt=True)
+        return _generate(processor, model, device, text, [_uint8(x) for x in (pred, target)])
+
+    return generate_fn
+
+
+def load_transformers_judge(model_path: str, device=None):
+    """The llava similarity judge from a local checkpoint
+    (reward_model.py:164-214)."""
+    return make_vlm_judge(load_transformers_generate_fn(model_path, device))
+
+
+def load_transformers_qwen_generate_fn(model_path: str, device=None, resize: int = 224):
+    """Qwen2.5-VL-style two-image generation callable
+    (edit_ppo/reward_model.py:258-317): the images resized to
+    ``resize`` x ``resize`` and embedded in the messages."""
+    device = resolve_device(device)
+    processor, model = _load_vlm(model_path, device)
+
+    def generate_fn(pred: np.ndarray, target: np.ndarray, prompt: str) -> str:
+        def messages(images):
+            return [{"role": "user", "content": [
+                {"type": "image", "image": images[0]}, {"type": "image", "image": images[1]},
+                {"type": "text", "text": prompt}]}]
+
+        imgs = [bilinear_resize(_uint8(x), resize, resize) for x in (pred, target)]
+        text = processor.apply_chat_template(messages(imgs), tokenize=False,
+                                             add_generation_prompt=True)
+        try:
+            from qwen_vl_utils import process_vision_info
+        except ImportError:
+            image_inputs = imgs
+        else:
+            # it reads an image object of the imaging library or a string
+            # (path, URL, data URI), not an array: hand it lossless PNG data URIs
+            uris = ["data:image/png;base64," + base64.b64encode(encode_png(x)).decode()
+                    for x in imgs]
+            image_inputs, _ = process_vision_info(messages(uris))
+        return _generate(processor, model, device, text, image_inputs, padding=True)
+
+    return generate_fn
+
+
+def load_transformers_qwen_judge(model_path: str, device=None):
+    """The qwen_vl similarity judge: the qwen messages, the 224 resize and
+    the strict float parse (edit_ppo/reward_model.py:258-317)."""
+    return make_vlm_judge(load_transformers_qwen_generate_fn(model_path, device),
+                          parse=parse_score_strict)
+
+
 # EditScore-style instruction-following prompt (the role of the external
 # EditScore / EditReward scorers, edit_ppo/compute_score.py: 0-10 like the
 # published EditScore column).
@@ -118,3 +215,9 @@ def make_edit_scorer(
         return fallback_score
 
     return scorer
+
+
+def load_transformers_edit_scorer(model_path: str, device=None):
+    """A local-checkpoint EditScore stand-in for
+    ``eval.edit_scores.score_results``."""
+    return make_edit_scorer(load_transformers_generate_fn(model_path, device))

@@ -21,11 +21,19 @@ it, in float32:
 Each matrix is applied as one contraction, axis after axis, in the input's
 dtype (JAX casts the matrices to it too).  An axis whose size does not
 change is left alone, so a same-size resize is the identity.
+
+:func:`lanczos_resize` and :func:`bilinear_resize` are the other family: the
+8-bit resample of the imaging library the JAX package's data and VLM tools
+call, on uint8 numpy images, bit for bit.  The filter's support grows with
+the downscale factor (so a shrink is antialiased), each output's weights are
+normalised to sum to one and quantised to 22 fraction bits, the horizontal
+pass runs first, and each pass rounds to 8 bits.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -119,3 +127,91 @@ def resize_align_corners(x: torch.Tensor, size: Tuple[int, int],
         scales.append(s)
         translations.append(0.5 - 0.5 * s)  # the input is read at out / s
     return scale_and_translate(x, shape, axes, scales, translations, "linear", antialias=False)
+
+
+# -- the imaging library's 8-bit resample ------------------------------------
+
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _lanczos(x: float) -> float:
+    def sinc(v):
+        if v == 0.0:
+            return 1.0
+        v = v * math.pi
+        return math.sin(v) / v
+
+    return sinc(x) * sinc(x / 3) if -3.0 <= x < 3.0 else 0.0
+
+
+def _bilinear(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+# name -> (filter, support)
+_FILTERS = {"lanczos": (_lanczos, 3.0), "bilinear": (_bilinear, 1.0)}
+
+
+def _coefficients(in_size: int, out_size: int, kind: str):
+    """Per output index: the first input index and the fixed-point weights
+    ``[out_size, taps]`` (zero past each output's own window)."""
+    kernel, base_support = _FILTERS[kind]
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = base_support * filterscale
+    ss = 1.0 / filterscale
+    taps = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    weights = np.zeros((out_size, taps), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = [kernel((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        total = sum(w)
+        for x, wx in enumerate(w):
+            wx = wx / total if total != 0.0 else wx
+            # round half away from zero, as C's (int)(w * 2^22 +- 0.5)
+            weights[xx, x] = int(wx * (1 << _PRECISION_BITS) + (0.5 if wx >= 0 else -0.5))
+        first[xx] = xmin
+    return first, weights
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int, kind: str) -> np.ndarray:
+    """One 8-bit resampling pass along ``axis`` (0 = rows, 1 = columns)."""
+    in_size = img.shape[axis]
+    first, weights = _coefficients(in_size, out_size, kind)
+    # 32-bit sums, as the library's: 255 * (sum of the positive weights, at
+    # most about 1.1 * 2^22) stays below 2^31
+    acc = np.full(img.shape[:axis] + (out_size,) + img.shape[axis + 1:],
+                  1 << (_PRECISION_BITS - 1), np.int32)
+    src = img.astype(np.int32)
+    for k in range(weights.shape[1]):
+        idx = np.minimum(first + k, in_size - 1)  # weight 0 past the window
+        w = weights[:, k].astype(np.int32).reshape((-1,) + (1,) * (img.ndim - axis - 1))
+        acc += np.take(src, idx, axis=axis) * w
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def _pil_resize(image: np.ndarray, width: int, height: int, kind: str) -> np.ndarray:
+    out = image
+    if width != image.shape[1]:
+        out = _resample_axis(out, width, axis=1, kind=kind)
+    if height != image.shape[0]:
+        out = _resample_axis(out, height, axis=0, kind=kind)
+    return out
+
+
+def lanczos_resize(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``[H, W, C]`` uint8 -> ``[height, width, C]`` uint8 with the imaging
+    library's ``LANCZOS``; an axis whose size does not change is not
+    resampled."""
+    return _pil_resize(image, width, height, "lanczos")
+
+
+def bilinear_resize(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``[H, W, C]`` uint8 -> ``[height, width, C]`` uint8 with the imaging
+    library's ``BILINEAR`` (a triangle filter, antialiased when it
+    shrinks)."""
+    return _pil_resize(image, width, height, "bilinear")

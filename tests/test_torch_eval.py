@@ -7,7 +7,7 @@ rewards, against the JAX package's.
 * ``vlm``: the parsers, prompts and retry / fallback must be equal.
 * ``evaluate_consistency`` over a PNG directory must match the JAX harness
   within 1e-5 (the same PNG pixels; the rewards' own 1e-4 parity is
-  ``tests/test_torch_backbones.py``'s); a JPEG is one error record.
+  ``tests/test_torch_backbones.py``'s); a corrupt JPEG is one error record.
 * ``dino_vis`` within 1e-4 (an SVD of features that agree to 1e-5).
 * One ``PPOTrainer.train_step`` on ``depth`` (tiny Depth-Anything) and one
   ``EditPPOTrainer.train_step`` on ``dino`` (tiny ViT) against the JAX
@@ -192,8 +192,8 @@ def test_evaluate_consistency_matches_jax(tmp_path, reward, size):
 
 
 def test_consistency_records_jpeg_and_mismatched_pairs(tmp_path):
-    """No JPEG decoder in the port: a JPEG pair is one error record; a pair
-    of another size falls back to item-by-item scoring and is recorded."""
+    """A corrupt JPEG pair is one error record; a pair of another size falls
+    back to item-by-item scoring and is recorded."""
     gen_dir, ref_dir = _png_dirs(tmp_path, n=3)
     (tmp_path / "gen" / "photo.jpg").write_bytes(b"\xff\xd8\xff\xe0 not decoded")
     (tmp_path / "ref" / "photo.jpg").write_bytes(b"\xff\xd8\xff\xe0 not decoded")

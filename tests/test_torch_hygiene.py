@@ -52,10 +52,16 @@ def test_port_files_exist():
     """The port's modules, the serving path's included (solver zoo, preview,
     PNG codec, edit prep, policy IO, engines and HTTP), the int8 / int4
     layers, the reward and eval backbones with the eval stack, the
-    distributed layer, and the command line with its config, utilities and
-    checkpoints."""
+    distributed layer, the command line with its config, utilities and
+    checkpoints, and the rest of the JAX package: images read by content
+    (the JPEG decoder), the learning checks, the serve and generate-edit
+    commands, LoRA merging, the policy variants and the edit scores."""
     names = {str(p.relative_to(ROOT / "consolver_torch")) for p in PORT_FILES}
-    assert len(PORT_FILES) >= 85 and SMOKE.exists()
+    assert len(PORT_FILES) >= 95 and SMOKE.exists()
+    assert {"utils/jpeg.py", "utils/image.py", "cli/learning_check.py",
+            "cli/learning_check_edit.py", "cli/serve.py", "cli/generate_edit.py",
+            "models/lora.py", "policy/continuous.py", "policy/mu_net.py",
+            "eval/edit_scores.py"} <= names
     assert {"__main__.py", "configs/__init__.py", "configs/config.py", "utils/trees.py",
             "utils/logging.py", "utils/profiling.py", "data/prompts.py", "models/checkpoint.py",
             "probes/dp_shapes.py", "cli/__init__.py", "cli/train_sd15.py", "cli/train_flux.py",
@@ -77,6 +83,17 @@ def test_no_jax_imports_or_torch_compile(path):
         assert module.split(".")[0] not in BANNED_IMPORTS, f"{path.name} imports {module}"
     for name, owner in _called_names(tree):
         assert not _is_torch_compile(name, owner), f"{path.name} calls torch.compile"
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [SMOKE], ids=lambda p: str(p.relative_to(ROOT)))
+def test_transformers_only_inside_function_bodies(path):
+    """The GPU host has no transformers: the VLM loaders and the tokenizer
+    import it inside their bodies, never at a module's top level."""
+    top_level = [node for node in ast.parse(path.read_text()).body
+                 if isinstance(node, (ast.Import, ast.ImportFrom))]
+    for node in top_level:
+        for module in _imports(node):
+            assert module.split(".")[0] != "transformers", f"{path.name} imports {module}"
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [SMOKE], ids=lambda p: str(p.relative_to(ROOT)))

@@ -180,7 +180,7 @@ def test_prepare_edit_set_matches_jax(tmp_path):
     for i, shape in enumerate([(40, 30, 3), (30, 50, 3)]):
         Image.fromarray(rng.integers(0, 256, shape, np.uint8)).save(src / f"{i}.png")
         (src / f"{i}.txt").write_text(f"edit number {i}\n")
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(src / "2.jpg")  # not a PNG: skipped
+    Image.fromarray(rng.integers(0, 256, (24, 20, 3), np.uint8)).save(src / "2.jpg")  # read by content
     (src / "2.txt").write_text("a jpeg")
     (src / "3.png").write_bytes(b"\x89PNG\r\n\x1a\n broken")  # unreadable: skipped
     (src / "3.txt").write_text("broken")
@@ -188,9 +188,11 @@ def test_prepare_edit_set_matches_jax(tmp_path):
     assert tprep.read_instruction_pairs(str(src)) == jprep.read_instruction_pairs(str(src))
     n = tprep.prepare_edit_set(str(src), str(tmp_path / "torch"), resolution=16)
     jprep.prepare_edit_set(str(src), str(tmp_path / "jax"), resolution=16)
-    assert n == 2
-    assert sorted(p.name for p in (tmp_path / "torch").iterdir()) == ["000000.npz", "000001.npz"]
-    for name in ("000000.npz", "000001.npz"):
+    names = ["000000.npz", "000001.npz", "000002.npz"]
+    assert n == 3
+    assert sorted(p.name for p in (tmp_path / "torch").iterdir()) == names
+    assert sorted(p.name for p in (tmp_path / "jax").iterdir()) == names
+    for name in names:
         with np.load(tmp_path / "torch" / name) as t, np.load(tmp_path / "jax" / name) as j:
             assert str(t["instruction"]) == str(j["instruction"])
             assert np.abs(t["ref_image"] - j["ref_image"]).max() <= 2 / 255 + 1e-6

@@ -83,6 +83,18 @@ def _sd_pipeline(factor_net=None, seed=0):
         schedules.DiffusionSchedule.sd15(), factor_net=factor_net, device="cpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the tiny stacks' ops are too small to split, and
+    the suite's workers share the host's cores; with the default count a
+    program's run time, which the prewarm budget and flush-window tests
+    measure against, swings with the host's load."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def pipeline():
     return _sd_pipeline()

@@ -472,3 +472,50 @@ def cli_dp_rank(rank: int, commands):
 
     torch.set_num_threads(1)
     return [main(list(argv)) for argv in commands]
+
+
+def serve_mesh_rank(rank: int) -> dict:
+    """``serve``'s mesh flags on this rank of a 2-rank world: the meshes
+    ``--shard`` / ``--tp`` make, the flags refused, then ``--shard`` serving
+    one request through rank 0's engine while rank 1 follows."""
+    import argparse
+
+    from consolver_torch.cli import serve as cli_serve
+    from consolver_torch.serve import GenerationRequest
+
+    torch.set_num_threads(1)
+    cpu = torch.device("cpu")
+
+    def ns(**kw):
+        return argparse.Namespace(**{"shard": False, "tp": 1, **kw})
+
+    out = {"none": cli_serve._serving_mesh(ns(), cpu)}
+    for name, kw in (("shard", dict(shard=True)), ("tp2", dict(tp=2)),
+                     ("shard_tp2", dict(shard=True, tp=2))):
+        mesh = cli_serve._serving_mesh(ns(**kw), cpu)
+        out[name] = (mesh.shape, cli_serve._data_shards(mesh))
+    for name, kw in (("tp3", dict(tp=3)),):
+        try:
+            cli_serve._serving_mesh(ns(**kw), cpu)
+        except SystemExit as e:
+            out[name] = str(e)
+    args = cli_serve._parser().parse_args(
+        ["--family", "sd", "--shard", "--batch-size", "1", "--port", "0", "--flush-ms", "5",
+         "--device", "cpu"])
+    server, engines, descs = cli_serve.build_server(args)
+    out["descs"] = descs
+    if rank == 0:
+        image = engines[0].generate(GenerationRequest(prompt="mesh", seed=3,
+                                                      num_inference_steps=2), timeout=120)
+        out["image"] = image
+        engines[0].shutdown()
+        server.server_close()
+    else:
+        out["server"] = server
+        engines[0].join()
+    both = cli_serve._parser().parse_args(["--family", "both", "--shard", "--device", "cpu"])
+    try:
+        cli_serve.build_server(both)
+    except SystemExit as e:
+        out["both"] = str(e)
+    return out
