@@ -1,0 +1,4 @@
+"""Set-up: process start to the window's start (host clock)."""
+
+def read(rec):
+    return rec["setup_s"]
