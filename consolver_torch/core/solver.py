@@ -24,6 +24,8 @@ from typing import Tuple
 
 import torch
 
+from consolver_torch.utils import profiling
+
 
 @dataclasses.dataclass(frozen=True)
 class LMMState:
@@ -168,15 +170,21 @@ def gather_alpha_prods(
     final_alpha_cumprod: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """alpha-bar at t and t_prev, with ``final_alpha_cumprod`` where
-    ``t_prev < 0`` (the last step of a trailing ladder)."""
+    ``t_prev < 0`` (the last step of a trailing ladder).  On a CUDA device
+    this blocks the host five times, each inside a ``host.sync`` span: three
+    copies of host numbers, and two indexings by a 0-dim tensor, which read
+    the index back to the host."""
     device = alphas_cumprod.device
-    timestep = torch.as_tensor(timestep, device=device)
-    prev_timestep = torch.as_tensor(prev_timestep, device=device)
-    alpha_prod_t = alphas_cumprod[timestep]
+    timestep = profiling.to_device(timestep, device)
+    prev_timestep = profiling.to_device(prev_timestep, device)
+    with profiling.host_sync():
+        alpha_prod_t = alphas_cumprod[timestep]
+    with profiling.host_sync():
+        alpha_prod_prev = alphas_cumprod[prev_timestep.clamp(0, alphas_cumprod.shape[0] - 1)]
     alpha_prod_t_prev = torch.where(
         prev_timestep >= 0,
-        alphas_cumprod[prev_timestep.clamp(0, alphas_cumprod.shape[0] - 1)],
-        torch.tensor(final_alpha_cumprod, dtype=alphas_cumprod.dtype, device=device),
+        alpha_prod_prev,
+        profiling.to_device(final_alpha_cumprod, device, alphas_cumprod.dtype),
     )
     return alpha_prod_t, alpha_prod_t_prev
 

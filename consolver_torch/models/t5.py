@@ -21,6 +21,7 @@ from torch import nn
 
 from consolver_torch.device import resolve_device
 from consolver_torch.kernels.attention import xla_attention
+from consolver_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,10 +133,10 @@ class T5Encoder(nn.Module):
         dtype = self.final_layer_norm.weight.dtype
         x = self.shared(input_ids).to(dtype)
         s = input_ids.shape[1]
-        buckets = torch.as_tensor(
+        buckets = profiling.to_device(
             relative_position_buckets(s, s, cfg.relative_attention_num_buckets,
                                       cfg.relative_attention_max_distance),
-            device=input_ids.device,
+            input_ids.device,
         )
         position_bias = self.relative_attention_bias(buckets).permute(2, 0, 1)[None].to(dtype)
         for block in self.block:

@@ -22,6 +22,7 @@ from consolver_torch.models import flux as flux_lib
 from consolver_torch.models.vae import AutoencoderKL, chunked_apply
 from consolver_torch.pipelines import fm
 from consolver_torch.policy.factor_net import FactorNet
+from consolver_torch.utils import profiling
 
 
 class FluxKontextPipeline:
@@ -53,19 +54,22 @@ class FluxKontextPipeline:
 
     def encode_prompt(self, t5_ids, clip_ids):
         """(T5 joint embeddings, CLIP pooled embedding)."""
-        return self.t5(t5_ids), self.clip(clip_ids, return_pooled=True)[1]
+        with profiling.span("pipeline.text"):
+            return self.t5(t5_ids), self.clip(clip_ids, return_pooled=True)[1]
 
     def encode_image(self, image: torch.Tensor) -> torch.Tensor:
         """Reference image ``[B, H, W, 3]`` in [-1, 1] -> the latent mean,
         shifted then scaled, NHWC."""
-        mean, _ = self.vae.encode(image)
-        return (mean - self.vae_shift_factor) * self.vae_scaling_factor
+        with profiling.span("pipeline.vae_encode"):
+            mean, _ = self.vae.encode(image)
+            return (mean - self.vae_shift_factor) * self.vae_scaling_factor
 
     def decode_latents(self, latents: torch.Tensor, chunk: Optional[int] = None) -> torch.Tensor:
         """Latents -> images in [0, 1]; ``chunk`` micro-batches the decode."""
-        x = latents / self.vae_scaling_factor + self.vae_shift_factor
-        img = chunked_apply(self.vae.decode, x, chunk)
-        return (img / 2 + 0.5).clamp(0.0, 1.0)
+        with profiling.span("pipeline.decode"):
+            x = latents / self.vae_scaling_factor + self.vae_shift_factor
+            img = chunked_apply(self.vae.decode, x, chunk)
+            return (img / 2 + 0.5).clamp(0.0, 1.0)
 
     def quantize(self, bits: int = 8) -> "FluxKontextPipeline":
         """A quantized copy of this pipeline.  ``bits=8``: W8A8 int8 DiT
@@ -108,16 +112,20 @@ class FluxKontextPipeline:
                 tokens = torch.cat([x, ref_tokens], dim=1)
                 guidance = torch.full((x.shape[0],), guidance_scale, dtype=torch.float32,
                                       device=x.device)
-                v = self.transformer(tokens, prompt_embeds, pooled, t, guidance, img_ids, txt_ids)
+                with profiling.span("model.dit", tokens.shape[0]):
+                    v = self.transformer(tokens, prompt_embeds, pooled, t, guidance, img_ids,
+                                         txt_ids)
                 return v[:, :seq_len_target]
             pe, pooled, neg_pe, neg_pooled, ref_tokens = cond
             tokens = torch.cat([x, ref_tokens], dim=1)
             tokens2 = torch.cat([tokens, tokens], dim=0)
             guidance = torch.full((tokens2.shape[0],), guidance_scale, dtype=torch.float32,
                                   device=x.device)
-            v = self.transformer(tokens2, torch.cat([pe, neg_pe], dim=0),
-                                 torch.cat([pooled, neg_pooled], dim=0), torch.cat([t, t], dim=0),
-                                 guidance, img_ids, txt_ids)[:, :seq_len_target]
+            with profiling.span("model.dit", tokens2.shape[0]):
+                v = self.transformer(tokens2, torch.cat([pe, neg_pe], dim=0),
+                                     torch.cat([pooled, neg_pooled], dim=0),
+                                     torch.cat([t, t], dim=0),
+                                     guidance, img_ids, txt_ids)[:, :seq_len_target]
             v_pos, v_neg = v.chunk(2, dim=0)
             return v_neg + true_cfg_scale * (v_pos - v_neg)
 
@@ -226,7 +234,7 @@ class FluxKontextPipeline:
         and euler only).  Negative-prompt ids with ``true_cfg_scale > 1``
         turn on the true-CFG double forward."""
         t5_ids, clip_ids, ref_image, noise = (
-            torch.as_tensor(a, device=self.device) for a in (t5_ids, clip_ids, ref_image, noise))
+            profiling.to_device(a, self.device) for a in (t5_ids, clip_ids, ref_image, noise))
         _, lh, lw, _ = noise.shape
         prompt_embeds, pooled = self.encode_prompt(t5_ids, clip_ids)
         ref_tokens = flux_lib.pack_latents(self.encode_image(ref_image))
@@ -240,8 +248,8 @@ class FluxKontextPipeline:
                 raise ValueError("true-CFG needs neg_clip_ids alongside neg_t5_ids "
                                  "(tokenize the negative prompt with both tokenizers)")
             neg_embeds, neg_pooled = self.encode_prompt(
-                torch.as_tensor(neg_t5_ids, device=self.device),
-                torch.as_tensor(neg_clip_ids, device=self.device))
+                profiling.to_device(neg_t5_ids, self.device),
+                profiling.to_device(neg_clip_ids, self.device))
             cond = (prompt_embeds, pooled, neg_embeds, neg_pooled, ref_tokens)
         else:
             cond = (prompt_embeds, pooled, ref_tokens)

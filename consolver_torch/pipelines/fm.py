@@ -21,6 +21,7 @@ import torch
 from consolver_torch.core import schedules, solver
 from consolver_torch.pipelines.t2i import Trajectory, _solver_dims
 from consolver_torch.policy.factor_net import FactorNet
+from consolver_torch.utils import profiling
 
 FM_SOLVERS = ("euler", "heun", "dpm-solver", "dpm-solver-multistep")
 
@@ -43,22 +44,18 @@ def _make_fm_loop(
     order_dim, scaler_dim, action_dims = _solver_dims(factor_net)
     use_conv = factor_net is not None and factor_net.config.use_conv
 
-    def loop(generator, noise, cond, ts, sig_t, sig_next, valid, padded, per_token_timesteps=None):
-        device = noise.device
-        batch = noise.shape[0]
-        st = solver.init_state(batch, order_dim, tuple(noise.shape[1:]), device=device)
-        x = noise
-        if per_token_ladder is not None:
-            ladder = torch.as_tensor(per_token_ladder, dtype=torch.float32, device=device)
-            ptts = torch.as_tensor(per_token_timesteps, dtype=torch.float32, device=device)
-        records = []
-        for t, s_t, s_next, v_row in zip(ts.tolist(), sig_t.tolist(), sig_next.tolist(),
-                                         valid.tolist()):
-            t_in = torch.full((batch,), t, dtype=torch.float32, device=device)
-            vel = velocity_fn(x, t_in, cond).float()
-            x32 = x.float()
+    def step(generator, cond, t, s_t, s_next, v_row, x, st, ptts, ladder, padded):
+        """One step: the velocity model, then the policy and the solver
+        update (``pipeline.policy``); returns (x, state, per-token
+        timesteps, the step's record)."""
+        device = x.device
+        batch = x.shape[0]
+        t_in = torch.full((batch,), t, dtype=torch.float32, device=device)
+        vel = velocity_fn(x, t_in, cond).float()
 
-            conds_x = torch.tensor([s_t, s_next], dtype=torch.float32, device=device)
+        with profiling.span("pipeline.policy"):
+            x32 = x.float()
+            conds_x = profiling.to_device([s_t, s_next], device, torch.float32)
             conds_x = conds_x[None].expand(batch, 2)
             st_new = solver.push(st, vel)
             if factor_net is not None:
@@ -87,12 +84,31 @@ def _make_fm_loop(
                 dt = float(np.float32(s_next) - np.float32(s_t))
                 x = solver.fm_euler_update(x32, effective, dt).to(x.dtype)
                 st = st_new
-            if record_trajectory:
-                record = {"conds_x": conds_x, "actions": actions, "probs": probs, "masks": masks}
-                if padded:
-                    record["valid"] = torch.full((batch,), float(v_row), device=device)
-                if use_conv:  # the history after the step (unchanged on a pad step)
-                    record["conds_eps"] = st.ets
+        record = None
+        if record_trajectory:
+            record = {"conds_x": conds_x, "actions": actions, "probs": probs, "masks": masks}
+            if padded:
+                record["valid"] = torch.full((batch,), float(v_row), device=device)
+            if use_conv:  # the history after the step (unchanged on a pad step)
+                record["conds_eps"] = st.ets
+        return x, st, ptts, record
+
+    def loop(generator, noise, cond, ts, sig_t, sig_next, valid, padded, per_token_timesteps=None):
+        device = noise.device
+        batch = noise.shape[0]
+        st = solver.init_state(batch, order_dim, tuple(noise.shape[1:]), device=device)
+        x = noise
+        ladder = ptts = None
+        if per_token_ladder is not None:
+            ladder = profiling.to_device(per_token_ladder, device, torch.float32)
+            ptts = profiling.to_device(per_token_timesteps, device, torch.float32)
+        records = []
+        for i, (t, s_t, s_next, v_row) in enumerate(zip(ts.tolist(), sig_t.tolist(),
+                                                        sig_next.tolist(), valid.tolist())):
+            with profiling.span("pipeline.step", i):
+                x, st, ptts, record = step(generator, cond, t, s_t, s_next, v_row, x, st, ptts,
+                                           ladder, padded)
+            if record is not None:
                 records.append(record)
 
         if not record_trajectory:
@@ -252,9 +268,11 @@ def make_fm_baseline_denoise_fn(
         x = noise
         batch = x.shape[0]
         for i, t in enumerate(s.timesteps):
-            t_in = torch.full((batch,), float(t), dtype=torch.float32, device=x.device)
-            v = velocity_fn(x, t_in, cond).float()
-            x = s.step(i, x, v).to(noise.dtype)
+            with profiling.span("pipeline.step", i):
+                t_in = torch.full((batch,), float(t), dtype=torch.float32, device=x.device)
+                v = velocity_fn(x, t_in, cond).float()
+                with profiling.span("pipeline.policy"):
+                    x = s.step(i, x, v).to(noise.dtype)
         return x
 
     return denoise

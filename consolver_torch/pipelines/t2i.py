@@ -33,6 +33,7 @@ from consolver_torch.models.vae import AutoencoderKL
 from consolver_torch.models.vae import decode_latents as _decode_latents
 from consolver_torch.pipelines import solver_zoo
 from consolver_torch.policy.factor_net import FactorNet
+from consolver_torch.utils import profiling
 
 UNetApply = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -72,26 +73,26 @@ def _make_loop(
     do_cfg = guidance_scale > 1.0
     use_conv = factor_net is not None and factor_net.config.use_conv
 
-    def loop(generator, noise, context, uncond_context, ts, prev_ts, valid, padded):
-        device = noise.device
-        batch = noise.shape[0]
-        alphas = torch.as_tensor(schedule.alphas_cumprod, device=device)
-        full_context = torch.cat([uncond_context, context], dim=0) if do_cfg else context
-        st = solver.init_state(batch, order_dim, tuple(noise.shape[1:]), device=device)
-        latents = noise.float()
-        records = []
-        for t, t_prev, v in zip(ts.tolist(), prev_ts.tolist(), valid.tolist()):
-            if do_cfg:
-                t_in = torch.full((2 * batch,), t, dtype=torch.int64, device=device)
+    def step(generator, t, t_prev, v, latents, st, full_context, alphas, padded):
+        """One step: the UNet (``model.unet``), then the policy and the
+        solver update (``pipeline.policy``); returns (latents, state,
+        the step's record)."""
+        device = latents.device
+        batch = latents.shape[0]
+        if do_cfg:
+            t_in = torch.full((2 * batch,), t, dtype=torch.int64, device=device)
+            with profiling.span("model.unet", 2 * batch):
                 eps_all = unet_apply(torch.cat([latents, latents], dim=0), t_in, full_context)
-                eps_uncond, eps_text = eps_all.chunk(2, dim=0)
-                eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
-            else:
-                t_in = torch.full((batch,), t, dtype=torch.int64, device=device)
+            eps_uncond, eps_text = eps_all.chunk(2, dim=0)
+            eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
+        else:
+            t_in = torch.full((batch,), t, dtype=torch.int64, device=device)
+            with profiling.span("model.unet", batch):
                 eps = unet_apply(latents, t_in, full_context)
-            eps = eps.float()
+        eps = eps.float()
 
-            conds_x = torch.tensor([t, t_prev], dtype=torch.float32, device=device)
+        with profiling.span("pipeline.policy"):
+            conds_x = profiling.to_device([t, t_prev], device, torch.float32)
             conds_x = conds_x[None].expand(batch, 2)
             # The history is pushed before the policy reads it.
             st_new = solver.push(st, eps)
@@ -117,12 +118,28 @@ def _make_loop(
                     scaled_sample, effective, a_t, a_prev, schedule.prediction_type
                 )
                 st = st_new
-            if record_trajectory:
-                record = {"conds_x": conds_x, "actions": actions, "probs": probs, "masks": masks}
-                if padded:
-                    record["valid"] = torch.full((batch,), float(v), device=device)
-                if use_conv:  # the history after the step (unchanged on a pad step)
-                    record["conds_eps"] = st.ets
+        record = None
+        if record_trajectory:
+            record = {"conds_x": conds_x, "actions": actions, "probs": probs, "masks": masks}
+            if padded:
+                record["valid"] = torch.full((batch,), float(v), device=device)
+            if use_conv:  # the history after the step (unchanged on a pad step)
+                record["conds_eps"] = st.ets
+        return latents, st, record
+
+    def loop(generator, noise, context, uncond_context, ts, prev_ts, valid, padded):
+        device = noise.device
+        batch = noise.shape[0]
+        alphas = profiling.to_device(schedule.alphas_cumprod, device)
+        full_context = torch.cat([uncond_context, context], dim=0) if do_cfg else context
+        st = solver.init_state(batch, order_dim, tuple(noise.shape[1:]), device=device)
+        latents = noise.float()
+        records = []
+        for i, (t, t_prev, v) in enumerate(zip(ts.tolist(), prev_ts.tolist(), valid.tolist())):
+            with profiling.span("pipeline.step", i):
+                latents, st, record = step(generator, t, t_prev, v, latents, st, full_context,
+                                           alphas, padded)
+            if record is not None:
                 records.append(record)
 
         if not record_trajectory:
@@ -245,11 +262,13 @@ class TextToImagePipeline:
 
     def _encode(self, prompt_ids, uncond_ids):
         """(context, uncond_context) of the prompt and the empty prompt."""
-        return self.text_encoder(prompt_ids), self.text_encoder(uncond_ids)
+        with profiling.span("pipeline.text"):
+            return self.text_encoder(prompt_ids), self.text_encoder(uncond_ids)
 
     def decode_latents(self, latents: torch.Tensor, chunk: Optional[int] = None) -> torch.Tensor:
         """Scaled latents -> [0, 1] images."""
-        return _decode_latents(self.vae, latents, chunk=chunk)
+        with profiling.span("pipeline.decode"):
+            return _decode_latents(self.vae, latents, chunk=chunk)
 
     def uncond_ids_for(self, prompt_ids) -> torch.Tensor:
         """The empty prompt's ids for CFG, from the attached tokenizer (else
@@ -259,7 +278,7 @@ class TextToImagePipeline:
         ids = uncond_input_ids(
             tok, int(prompt_ids.shape[0]), max_len, vocab_size=self.text_encoder.cfg.vocab_size
         )
-        return torch.as_tensor(ids, device=self.device)
+        return profiling.to_device(ids, self.device)
 
     def quantize(self, skip_levels: Tuple[int, ...] = (0,)) -> "TextToImagePipeline":
         """A W8A8 int8 copy of this pipeline for serving and rollouts: the
@@ -357,11 +376,11 @@ class TextToImagePipeline:
         solver's noise (it must live on the pipeline's device);
         ``padded_max_steps`` routes through the
         pad-to-max program."""
-        prompt_ids = torch.as_tensor(prompt_ids, device=self.device)
-        noise = torch.as_tensor(noise, device=self.device)
+        prompt_ids = profiling.to_device(prompt_ids, self.device)
+        noise = profiling.to_device(noise, self.device)
         if uncond_ids is None:
             uncond_ids = self.uncond_ids_for(prompt_ids)
-        uncond_ids = torch.as_tensor(uncond_ids, device=self.device)
+        uncond_ids = profiling.to_device(uncond_ids, self.device)
         context, uncond_context = self._encode(prompt_ids, uncond_ids)
         if padded_max_steps is not None:
             if solver != "consistencysolver":

@@ -50,6 +50,7 @@ import contextlib
 import copy
 import dataclasses
 import heapq
+import itertools
 import queue
 import threading
 import time
@@ -65,6 +66,7 @@ from consolver_torch.dist.mesh import gather_batch, shard_slice
 from consolver_torch.dist.tp import FLUX_TP_RULES, UNET_TP_RULES, shard_module_by_rules
 from consolver_torch.policy import io as policy_io
 from consolver_torch.policy.factor_net import ShardedGenerator
+from consolver_torch.utils import profiling
 
 # solvers with a policy whose actions the deterministic knob affects; for
 # zoo solvers the knob is a no-op and must not fork programs or batches
@@ -154,6 +156,15 @@ class _BatchingEngine:
     copies the uint8 batch to the host on a stream of its own.  The fetch
     queue holds at most 2 batches (backpressure on the worker).
 
+    Spans (:mod:`consolver_torch.utils.profiling`) go to the engine's own
+    totals (``spans``; :meth:`stats` reports them): ``engine.queue``
+    (submit to dispatch, per request), ``engine.batch`` (the worker's
+    dispatch of one batch), ``engine.prep`` (:meth:`_message`) and
+    ``engine.fetch`` (the wait for the batch and its copy to the host),
+    plus the pipeline's spans inside each batch and the HTTP handler's.
+    The rings ``_wait_ms`` and ``_dispatch_ms`` take the same stamps as
+    ``engine.queue`` and ``engine.batch``.
+
     Parameters
     ----------
     batch_size : int
@@ -222,6 +233,8 @@ class _BatchingEngine:
         self._wait_ms: collections.deque = collections.deque(maxlen=512)
         self._exec_ms: collections.deque = collections.deque(maxlen=512)
         self._dispatch_ms: collections.deque = collections.deque(maxlen=512)
+        self.spans = profiling.SpanTotals()
+        self._batch_ids = itertools.count()
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                              else None)
         self._stop = threading.Event()
@@ -263,14 +276,17 @@ class _BatchingEngine:
         self._follower.join()
 
     # ------------------------------------------------------------- public
-    def submit(self, request) -> Future:
-        """Enqueue; the Future resolves to an ``[H, W, 3]`` uint8 image."""
+    def submit(self, request, request_id: Optional[int] = None) -> Future:
+        """Enqueue; the Future resolves to an ``[H, W, 3]`` uint8 image.
+        ``request_id`` (the HTTP handler's) labels the request's batch in
+        a profiler trace."""
         self._check_leader()
         if self._stop.is_set():
             raise EngineShutDown("engine is shut down")
         fut: Future = Future()
-        now = time.monotonic()
-        self._queue.put((request, fut, now))  # blocks when max_queue deep
+        now_ns = time.monotonic_ns()
+        now = now_ns / 1e9
+        self._queue.put((request, fut, now_ns, request_id))  # blocks when max_queue deep
         with self._lock:
             self._stats["requests"] += 1
             # the inter-arrival EMA feeds the adaptive flush window; idle
@@ -288,9 +304,10 @@ class _BatchingEngine:
                 fut.set_exception(EngineShutDown("engine is shut down"))
         return fut
 
-    def generate(self, request, timeout: Optional[float] = None) -> np.ndarray:
+    def generate(self, request, timeout: Optional[float] = None,
+                 request_id: Optional[int] = None) -> np.ndarray:
         """Blocking convenience wrapper around :meth:`submit`."""
-        return self.submit(request).result(timeout)
+        return self.submit(request, request_id).result(timeout)
 
     def prewarm(self, *requests, timeout: Optional[float] = None) -> int:
         """Run one padded dummy batch per distinct ``program_key`` at EVERY
@@ -340,6 +357,8 @@ class _BatchingEngine:
             s = dict(self._stats)
             rings = {"queue_wait_ms": sorted(self._wait_ms), "execute_ms": sorted(self._exec_ms),
                      "dispatch_ms": sorted(self._dispatch_ms)}
+        # cumulative since the engine started, prewarm included
+        s["spans"] = self.spans.snapshot()
         total_rows = s["batched_rows"] + s["padded_rows"]
         s["mean_batch_occupancy"] = s["batched_rows"] / total_rows if total_rows else 0.0
         # the share of computed rows that were padding
@@ -399,11 +418,11 @@ class _BatchingEngine:
 
     # ------------------------------------------------------------- worker
     def _on_device(self, fn):
-        """``fn()`` in inference mode, with the engine's device current
-        (both are per thread)."""
+        """``fn()`` in inference mode, with the engine's device current and
+        its span totals active (all three are per thread)."""
         ctx = torch.cuda.device(self.device) if self.device.type == "cuda" else (
             contextlib.nullcontext())
-        with ctx, torch.inference_mode():
+        with ctx, torch.inference_mode(), profiling.use(self.spans):
             return fn()
 
     def _run(self) -> None:
@@ -454,14 +473,15 @@ class _BatchingEngine:
                     deadline = time.monotonic() + self._flush_s
                     continue
                 break
-            now = time.monotonic()
+            now_ns = time.monotonic_ns()
             key, batch, rest, expired = None, [], collections.deque(), 0
             for item in self._pending:
-                if self._max_wait_s is not None and now - item[2] > self._max_wait_s:
+                queued_s = (now_ns - item[2]) / 1e9
+                if self._max_wait_s is not None and queued_s > self._max_wait_s:
                     expired += 1
                     if not item[1].done():
                         item[1].set_exception(RequestExpired(
-                            f"request queued {now - item[2]:.1f}s > max_wait_s={self._max_wait_s}"))
+                            f"request queued {queued_s:.1f}s > max_wait_s={self._max_wait_s}"))
                     continue
                 if key is None:
                     key = item[0].program_key
@@ -498,10 +518,12 @@ class _BatchingEngine:
         return images, ready
 
     def _serve_batch(self, batch) -> None:
-        t0 = time.monotonic()
         size = self._pick_size(len(batch), self._wants_pinned_shape([it[0] for it in batch]))
+        ids = [it[3] for it in batch if it[3] is not None]
+        dispatch = profiling.span("engine.batch", (next(self._batch_ids), ids))
         try:
-            images, ready = self._run_batch([item[0] for item in batch])
+            with dispatch:
+                images, ready = self._run_batch([item[0] for item in batch])
         except Exception as exc:  # surface to every caller in the batch
             with self._lock:
                 self._stats["errors"] += len(batch)
@@ -510,9 +532,9 @@ class _BatchingEngine:
                 item[1].set_exception(exc)
             return
         with self._lock:
-            self._dispatch_ms.append((time.monotonic() - t0) * 1e3)
+            self._dispatch_ms.append(dispatch.ns / 1e6)
         # blocks at 2 batches in flight: device-memory backpressure
-        self._fetch_queue.put((batch, images, ready, t0, size))
+        self._fetch_queue.put((batch, images, ready, dispatch.start_ns, size))
 
     def _fetch_loop(self) -> None:
         """Fetcher thread: wait for each dispatched batch, copy it to the
@@ -522,14 +544,15 @@ class _BatchingEngine:
             item = self._fetch_queue.get()
             if item is None:
                 return
-            batch, images, ready, t0, size = item
+            batch, images, ready, t0_ns, size = item
             try:
-                if ready is not None:
-                    ready.synchronize()
-                stream = (torch.cuda.stream(self._copy_stream) if self._copy_stream is not None
-                          else contextlib.nullcontext())
-                with stream:
-                    host = self._fetch(images, len(batch))
+                with profiling.use(self.spans), profiling.span("engine.fetch"):
+                    if ready is not None:
+                        ready.synchronize()
+                    stream = (torch.cuda.stream(self._copy_stream)
+                              if self._copy_stream is not None else contextlib.nullcontext())
+                    with stream:
+                        host = self._fetch(images, len(batch))
             except Exception as exc:  # runtime errors surface at readback
                 with self._lock:
                     self._stats["errors"] += len(batch)
@@ -538,21 +561,24 @@ class _BatchingEngine:
                     if not it[1].done():
                         it[1].set_exception(exc)
                 continue
-            t1 = time.monotonic()
+            t1_ns = time.monotonic_ns()
             with self._lock:
                 self._stats["batches"] += 1
                 self._stats["batched_rows"] += len(batch)
                 self._stats["padded_rows"] += size - len(batch)
                 self._stats["completed"] += len(batch)
-                self._exec_ms.append((t1 - t0) * 1e3)
-                self._wait_ms.extend((t0 - it[2]) * 1e3 for it in batch)
-            for (_, fut, _), img in zip(batch, host):
+                self._exec_ms.append((t1_ns - t0_ns) / 1e6)
+                self._wait_ms.extend((t0_ns - it[2]) / 1e6 for it in batch)
+            for it in batch:
+                self.spans.record("engine.queue", it[2], t0_ns)
+            for (_, fut, _, _), img in zip(batch, host):
                 fut.set_result(img)
 
     def _dispatch(self, requests):
         """list of requests -> on-device uint8 image batch; on a mesh, the
         batch is broadcast to the followers first."""
-        msg = self._message(requests)
+        with profiling.span("engine.prep"):
+            msg = self._message(requests)
         if self.mesh is None:
             return self._execute(msg)
         with self._mesh_lock:
@@ -751,7 +777,7 @@ class InferenceEngine(_BatchingEngine):
 
             def run(pipe, generator, seeds, ids):
                 shape = (self.latent_size, self.latent_size, pipe.unet.cfg.in_channels)
-                noise = seed_noise(seeds, shape).to(pipe.device)
+                noise = profiling.to_device(seed_noise(seeds, shape), pipe.device)
                 images, _ = pipe(generator, ids, noise, num_inference_steps=steps,
                                  guidance_scale=cfg_scale, solver=solver,
                                  deterministic_policy=deterministic, padded_max_steps=padded,
@@ -831,7 +857,7 @@ class EditInferenceEngine(_BatchingEngine):
 
             def run(pipe, generator, seeds, t5_ids, clip_ids, ref):
                 shape = (self.latent_size, self.latent_size, pipe.vae.cfg.latent_channels)
-                noise = seed_noise(seeds, shape).to(pipe.device)
+                noise = profiling.to_device(seed_noise(seeds, shape), pipe.device)
                 images, _ = pipe(generator, t5_ids, clip_ids, ref, noise,
                                  num_inference_steps=steps, guidance_scale=cfg_scale,
                                  solver=solver, deterministic_policy=deterministic,
@@ -889,13 +915,16 @@ def _pin_to_device(pipeline, device, module_attrs: Tuple[str, ...]):
 class ReplicaGroup:
     """One engine per device with least-loaded dispatch: each replica owns a
     full model copy and its own queue.  Quacks like an engine
-    (submit / generate / prewarm / stats / shutdown / hot reload)."""
+    (submit / generate / prewarm / stats / shutdown / hot reload); its own
+    ``spans`` take the HTTP handler's spans, and :meth:`stats` sums them with
+    the replicas'."""
 
     def __init__(self, engines):
         engines = list(engines)
         if not engines:
             raise ValueError("ReplicaGroup needs at least one engine")
         self.engines = engines
+        self.spans = profiling.SpanTotals()
         self._inflight = [0] * len(engines)
         self._rr = 0
         self._lock = threading.Lock()
@@ -904,7 +933,7 @@ class ReplicaGroup:
     def batch_size(self) -> int:
         return self.engines[0].batch_size
 
-    def submit(self, request) -> Future:
+    def submit(self, request, request_id: Optional[int] = None) -> Future:
         """Dispatch to the replica with the fewest in-flight requests
         (round-robin among ties)."""
         n = len(self.engines)
@@ -913,7 +942,7 @@ class ReplicaGroup:
             i = min(order, key=lambda j: self._inflight[j])
             self._rr = (i + 1) % n
             self._inflight[i] += 1
-        fut = self.engines[i].submit(request)
+        fut = self.engines[i].submit(request, request_id)
 
         def _done(_fut, i=i):
             with self._lock:
@@ -922,8 +951,9 @@ class ReplicaGroup:
         fut.add_done_callback(_done)
         return fut
 
-    def generate(self, request, timeout: Optional[float] = None) -> np.ndarray:
-        return self.submit(request).result(timeout)
+    def generate(self, request, timeout: Optional[float] = None,
+                 request_id: Optional[int] = None) -> np.ndarray:
+        return self.submit(request, request_id).result(timeout)
 
     def prewarm(self, *requests, timeout: Optional[float] = None) -> int:
         """Warm EVERY replica."""
@@ -951,6 +981,7 @@ class ReplicaGroup:
             if xs:
                 agg[f"{name}_p50"] = round(xs[len(xs) // 2], 1)
                 agg[f"{name}_p95"] = round(xs[int(len(xs) * 0.95)], 1)
+        agg["spans"] = profiling.merge([self.spans.snapshot()] + [s["spans"] for s in per])
         agg["per_replica"] = per
         return agg
 

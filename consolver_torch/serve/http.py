@@ -6,6 +6,9 @@ Endpoints
 ---------
 ``GET /healthz``          liveness probe -> ``{"ok": true}``
 ``GET /v1/stats``         engine counters (batches, occupancy, errors, latency)
+                          and ``spans``: per span name, ``count``,
+                          ``total_ms``, ``self_ms`` and ``blocked_ms`` since
+                          the engine started (below)
 ``POST /v1/generate``     ``{"prompt", "seed", "num_inference_steps",
                           "guidance_scale", "solver", "deterministic"}`` ->
                           JSON with a base64 PNG (``image_png_b64``) + timing.
@@ -35,12 +38,30 @@ any pixel is decoded; anything but an 8-bit non-interlaced PNG is refused
 
 A ``ThreadingHTTPServer`` handles the sockets; every handler thread blocks on
 the engine's future, so concurrent requests coalesce into one batch.
+
+Where the time goes, for an operator: ``/v1/stats``'s ``spans`` holds the
+running totals of the program's spans (:mod:`consolver_torch.utils.
+profiling`).  Each generate or edit request gets an id, and its handler
+records ``serve.request`` (the whole handler), ``serve.png_decode`` (an
+edit's source), ``serve.engine_wait`` (blocked on the engine) and
+``serve.png_encode`` (the answer's PNG and base64); the engine adds
+``engine.queue``, ``engine.batch``, ``engine.prep`` and ``engine.fetch``,
+and the pipeline ``pipeline.text``, ``pipeline.vae_encode``,
+``pipeline.step`` (with ``model.unet`` / ``model.dit`` and
+``pipeline.policy`` inside), ``pipeline.decode`` and ``host.sync`` (a copy
+or call of the step loops or their set-up that blocks the host on the card;
+``blocked_ms`` is the time such spans take inside a span).  Differences of two reads give a window's means.
+For a timeline, run the server inside ``profiling.trace(log_dir)``: the
+chrome trace it writes holds the same spans as ranges named
+``<span>#<id>`` on the threads that ran them, beside the kernels they
+launched.
 """
 
 from __future__ import annotations
 
 import base64
 import binascii
+import itertools
 import json
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -55,6 +76,7 @@ from consolver_torch.serve.engine import (
     InferenceEngine,
     RequestExpired,
 )
+from consolver_torch.utils import profiling
 from consolver_torch.utils.png import decode_png, encode_png, png_size
 
 # one oversized /v1/edit body would otherwise fill host RAM before any check
@@ -87,6 +109,8 @@ _COMMON_FIELDS = {
     "deterministic": _json_bool,
 }
 _GENERATE_FIELDS = {"prompt": str, **_COMMON_FIELDS}
+_GENERATE_PATHS = ("/v1/generate", "/v1/refine")
+_EDIT_PATHS = ("/v1/edit", "/v1/edit/refine")
 _EDIT_FIELDS = {"instruction": str, **_COMMON_FIELDS}
 
 
@@ -140,6 +164,18 @@ class ServeHandler(BaseHTTPRequestHandler):
         return {name: cast(payload[name]) for name, cast in fields.items() if name in payload}
 
     def do_POST(self):  # noqa: N802 - stdlib name
+        engine = (self.server.engine if self.path in _GENERATE_PATHS
+                  else self.server.edit_engine if self.path in _EDIT_PATHS else None)
+        if engine is None:  # admin, an unknown path or a family this server lacks
+            self._post(None, None)
+            return
+        rid = next(self.server.request_ids)
+        with profiling.use(engine.spans), profiling.span("serve.request", rid):
+            self._post(engine, rid)
+
+    def _post(self, engine, rid: Optional[int]) -> None:
+        """The POST handler: ``engine`` is the path's engine and ``rid`` the
+        request's id, both None where the path has no engine."""
         try:
             length = int(self.headers.get("Content-Length", 0))
             if length > MAX_BODY_BYTES:
@@ -154,8 +190,7 @@ class ServeHandler(BaseHTTPRequestHandler):
         if self.path == "/v1/admin/reload_factor":
             self._admin_reload_factor(payload)
             return
-        if self.path in ("/v1/generate", "/v1/refine"):
-            engine = self.server.engine
+        if self.path in _GENERATE_PATHS:
             if engine is None:
                 self._reply(404, {"error": "no text-to-image engine configured"})
                 return
@@ -168,8 +203,7 @@ class ServeHandler(BaseHTTPRequestHandler):
             except (ValueError, TypeError) as exc:
                 self._reply(400, {"error": str(exc)})
                 return
-        elif self.path in ("/v1/edit", "/v1/edit/refine"):
-            engine = self.server.edit_engine
+        elif self.path in _EDIT_PATHS:
             if engine is None:
                 self._reply(404, {"error": "no edit engine configured"})
                 return
@@ -180,7 +214,8 @@ class ServeHandler(BaseHTTPRequestHandler):
                         kwargs.setdefault(name, val)
                 if "image_png_b64" not in payload:
                     raise ValueError("missing required field 'image_png_b64'")
-                kwargs["image"] = _decode_image_b64(payload["image_png_b64"])
+                with profiling.span("serve.png_decode", rid):
+                    kwargs["image"] = _decode_image_b64(payload["image_png_b64"])
                 request = EditRequest(**kwargs)
             except (ValueError, TypeError, binascii.Error) as exc:
                 self._reply(400, {"error": str(exc)})
@@ -191,15 +226,19 @@ class ServeHandler(BaseHTTPRequestHandler):
 
         t0 = time.monotonic()
         try:
-            image = engine.generate(request, timeout=self.server.request_timeout)
+            with profiling.span("serve.engine_wait", rid):
+                image = engine.generate(request, timeout=self.server.request_timeout,
+                                        request_id=rid)
         except RequestExpired as exc:  # queue deadline: shed, retryable
             self._reply(503, {"error": f"RequestExpired: {exc}"})
             return
         except Exception as exc:  # an engine or solver error -> 500 with its message
             self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})
             return
+        with profiling.span("serve.png_encode", rid):
+            png = _png_b64(image)
         self._reply(200, {
-            "image_png_b64": _png_b64(image),
+            "image_png_b64": png,
             "height": int(image.shape[0]),
             "width": int(image.shape[1]),
             "seed": request.seed,
@@ -247,6 +286,8 @@ class ServeServer(ThreadingHTTPServer):
         self.engine = engine
         self.edit_engine = edit_engine
         self.request_timeout = request_timeout
+        # each generate or edit request's id, in its spans and its batch's
+        self.request_ids = itertools.count(1)
 
 
 def make_server(

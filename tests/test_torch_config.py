@@ -1,4 +1,4 @@
-"""consolver_torch.configs.config, utils.trees / logging / profiling and
+"""consolver_torch.configs.config, utils.trees / logging and
 data.prompts against the JAX package's counterparts.
 
 The presets are held to ``consolver_tpu.configs.config.ExperimentConfig``
@@ -20,7 +20,6 @@ import torch
 
 from consolver_torch.configs import config as tc
 from consolver_torch.data.prompts import read_prompts
-from consolver_torch.utils import profiling
 from consolver_torch.utils.logging import MetricLogger
 from consolver_torch.utils.trees import cast_floating
 from consolver_tpu.configs import config as jc
@@ -132,19 +131,6 @@ def test_metric_logger_tensorboard_only_when_asked(tmp_path, monkeypatch):
     logger.log(1, {"loss": 1.0, "note": "text"})
     logger.close()
     assert any(p.name.startswith("events.") for p in (tmp_path / "tb").iterdir())
-
-
-def test_step_timer_and_trace(tmp_path):
-    t = profiling.StepTimer()
-    for name in ("rollout", "rollout", "update"):
-        with t.phase(name), t.annotate(name):
-            torch.ones(4).sum()
-    assert set(t.means()) == {"rollout", "update"} and t.counts["rollout"] == 2
-    with profiling.trace(None):
-        pass
-    with profiling.trace(str(tmp_path / "trace")), t.annotate("step"):
-        torch.ones(8).sum()
-    assert any((tmp_path / "trace").iterdir())
 
 
 def test_read_prompts_match_jax(tmp_path):
