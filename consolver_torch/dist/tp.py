@@ -254,6 +254,12 @@ class RowParallel(nn.Module):
         return self.finish(_all_reduce(self.mesh, y), ctx)
 
 
+def is_sharded(module: nn.Module) -> bool:
+    """Whether ``module`` holds a tensor-parallel layer (its forward runs
+    collectives over the model group)."""
+    return any(isinstance(m, (ColumnParallel, RowParallel)) for m in module.modules())
+
+
 def row_parallel_pair(layer_a: nn.Module, x_a: torch.Tensor, layer_b: nn.Module,
                       x_b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(layer_a(x_a), layer_b(x_b))``; two row-parallel layers sum their

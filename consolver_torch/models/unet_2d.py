@@ -18,6 +18,11 @@ convolution outside the top level, the top level's downsampler and the f32
 ``conv_out`` run one sample at a time (``layers.slot_invariant_conv``).
 Deterministic programs take it; sampled ones keep the batched
 convolutions.
+
+``cuda_graphs`` (:class:`~consolver_torch.models.graphs.ForwardGraphs`)
+replays the forward from a CUDA graph per input signature once its owner
+enables it; only a serving engine does (``serve/engine.py``).  Every other
+call runs the eager body.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from torch import nn
 
 from consolver_torch.device import resolve_device
 from consolver_torch.kernels.quant import cast_float_layers
+from consolver_torch.models.graphs import ForwardGraphs
 from consolver_torch.models.layers import (
     Downsample2D,
     ResnetBlock2D,
@@ -170,6 +176,7 @@ class UNet2DCondition(nn.Module):
     def __init__(self, cfg: UNetConfig, device=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
+        self.cuda_graphs = ForwardGraphs("model.unet")
         device = resolve_device(device)
         channels = cfg.block_out_channels
         temb_channels = channels[0] * 4
@@ -213,8 +220,21 @@ class UNet2DCondition(nn.Module):
     def level_quant(self, level: int) -> bool:
         return self.cfg.quant_int8 and level not in self.cfg.quant_skip_levels
 
+    def _apply(self, *args, **kwargs):
+        # new parameter storage: the graphs would read the old
+        self.cuda_graphs.clear()
+        return super()._apply(*args, **kwargs)
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, slot_invariant: bool = False) -> torch.Tensor:
+        inputs = (sample, timesteps, encoder_hidden_states)
+        if self.cuda_graphs.takes(inputs):
+            return self.cuda_graphs(self._forward_eager, inputs, slot_invariant)
+        return self._forward_eager(*inputs, slot_invariant)
+
+    def _forward_eager(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                      encoder_hidden_states: torch.Tensor,
+                      slot_invariant: bool = False) -> torch.Tensor:
         cfg = self.cfg
         dtype = self.conv_in.weight.dtype
         context = encoder_hidden_states.to(dtype)

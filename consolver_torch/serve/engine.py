@@ -63,7 +63,7 @@ import torch
 from consolver_torch.data.edit_prep import center_crop_resize
 from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
 from consolver_torch.dist.mesh import gather_batch, shard_slice
-from consolver_torch.dist.tp import FLUX_TP_RULES, UNET_TP_RULES, shard_module_by_rules
+from consolver_torch.dist.tp import FLUX_TP_RULES, UNET_TP_RULES, is_sharded, shard_module_by_rules
 from consolver_torch.policy import io as policy_io
 from consolver_torch.policy.factor_net import ShardedGenerator
 from consolver_torch.utils import profiling
@@ -132,6 +132,13 @@ def _uint8_in_program(images: torch.Tensor) -> torch.Tensor:
     """[0, 1] float images -> uint8 on the device.  ``torch.round`` rounds
     half to even, as ``jnp.round`` and ``np.round`` do."""
     return torch.round(images.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def unet_graphs_allowed(unet, device) -> bool:
+    """Whether an engine replays ``unet`` from CUDA graphs
+    (``unet.cuda_graphs``): on a CUDA device, for a UNet that is not
+    tensor-parallel (its all_reduces cannot be captured)."""
+    return torch.device(device).type == "cuda" and not is_sharded(unet)
 
 
 def seed_noise(seeds: Sequence[int], shape: Tuple[int, ...]) -> torch.Tensor:
@@ -737,6 +744,12 @@ class InferenceEngine(_BatchingEngine):
     program (zoo solvers keep per-count programs).
     ``mesh``: serve over its ranks (module docstring); with a model axis
     the UNet's transformer blocks are split in place.
+
+    On a CUDA device the engine turns on its UNet's CUDA graphs
+    (:mod:`consolver_torch.models.graphs`) unless the UNet is
+    tensor-parallel: the first batch of each program and batch shape
+    (:meth:`prewarm`, or the first request) captures the UNet's forward,
+    and later batches replay it, one launch per UNet call.
     """
 
     def __init__(
@@ -757,6 +770,10 @@ class InferenceEngine(_BatchingEngine):
         self.pipeline = pipeline
         if mesh is not None:
             shard_module_by_rules(mesh, pipeline.unet, UNET_TP_RULES)
+        # the engine runs a fixed set of batch shapes, so the first batch of
+        # each (program, shape) captures the UNet's graph and the rest replay
+        if unet_graphs_allowed(pipeline.unet, pipeline.device):
+            pipeline.unet.cuda_graphs.enabled = True
         self.latent_size = int(latent_size)
         self.max_length = int(max_length if max_length is not None
                               else pipeline.text_encoder.cfg.max_position_embeddings)

@@ -869,3 +869,167 @@ def test_the_command_line_runs_on_the_card_by_default(cuda, tmp_path):
     from consolver_torch.__main__ import main
 
     assert main(["selftest", "--workdir", str(tmp_path)]) == 0
+
+
+# ------------------------------------------------------- UNet CUDA graphs
+
+
+@pytest.fixture
+def sd15_unet(cuda):
+    """The SD-1.5 UNet at its published widths in bf16, weights from a seed
+    (``probes/unet_graphs.fill_``), graphs off."""
+    from consolver_torch.models.unet_2d import UNet2DCondition, UNetConfig
+    from consolver_torch.probes.unet_graphs import fill_
+
+    fa.build()
+    unet = UNet2DCondition(UNetConfig.sd15(), device="meta", dtype=torch.bfloat16)
+    return fill_(unet.to_empty(device=cuda), seed=16)
+
+
+def _graph_spans(run):
+    from consolver_torch.utils import profiling
+
+    totals = profiling.SpanTotals()
+    with profiling.use(totals):
+        out = run()
+    snap = totals.snapshot()
+    return out, {k.rpartition(".")[2]: snap[k]["count"] for k in snap if k.startswith("model.unet.")}
+
+
+@pytest.mark.parametrize("rows", [2, 16])
+def test_unet_graph_replays_the_eager_forward_bit_for_bit(sd15_unet, rows):
+    """A lone preview's UNet call (2 rows under CFG) and a batch of 8's (16):
+    the capturing call and two replays on new inputs equal the eager
+    forward, and each replay returns a fresh tensor, never the graph's
+    buffer."""
+    from consolver_torch.probes.unet_graphs import inputs
+
+    unet = sd15_unet
+    xs = [inputs(rows, unet.conv_in.weight.device, seed) for seed in (1, 2, 3)]
+    with torch.inference_mode():
+        want = [unet(*x) for x in xs]
+        unet.cuda_graphs.enabled = True
+        got, spans = _graph_spans(lambda: [unet(*x) for x in xs])
+        graph = next(iter(unet.cuda_graphs._graphs.values()))
+        assert graph is not None
+        assert got[2].data_ptr() != graph.output.data_ptr()
+        assert not torch.equal(got[1], got[2])
+    assert spans == {"capture": 1, "replay": 2}
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_unet_graph_keeps_the_slot_invariant_route_slot_invariant(sd15_unet):
+    """The deterministic programs' route at a batch of 8 (16 rows under
+    CFG): one sample (its two CFG rows) at every slot 0-7 among other
+    samples, replayed, gives the eager forward's bits of slot 0."""
+    from consolver_torch.probes.unet_graphs import inputs
+
+    unet = sd15_unet
+    dev = unet.conv_in.weight.device
+    lat, t, ctx = inputs(16, dev, 4)
+    one_lat, _, one_ctx = inputs(2, dev, 5)
+
+    def at_slot(k):
+        x, c = lat.clone(), ctx.clone()
+        x[[k, 8 + k]], c[[k, 8 + k]] = one_lat, one_ctx
+        return x, t, c
+
+    with torch.inference_mode():
+        want = unet(*at_slot(0), slot_invariant=True)[[0, 8]]
+        unet.cuda_graphs.enabled = True
+        got, spans = _graph_spans(lambda: [unet(*at_slot(k), slot_invariant=True)[[k, 8 + k]]
+                                           for k in range(8)])
+    assert spans == {"capture": 1, "replay": 7}
+    assert all(torch.equal(g, want) for g in got)
+
+
+def test_unet_graph_sees_weights_loaded_after_capture(sd15_unet):
+    from consolver_torch.probes.unet_graphs import fill_, inputs
+
+    unet = sd15_unet
+    x = inputs(2, unet.conv_in.weight.device, 6)
+    with torch.inference_mode():
+        unet.cuda_graphs.enabled = True
+        before = unet(*x)
+    new = {k: v.clone() for k, v in fill_(copy.deepcopy(unet), seed=17).state_dict().items()}
+    with torch.no_grad():
+        unet.load_state_dict(new)
+    with torch.inference_mode():
+        got, spans = _graph_spans(lambda: unet(*x))
+        want = unet._forward_eager(*x)
+    assert spans == {"replay": 1}
+    assert torch.equal(got, want) and not torch.equal(got, before)
+
+
+def test_int8_unet_replays_its_eager_output_or_falls_back_counted(sd15_unet):
+    """The hybrid int8 UNet (``quantize()``'s, level 0 bf16) at 2 rows."""
+    import dataclasses
+
+    from consolver_torch.kernels import quant as tq
+    from consolver_torch.models.unet_2d import UNet2DCondition
+    from consolver_torch.probes.unet_graphs import inputs
+
+    cfg = dataclasses.replace(sd15_unet.cfg, quant_int8=True, quant_skip_levels=(0,))
+    unet = tq.quantize_like(UNet2DCondition(cfg, device="meta"), sd15_unet)
+    del sd15_unet
+    xs = [inputs(2, unet.conv_in.weight.device, seed) for seed in (7, 8)]
+    with torch.inference_mode():
+        want = [unet(*x) for x in xs]
+        int_mm = tq.int_mm.launches
+        unet(*xs[0])
+        eager_int_mm = tq.int_mm.launches - int_mm
+        unet.cuda_graphs.enabled = True
+        int_mm = tq.int_mm.launches
+        got, spans = _graph_spans(lambda: [unet(*x) for x in xs])
+    captured = list(unet.cuda_graphs.signatures.values())
+    if captured == [True]:
+        assert spans == {"capture": 1, "replay": 1}
+        assert tq.int_mm.launches - int_mm == 2 * eager_int_mm > 0
+    else:
+        assert captured == [False] and spans == {"eager_fallback": 1}
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_served_batches_replay_the_unet_graph_with_eager_launch_counts(cuda, monkeypatch):
+    """The tiny f32 stack served at shapes 1 and 4, 8 steps: prewarm
+    captures each shape once; later batches replay all 8 steps, with the
+    eager engine's images and kernel #1 launches per batch."""
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+    from consolver_torch.serve import GenerationRequest, InferenceEngine
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    net = FactorNet(FactorNetConfig(order_dim=2, scaler_dim=0, num_actions=11), device="cpu")
+    pipes = [_tiny_sd_pipelines(cuda, factor_net=net, seed=18)[1] for _ in range(2)]
+
+    def req(i):
+        return GenerationRequest(prompt=f"prompt {i}", seed=300 + i, num_inference_steps=8)
+
+    runs = []
+    for graphs_on, pipe in zip((False, True), pipes):
+        with InferenceEngine(pipe, batch_size=4, batch_sizes=(1, 4), latent_size=8,
+                             flush_ms=300.0) as eng:
+            assert pipe.unet.cuda_graphs.enabled
+            pipe.unet.cuda_graphs.enabled = graphs_on
+            eng.prewarm(req(99))
+            set_up = eng.stats()["spans"]
+            launches, images = [], []
+            for batch in ([0], [1, 2, 3, 4], [5]):
+                before = fa.flash_attention.launches
+                futs = [eng.submit(req(i)) for i in batch]
+                images += [f.result(timeout=300) for f in futs]
+                launches.append(fa.flash_attention.launches - before)
+            spans = eng.stats()["spans"]
+        runs.append((launches, images, set_up, spans))
+    (eager_launches, eager_images, _, _), (launches, images, set_up, spans) = runs
+
+    def count(snap, name):
+        return snap.get(name, {}).get("count", 0)
+
+    assert launches == eager_launches and min(launches) > 0
+    assert all((a == b).all() for a, b in zip(images, eager_images))
+    assert count(set_up, "model.unet.capture") == 2
+    assert count(set_up, "model.unet.replay") == 2 * 7
+    assert count(spans, "model.unet.capture") == 2
+    assert count(spans, "model.unet.replay") - count(set_up, "model.unet.replay") == 3 * 8
+    assert count(spans, "model.unet") - count(set_up, "model.unet") == 3 * 8
