@@ -267,6 +267,22 @@ FLUX_CASES = [
 ]
 LAUNCHES_PER_EDIT = sum(c[3] for c in FLUX_CASES)
 
+# Stable Diffusion 3.5 Large as `serve --family sd35` serves it (SD3Pipeline):
+# 1024^2, 128x128x16 latents -> 4096 image tokens (patch 2) + 77 CLIP + 256
+# T5 tokens = 4429 joint tokens, 38 heads x 64; one 2-row CFG MMDiT call a
+# step, one joint attention in each of its 38 blocks.  4429 = 69 * 64 + 13,
+# so the last query and key tiles are partial.  The decode's VAE mid block
+# at 1024^2 is FLUX's shape.
+SD35_STEPS = 8
+SD35_GUIDANCE = 3.5
+SD35_T5_TOKENS = 256
+SD35_JOINT = 4096 + 77 + SD35_T5_TOKENS
+SD35_CASES = [
+    ("sd35_joint", (2, SD35_JOINT, 38, 64), SD35_JOINT, SD35_STEPS * 38),
+    ("sd35_vae_mid", (1, 16384, 1, 512), 16384, 1),  # the decode
+]
+LAUNCHES_PER_SD35_PREVIEW = sum(c[3] for c in SD35_CASES)
+
 # Shapes the serving path adds, gated with 0 counted launches: a lone SD-1.5
 # request under CFG (UNet batch 2) and the edit engine's 128 T5 tokens
 # (4096 + 4096 + 128 joint tokens).
@@ -418,10 +434,12 @@ def _bound(q_shape, sk, dtype):
 
 
 def _case_path(name):
-    """The path a kernel #1 case belongs to: "flux", "backbone" (its
-    ``per_generation`` is per backbone call) or "sd"."""
+    """The path a kernel #1 case belongs to: "flux", "sd35", "backbone"
+    (its ``per_generation`` is per backbone call) or "sd"."""
     if name in {c[0] for c in BACKBONE_CASES}:
         return "backbone"
+    if name in {c[0] for c in SD35_CASES}:
+        return "sd35"
     return "flux" if "flux" in name else "sd"
 
 
@@ -434,8 +452,9 @@ def phase_kernel(fa):
     rows = []
     for dtype, rtol, atol, want_route in ((torch.bfloat16, BF16_RTOL, BF16_ATOL, "mma"),
                                           (torch.float32, F32_RTOL, F32_ATOL, "fma")):
-        for name, q_shape, sk, per_gen in (MAIN_PATH_CASES + FLUX_CASES + SERVE_CASES
-                                           + DIST_CASES + BACKBONE_CASES + EXTRA_CASES):
+        for name, q_shape, sk, per_gen in (MAIN_PATH_CASES + FLUX_CASES + SD35_CASES
+                                           + SERVE_CASES + DIST_CASES + BACKBONE_CASES
+                                           + EXTRA_CASES):
             b, sq, h, d = q_shape
             if name == "large_scores":
                 q = torch.full(q_shape, 10.0, device="cuda", dtype=dtype)
@@ -1087,6 +1106,87 @@ def phase_flux(fa):
     result["dist_ref"] = dist_ref
     del pipe, transformer, t5, clip, vae, images
     torch.cuda.empty_cache()
+    return result
+
+
+def phase_sd35(fa):
+    """Full-width Stable Diffusion 3.5 Large preview as the sd35 server runs
+    it: one prompt, 1024^2, 8 fmppo steps with sampled actions, CFG 3.5 (2
+    rows a step), T5 at 256 tokens, bf16; kernel #1's launches counted over
+    that one preview, from zero."""
+    import torch
+
+    from consolver_torch.models.clip_text import ClipTextEncoder, ClipTextProjConfig
+    from consolver_torch.models.mmdit import MMDiTConfig, SD3Transformer
+    from consolver_torch.models.t5 import T5Config, T5Encoder
+    from consolver_torch.models.vae import AutoencoderKL, VaeConfig
+    from consolver_torch.pipelines.sd3 import SD3Pipeline
+    from consolver_torch.policy.factor_net import FactorNet, FactorNetConfig
+
+    _release_card()
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    t0 = time.perf_counter()
+    models = [m.to_empty(device="cuda") for m in (
+        SD3Transformer(MMDiTConfig.sd35_large(), device="meta", dtype=bf16),
+        ClipTextEncoder(ClipTextProjConfig.sd3_clip_l(), device="meta", dtype=bf16),
+        ClipTextEncoder(ClipTextProjConfig.openclip_bigg(), device="meta", dtype=bf16),
+        T5Encoder(T5Config.xxl(), device="meta", dtype=bf16),
+        AutoencoderKL(VaeConfig(latent_channels=16, scaling_factor=1.5305), device="meta",
+                      dtype=bf16))]
+    for m in models:
+        _random_fill_(m, gen)
+    transformer, clip_l, clip_g, t5, vae = models
+    transformer.init_pos_embed_()  # a buffer: computed, not drawn
+    policy = FactorNet(FactorNetConfig(order_dim=2, scaler_dim=0, mu_dim=0, num_actions=11,
+                                       hidden_dim=256, family="fm"), device="cuda")
+    pipe = SD3Pipeline(transformer, clip_l, clip_g, t5, vae, factor_net=policy,
+                       t5_max_length=SD35_T5_TOKENS, device="cuda")
+    build_s = time.perf_counter() - t0
+    ids = pipe.tokenize(["a red fox sitting in tall grass at sunrise"])
+    noise = torch.randn((1, 128, 128, 16), device="cuda", generator=gen)
+
+    def preview(seed):
+        policy_gen = torch.Generator(device="cuda").manual_seed(seed)
+        images, _ = pipe(policy_gen, ids, noise, num_inference_steps=SD35_STEPS,
+                         guidance_scale=SD35_GUIDANCE, solver="fmppo", record=False)
+        return images
+
+    fa.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    images = preview(SEED + 71)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    by_route = dict(fa.flash_attention.launches_by_route)
+    if tuple(images.shape) != (1, 1024, 1024, 3):
+        raise AssertionError(f"images {tuple(images.shape)}")
+    if not bool(torch.isfinite(images).all()):
+        raise AssertionError("non-finite images")
+    lo, hi = images.min().item(), images.max().item()
+    if lo < 0.0 or hi > 1.0:
+        raise AssertionError(f"images outside [0, 1]: {lo} {hi}")
+    if launches != LAUNCHES_PER_SD35_PREVIEW or by_route["mma"] != LAUNCHES_PER_SD35_PREVIEW:
+        raise AssertionError(f"flash_attention launched {launches} times ({by_route}), want "
+                             f"{LAUNCHES_PER_SD35_PREVIEW} on mma")
+    run_s = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        preview(SEED + 72 + i)
+        torch.cuda.synchronize()
+        run_s.append(time.perf_counter() - t0)
+    result = {
+        "phase": "sd35_preview", "resolution": 1024, "steps": SD35_STEPS,
+        "guidance": SD35_GUIDANCE, "joint_tokens": SD35_JOINT, "launches": launches,
+        "launches_by_route": by_route, "models_build_s": build_s, "first_preview_s": first_s,
+        "run_s": run_s, "s_per_preview": sum(run_s) / len(run_s),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "image_min": lo, "image_max": hi,
+    }
+    print(json.dumps(result), flush=True)
+    del pipe, models, transformer, clip_l, clip_g, t5, vae, policy, images
+    _release_card()
     return result
 
 
@@ -4397,7 +4497,8 @@ def _kernel1_entry(rows, runs_by_path):
     """Kernel #1's line.  Its top-level numbers are per SD-1.5 generation
     (batch 8, 8 steps): the launches of that run, and each of its shapes
     timed alone times its launches there.  ``by_path`` has the same numbers
-    for the SD-1.5 generation and for one FLUX-Kontext edit, with the
+    for the SD-1.5 generation, one FLUX-Kontext edit and one SD3.5 Large
+    preview, with the
     launches per route ("mma" or "fma") of that run, and for the PPO runs
     (SD: the two ``fit`` steps; FLUX: one step; both with their reward's
     backbone) their launches per route and the kernel's device time in one
@@ -4407,7 +4508,8 @@ def _kernel1_entry(rows, runs_by_path):
     and PCA map."""
     per_run = [r for r in rows if r["dtype"] == "bfloat16" and r["per_generation"]]
     by_path = {}
-    for path, key in (("sd", "sd15_generation"), ("flux", "flux_kontext_edit")):
+    for path, key in (("sd", "sd15_generation"), ("flux", "flux_kontext_edit"),
+                      ("sd35", "sd35_preview")):
         sel = [r for r in per_run if r["path"] == path]
         entry = {name: sum(r[name] * r["per_generation"] for r in sel)
                  for name in ("ms", "plain_ms", "bound_ms", "library_ms")}
@@ -4593,6 +4695,7 @@ def main() -> int:
     phase_tiny_slice(fa)
     runs_by_path["flux"] = phase_flux(fa)
     phase_tiny_flux(fa)
+    runs_by_path["sd35"] = phase_sd35(fa)
     phase_quant_ops()
     runs_by_path["int8_sd"] = phase_int8_sd(fa)
     runs_by_path["int8_flux"] = phase_int8_flux(fa)

@@ -15,10 +15,16 @@ engines of ``consolver_torch/serve``::
   python -m consolver_torch serve --family both --pretrained ckpts/sd15 \\
       --edit-pretrained ckpts/flux --batch-sizes 1,8 --adaptive-flush --prewarm 8
 
-Pipelines load through ``cli/train_sd15.build_pipeline`` and
-``cli/train_flux.build_pipeline`` from converted or quantized component
-directories; without ``--pretrained`` the tiny random models of smoke mode
-serve.  Multi-card modes: ``--replicas N`` (one engine per card, each with
+  # Stable Diffusion 3.5 Large previews on /v1/generate (solver fmppo)
+  python -m consolver_torch serve --family sd35 --pretrained ckpts/sd35 [--prewarm]
+
+Pipelines load through ``cli/train_sd15.build_pipeline``,
+``cli/train_flux.build_pipeline`` and :func:`build_sd35_pipeline` from
+converted or quantized component directories; without ``--pretrained`` the
+tiny random models of smoke mode serve.  ``--family sd35`` serves on one
+card or over ``--replicas``; it refuses ``--shard``, ``--tp``,
+``--quantize`` and ``--prewarm-refine``.
+Multi-card modes: ``--replicas N`` (one engine per card, each with
 its own model copy), or ``--shard`` / ``--tp N`` over a ``torchrun`` world
 (``dist.mesh``: ``--shard`` makes every rank a data rank, ``--tp N`` splits
 the denoiser over N ranks; without ``--shard`` the world must hold exactly N
@@ -35,6 +41,7 @@ import argparse
 import dataclasses
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,12 +50,15 @@ from consolver_torch.configs.config import ExperimentConfig, add_device_flag, ap
 from consolver_torch.device import resolve_device
 
 
+
 def _parser():
     ap = argparse.ArgumentParser(prog="python -m consolver_torch serve")
-    ap.add_argument("--family", choices=("sd", "edit", "both"), default="sd",
+    ap.add_argument("--family", choices=("sd", "edit", "both", "sd35"), default="sd",
                     help="sd = /v1/generate (SD-1.5 class); edit = /v1/edit (FLUX-Kontext); "
-                         "both = the two engines in one process (--pretrained then points at "
-                         "the SD checkpoint and --edit-pretrained at the FLUX one)")
+                         "both = the sd and edit engines in one process (--pretrained then "
+                         "points at the SD checkpoint and --edit-pretrained at the FLUX one; "
+                         "not sd35); sd35 = /v1/generate on Stable Diffusion 3.5 Large "
+                         "(solver fmppo, one card or --replicas)")
     ap.add_argument("--edit-pretrained", default=None,
                     help="[both] FLUX checkpoint dir (smoke models if unset)")
     ap.add_argument("--pretrained", default=None)
@@ -71,10 +81,12 @@ def _parser():
     ap.add_argument("--tp", type=int, default=1,
                     help="model-axis size: tensor-shard the denoiser over this many ranks")
     ap.add_argument("--latent-size", type=int, default=None,
-                    help="[sd] latent H=W (default: 64 with --pretrained, 8 smoke)")
+                    help="[sd, sd35] latent H=W (default with --pretrained: 64 sd, 128 sd35; "
+                         "8 smoke)")
     ap.add_argument("--resolution", type=int, default=None,
                     help="[edit] image H=W (default: 1024 with --pretrained, 16 smoke)")
-    ap.add_argument("--t5-max-length", type=int, default=128)
+    ap.add_argument("--t5-max-length", type=int, default=None,
+                    help="T5 tokens (default: 128 edit, 256 sd35)")
     ap.add_argument("--padded-max-steps", type=int, default=None,
                     help="serve any step count in [1, N] of the learnable solver from one "
                          "pad-to-max program")
@@ -196,6 +208,82 @@ def build_t2i_engine(args, device, mesh):
         + (f" mesh={mesh.shape}" if mesh is not None else ""))
 
 
+def build_sd35_pipeline(pretrained: Optional[str], factor_net, dtype: torch.dtype, device,
+                        t5_max_length: int = 256):
+    """The SD3.5 Large pipeline from the component directories under
+    ``pretrained`` (``transformer``, ``clip_l``, ``clip_g``, ``t5``, ``vae``,
+    with the tokenizers in ``tokenizer``, ``tokenizer_2``, ``tokenizer_3``),
+    else tiny random models seeded from ``SMOKE_SEED``."""
+    from consolver_torch.cli.train_sd15 import SMOKE_SEED, load_component_module, random_fill_
+    from consolver_torch.data.tokenizer import load_tokenizer
+    from consolver_torch.models.clip_text import ClipTextEncoder, ClipTextProjConfig
+    from consolver_torch.models.mmdit import MMDiTConfig, SD3Transformer
+    from consolver_torch.models.t5 import T5Config, T5Encoder
+    from consolver_torch.models.vae import AutoencoderKL, VaeConfig
+    from consolver_torch.pipelines.sd3 import SD3Pipeline
+
+    device = resolve_device(device)
+    vae_cfg = VaeConfig(latent_channels=16, scaling_factor=1.5305)
+    if pretrained:
+        transformer, clip_l, clip_g, t5, vae = (
+            load_component_module(os.path.join(pretrained, name), kind, default, dtype, device)
+            for name, kind, default in (
+                ("transformer", "sd3_transformer", MMDiTConfig.sd35_large()),
+                ("clip_l", "clip_text_proj", ClipTextProjConfig.sd3_clip_l()),
+                ("clip_g", "clip_text_proj", ClipTextProjConfig.openclip_bigg()),
+                ("t5", "t5", T5Config.xxl()),
+                ("vae", "vae", vae_cfg)))
+    else:
+        print("[smoke mode] no pretrained_path: tiny random models")
+        mcfg = MMDiTConfig.tiny()
+        gen = torch.Generator().manual_seed(SMOKE_SEED)
+        transformer, clip_l, clip_g, t5, vae = (random_fill_(m, gen).to(device) for m in (
+            SD3Transformer(mcfg, device="cpu"),
+            ClipTextEncoder(ClipTextProjConfig(vocab_size=64, hidden_size=8, num_layers=2,
+                                           num_heads=2, intermediate_size=16,
+                                           projection_dim=8), device="cpu"),
+            ClipTextEncoder(ClipTextProjConfig(vocab_size=64, hidden_size=16, num_layers=2,
+                                           num_heads=2, intermediate_size=32, hidden_act="gelu",
+                                           projection_dim=16), device="cpu"),
+            T5Encoder(T5Config(vocab_size=64, d_model=mcfg.joint_attention_dim, d_kv=8, d_ff=64,
+                               num_layers=1, num_heads=4), device="cpu"),
+            AutoencoderKL(dataclasses.replace(VaeConfig.tiny(), block_out_channels=(8, 16),
+                                              latent_channels=16, scaling_factor=1.5305),
+                          device="cpu")))
+        transformer.init_pos_embed_()  # random_fill_ fills parameters only
+    tokenizers = tuple(
+        load_tokenizer(os.path.join(pretrained, name) if pretrained else None, kind=kind,
+                       max_length=length)
+        for name, kind, length in (("tokenizer", "clip", 77), ("tokenizer_2", "clip", 77),
+                                   ("tokenizer_3", "t5", t5_max_length)))
+    return SD3Pipeline(transformer, clip_l, clip_g, t5, vae, factor_net=factor_net,
+                       t5_max_length=t5_max_length, tokenizers=tokenizers, device=device)
+
+
+def build_sd35_engine(args, device):
+    from consolver_torch.cli.train_sd15 import model_dtype
+    from consolver_torch.serve import SD3InferenceEngine, make_replicas
+
+    if args.quantize:
+        raise SystemExit("--quantize is not wired for --family sd35 (SD3Pipeline.quantize() "
+                         "serves W8A8 from Python)")
+    cfg = ExperimentConfig.flux_ppo()  # the FM FactorNet
+    t5_len = args.t5_max_length or 256
+    pipe = build_sd35_pipeline(args.pretrained, _policy(cfg, args, device), model_dtype(cfg),
+                               device, t5_max_length=t5_len)
+    latent = args.latent_size or (128 if args.pretrained else 8)
+    common = dict(latent_size=latent, flush_ms=args.flush_ms, max_wait_s=args.max_wait_s,
+                  padded_max_steps=args.padded_max_steps, **_batch_kwargs(args))
+    replicas = _replica_count(args, device)
+    per = args.batch_size if args.batch_size is not None else 1
+    if replicas:
+        return make_replicas(pipe, SD3InferenceEngine, replicas,
+                             _replica_devices(device, replicas), batch_size=per, **common), (
+            f"sd35 replicas={replicas} batch={per}/replica latent={latent}")
+    return SD3InferenceEngine(pipe, batch_size=per, **common), (
+        f"sd35 batch={per} latent={latent}")
+
+
 def build_edit_engine(args, device, mesh):
     from consolver_torch.cli.train_flux import build_pipeline
     from consolver_torch.data.tokenizer import load_tokenizer
@@ -210,15 +298,16 @@ def build_edit_engine(args, device, mesh):
         print(f"serving the int{args.quantize_bits} path (.quantize())", flush=True)
         pipe = pipe.quantize(bits=args.quantize_bits)
     # real tokenizers ride inside converted checkpoints
+    t5_len = args.t5_max_length or 128
     t5_tok = load_tokenizer(
         os.path.join(args.pretrained, "tokenizer_t5") if args.pretrained else None,
-        kind="t5", max_length=args.t5_max_length)
+        kind="t5", max_length=t5_len)
     clip_tok = load_tokenizer(
         os.path.join(args.pretrained, "tokenizer") if args.pretrained else None,
         kind="clip", max_length=77)
     resolution = args.resolution or (1024 if args.pretrained else 16)
     common = dict(resolution=resolution, t5_tokenizer=t5_tok, clip_tokenizer=clip_tok,
-                  t5_max_length=args.t5_max_length,
+                  t5_max_length=t5_len,
                   clip_max_length=77 if args.pretrained else 4, flush_ms=args.flush_ms,
                   max_wait_s=args.max_wait_s, padded_max_steps=args.padded_max_steps)
     replicas = _replica_count(args, device)
@@ -239,15 +328,14 @@ def _prewarm(args, t2i_engine, edit_engine) -> None:
     """Run each serving program once before the port is bound: the
     default signature of each engine (re-stepped to every ``--prewarm``
     count), and with ``--prewarm-refine`` the refine signatures."""
-    from consolver_torch.serve import EditRequest, GenerationRequest, ReplicaGroup
-    from consolver_torch.serve.http import EDIT_REFINE_DEFAULTS, REFINE_DEFAULTS
+    from consolver_torch.serve import EditRequest, ReplicaGroup
+    from consolver_torch.serve.http import EDIT_REFINE_DEFAULTS
 
     reqs = []  # (engine, request, re-stepped by --prewarm STEPS)
-    if t2i_engine is not None:
-        reqs.append((t2i_engine, GenerationRequest(prompt="prewarm"), True))
+    if t2i_engine is not None:  # the engine's family's signatures
+        reqs.append((t2i_engine, t2i_engine.request(prompt="prewarm"), True))
         if args.prewarm_refine:
-            reqs.append((t2i_engine, GenerationRequest(prompt="prewarm", **REFINE_DEFAULTS),
-                         False))
+            reqs.append((t2i_engine, t2i_engine.request(prompt="prewarm", refine=True), False))
     if edit_engine is not None:
         side = (edit_engine.engines[0] if isinstance(edit_engine, ReplicaGroup)
                 else edit_engine).resolution
@@ -274,6 +362,13 @@ def build_server(args):
     from consolver_torch.serve import make_server
 
     device = resolve_device(args.device)
+    if args.family == "sd35":
+        if args.shard or (args.tp or 1) > 1:
+            raise SystemExit("--family sd35 serves on one card or over --replicas: its engine "
+                             "takes no mesh (--shard / --tp)")
+        if args.prewarm_refine:
+            raise SystemExit("--prewarm-refine warms SD-1.5's /v1/refine signature; --family "
+                             "sd35 has none (ask /v1/generate for euler at 28 steps)")
     mesh = _serving_mesh(args, device)
     if mesh is not None:
         device = mesh.device
@@ -284,6 +379,9 @@ def build_server(args):
     descs = []
     if args.family in ("sd", "both"):
         t2i_engine, desc = build_t2i_engine(args, device, mesh)
+        descs.append(desc)
+    if args.family == "sd35":
+        t2i_engine, desc = build_sd35_engine(args, device)
         descs.append(desc)
     if args.family in ("edit", "both"):
         edit_args = args

@@ -23,7 +23,10 @@ in sorted order, else the ``*.bin`` / ``*.pth`` / ``*.ckpt`` files, read
 with ``torch.load(weights_only=True)``; an index JSON beside the shards is
 only a listing.  :func:`hub_key_map` maps each hub key of a kind (unet,
 vae, clip_text, clip_vision, dinov2, t5, flux, factor_net, depth_anything,
-segformer, inception) to the parameter that ``load_jax_params`` fills from
+segformer, inception; and the port's own sd3_transformer, diffusers'
+``SD3Transformer2DModel``, and clip_text_proj, transformers'
+``CLIPTextModelWithProjection`` with its ``text_projection``) to the
+parameter that ``load_jax_params`` fills from
 the JAX converter's tree: the key is dropped by the converter's skip
 patterns (and the kind's own drops), renamed by the converter's table for
 the kind (the old SD VAE attention names, CLIP's, FLUX's, T5's, the
@@ -332,6 +335,12 @@ FLUX_RENAMES = (
     (r"\.ff_context\.net\.0\.proj\.", ".ff_context_net_0_proj."),
     (r"\.ff_context\.net\.2\.", ".ff_context_net_2."),
 )
+# SD3's MMDiT (diffusers SD3Transformer2DModel): FLUX's block names, and the
+# patch embedding's convolution and position table under pos_embed
+SD3_RENAMES = (
+    (r"^pos_embed\.proj\.", "pos_embed_proj."),
+    (r"^pos_embed\.pos_embed$", "pos_embed"),
+) + FLUX_RENAMES
 T5_RENAMES = (  # consolver_tpu/models/t5.py:156-170
     (r"^encoder\.block\.0\.layer\.0\.SelfAttention\.relative_attention_bias\.",
      "relative_attention_bias."),
@@ -347,14 +356,19 @@ T5_RENAMES = (  # consolver_tpu/models/t5.py:156-170
 # the reference model.ckpt: nn.Sequential layers 0/2/4 (factor_net_ppo.py:75-81)
 FACTOR_NET_RENAMES = ((r"^mlp\.0\.", "fc0."), (r"^mlp\.2\.", "fc1."), (r"^mlp\.4\.", "head."))
 KIND_RENAMES = {"unet": (), "vae": VAE_ATTN_RENAMES, "clip_text": CLIP_TEXT_RENAMES,
-                "flux": FLUX_RENAMES, "t5": T5_RENAMES, "factor_net": FACTOR_NET_RENAMES}
+                "clip_text_proj": CLIP_TEXT_RENAMES, "flux": FLUX_RENAMES,
+                "sd3_transformer": SD3_RENAMES, "t5": T5_RENAMES,
+                "factor_net": FACTOR_NET_RENAMES}
+# skip patterns a kind reads: transformers' CLIPTextModelWithProjection (SD3's
+# CLIP-L and bigG towers) keeps its text_projection
+KIND_KEEPS = {"clip_text_proj": (r"text_projection",)}
 # hub keys a kind's converter drops before the walk (convert_inception keeps
 # fc), or that no module reads (the first fusion layer of Depth-Anything has
 # no residual_layer1 input, transformers keeps its unused weights)
 KIND_DROPS = {"inception": ("AuxLogits.",),
               "depth_anything": ("neck.fusion_stage.layers.0.residual_layer1.",)}
 KINDS = ("unet", "vae", "clip_text", "clip_vision", "dinov2", "t5", "flux", "factor_net",
-         "depth_anything", "segformer", "inception")
+         "depth_anything", "segformer", "inception", "sd3_transformer", "clip_text_proj")
 
 
 # the port's module keys -> hub keys, for the kinds whose names differ (the
@@ -382,6 +396,10 @@ TO_HUB = {
             ("ff_net_2", "ff.net.2"), ("ff_context_net_0_proj", "ff_context.net.0.proj"),
             ("ff_context_net_2", "ff_context.net.2"))) + (
         (r"^norm_out_linear\.", "norm_out.linear."),),
+    "sd3_transformer": (
+        (r"^pos_embed_proj\.", "pos_embed.proj."),
+        (r"^pos_embed$", "pos_embed.pos_embed"),
+    ),
     "t5": (
         (r"^relative_attention_bias\.", "encoder.block.0.layer.0.SelfAttention."
                                         "relative_attention_bias."),
@@ -393,6 +411,8 @@ TO_HUB = {
     ),
     "factor_net": ((r"^fc0\.", "mlp.0."), (r"^fc1\.", "mlp.2."), (r"^head\.", "mlp.4.")),
 }
+TO_HUB["sd3_transformer"] += TO_HUB["flux"]
+TO_HUB["clip_text_proj"] = TO_HUB["clip_text"]
 
 
 def hub_state_dict(module_or_state, kind: str) -> Dict[str, torch.Tensor]:
@@ -432,7 +452,8 @@ def hub_jax_path(key: str, ndim: int, renames) -> Tuple[str, ...]:
 
 
 def _skipped(kind: str, key: str) -> bool:
-    return (any(re.search(p, key) for p in SKIP_PATTERNS)
+    keeps = KIND_KEEPS.get(kind, ())
+    return (any(re.search(p, key) for p in SKIP_PATTERNS if p not in keeps)
             or key.startswith(KIND_DROPS.get(kind, ())))
 
 
@@ -618,9 +639,10 @@ def is_quantized(config) -> bool:
 def kind_spec(kind: str):
     """``(config class, default config)`` of a checkpoint kind (``(None,
     None)`` for InceptionV3, which has no config)."""
-    from consolver_torch.models.clip_text import ClipTextConfig
+    from consolver_torch.models.clip_text import ClipTextConfig, ClipTextProjConfig
     from consolver_torch.models.depth_anything import DepthAnythingConfig
     from consolver_torch.models.flux import FluxConfig
+    from consolver_torch.models.mmdit import MMDiTConfig
     from consolver_torch.models.segformer import SegformerConfig
     from consolver_torch.models.t5 import T5Config
     from consolver_torch.models.unet_2d import UNetConfig
@@ -634,6 +656,8 @@ def kind_spec(kind: str):
         "clip_text": (ClipTextConfig, ClipTextConfig.sd15()),
         "t5": (T5Config, T5Config.xxl()),
         "flux": (FluxConfig, FluxConfig.flux_kontext()),
+        "sd3_transformer": (MMDiTConfig, MMDiTConfig.sd35_large()),
+        "clip_text_proj": (ClipTextProjConfig, ClipTextProjConfig.openclip_bigg()),
         "clip_vision": (ViTConfig, ViTConfig.clip_vit_l14()),
         "dinov2": (ViTConfig, ViTConfig.dinov2_base()),
         "depth_anything": (DepthAnythingConfig, DepthAnythingConfig.small_v2()),
@@ -655,6 +679,7 @@ def build_module(kind: str, config, device, dtype: Optional[torch.dtype] = None)
     from consolver_torch.models.depth_anything import DepthAnything
     from consolver_torch.models.flux import FluxTransformer
     from consolver_torch.models.inception import InceptionV3
+    from consolver_torch.models.mmdit import SD3Transformer
     from consolver_torch.models.segformer import Segformer
     from consolver_torch.models.t5 import T5Encoder
     from consolver_torch.models.unet_2d import UNet2DCondition
@@ -667,6 +692,7 @@ def build_module(kind: str, config, device, dtype: Optional[torch.dtype] = None)
     if kind == "inception":
         return InceptionV3(1000, device="meta", dtype=dtype)
     cls = {"unet": UNet2DCondition, "vae": AutoencoderKL, "clip_text": ClipTextEncoder,
-           "t5": T5Encoder, "flux": FluxTransformer, "clip_vision": ViT, "dinov2": ViT,
+           "clip_text_proj": ClipTextEncoder, "t5": T5Encoder, "flux": FluxTransformer,
+           "sd3_transformer": SD3Transformer, "clip_vision": ViT, "dinov2": ViT,
            "depth_anything": DepthAnything, "segformer": Segformer}[kind]
     return cls(config, device="meta", dtype=dtype)

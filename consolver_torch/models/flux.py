@@ -7,7 +7,9 @@ the JAX module names (``transformer_blocks.0.attn_to_out_0``,
 :func:`consolver_torch.models.convert.load_jax_params` carries a JAX tree
 across.  Every joint attention goes through
 :func:`consolver_torch.kernels.attention.attention` (head dim 128 at full
-width: the flash kernel on the card).
+width: the flash kernel on the card).  :class:`DoubleStreamBlock` is also
+SD3's MMDiT block (``models/mmdit.py``): head dim 64, no RoPE, and a
+``context_pre_only`` last block.
 
 Numerics kept from the JAX package:
   * LayerNorms run in f32, eps 1e-6, without scale or bias;
@@ -60,6 +62,9 @@ class FluxConfig:
 
     @property
     def head_dim(self) -> int:
+        """128 at FLUX's width.  ``axes_dims`` must sum to it (RoPE rotates
+        every channel); the attention kernel itself takes any head dim up to
+        512."""
         return self.hidden_size // self.num_heads
 
     @property
@@ -179,16 +184,25 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class DoubleStreamBlock(nn.Module):
-    """Image and text streams with their own weights, one joint attention."""
+    """Image and text streams with their own weights, one joint attention
+    (the MMDiT block of FLUX and SD3).
 
-    def __init__(self, cfg: FluxConfig):
+    ``cfg`` is any config with ``hidden_size``, ``head_dim``, ``mlp_ratio``
+    and ``quant_mode`` (:class:`FluxConfig`, ``models/mmdit.MMDiTConfig``).
+    ``context_pre_only`` (SD3's last block): the text stream only feeds the
+    joint attention's keys and values, its modulation is a 2-way (scale,
+    shift) ``AdaLayerNormContinuous``, and it has no output projection and
+    no MLP; the block returns ``(img, None)``."""
+
+    def __init__(self, cfg, context_pre_only: bool = False):
         super().__init__()
         h, hd = cfg.hidden_size, cfg.head_dim
         mlp_h = int(h * cfg.mlp_ratio)
         q = cfg.quant_mode
         self.head_dim = hd
+        self.context_pre_only = context_pre_only
         self.norm1_linear = make_dense(q, h, 6 * h)
-        self.norm1_context_linear = make_dense(q, h, 6 * h)
+        self.norm1_context_linear = make_dense(q, h, (2 if context_pre_only else 6) * h)
         for prefix in ("attn_to_", "attn_add_"):
             for name in "qkv":
                 setattr(self, prefix + name, make_dense(q, h, h))
@@ -197,11 +211,13 @@ class DoubleStreamBlock(nn.Module):
         self.attn_norm_added_q = QKNorm(hd)
         self.attn_norm_added_k = QKNorm(hd)
         self.attn_to_out_0 = make_dense(q, h, h)
-        self.attn_to_add_out = make_dense(q, h, h)
+        if not context_pre_only:
+            self.attn_to_add_out = make_dense(q, h, h)
         self.ff_net_0_proj = make_dense(q, h, mlp_h)
         self.ff_net_2 = make_dense(q, mlp_h, h)
-        self.ff_context_net_0_proj = make_dense(q, h, mlp_h)
-        self.ff_context_net_2 = make_dense(q, mlp_h, h)
+        if not context_pre_only:
+            self.ff_context_net_0_proj = make_dense(q, h, mlp_h)
+            self.ff_context_net_2 = make_dense(q, mlp_h, h)
 
     def _qkv(self, x: torch.Tensor, prefix: str):
         # heads from the projection's width: num_heads // tp under a TP split
@@ -210,12 +226,16 @@ class DoubleStreamBlock(nn.Module):
                      for name in "qkv")
 
     def forward(self, img, txt, vec, cos, sin):
+        """``cos`` / ``sin`` None: no RoPE (SD3)."""
         dtype = self.attn_norm_q.weight.dtype
         b, s_txt = img.shape[0], txt.shape[1]
         i_shift_a, i_scale_a, i_gate_a, i_shift_m, i_scale_m, i_gate_m = (
             self.norm1_linear(F.silu(vec)).chunk(6, dim=-1))
-        t_shift_a, t_scale_a, t_gate_a, t_shift_m, t_scale_m, t_gate_m = (
-            self.norm1_context_linear(F.silu(vec)).chunk(6, dim=-1))
+        if self.context_pre_only:
+            t_scale_a, t_shift_a = self.norm1_context_linear(F.silu(vec)).chunk(2, dim=-1)
+        else:
+            t_shift_a, t_scale_a, t_gate_a, t_shift_m, t_scale_m, t_gate_m = (
+                self.norm1_context_linear(F.silu(vec)).chunk(6, dim=-1))
 
         img_n = _modulate(_layer_norm(img).to(dtype), i_shift_a, i_scale_a)
         txt_n = _modulate(_layer_norm(txt).to(dtype), t_shift_a, t_scale_a)
@@ -224,9 +244,16 @@ class DoubleStreamBlock(nn.Module):
         q = torch.cat([self.attn_norm_added_q(tq), self.attn_norm_q(iq)], dim=1)
         k = torch.cat([self.attn_norm_added_k(tk), self.attn_norm_k(ik)], dim=1)
         v = torch.cat([tv, iv], dim=1)
-        out = attention_op(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
+        if cos is not None:
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        out = attention_op(q, k, v)
         out = out.reshape(b, q.shape[1], -1)
         txt_attn, img_attn = out[:, :s_txt], out[:, s_txt:]
+        if self.context_pre_only:
+            img = img + i_gate_a[:, None, :] * self.attn_to_out_0(img_attn)
+            img_m = _modulate(_layer_norm(img).to(dtype), i_shift_m, i_scale_m)
+            img_out = self.ff_net_2(_gelu(self.ff_net_0_proj(img_m)))
+            return img + i_gate_m[:, None, :] * img_out, None
 
         # under TP each pair of row-parallel projections sums in one all_reduce
         img_out, txt_out = row_parallel_pair(self.attn_to_out_0, img_attn,

@@ -8,6 +8,7 @@ from consolver_torch.serve.engine import (
     InferenceEngine,
     ReplicaGroup,
     RequestExpired,
+    SD3InferenceEngine,
     make_replicas,
 )
 from consolver_torch.serve.http import ServeServer, make_server
@@ -20,6 +21,7 @@ __all__ = [
     "InferenceEngine",
     "ReplicaGroup",
     "RequestExpired",
+    "SD3InferenceEngine",
     "ServeServer",
     "make_replicas",
     "make_server",

@@ -9,8 +9,9 @@ second thread fetches finished batches to the host and resolves the
 requests' futures, so batch N's readback overlaps batch N+1's dispatch (at
 most 2 batches in flight).
 
-:class:`InferenceEngine` serves text-to-image (SD family) and
-:class:`EditInferenceEngine` FLUX-Kontext instructional editing;
+:class:`InferenceEngine` serves text-to-image (SD family),
+:class:`SD3InferenceEngine` its SD3 sibling (MMDiT, three text towers, flow
+matching) and :class:`EditInferenceEngine` FLUX-Kontext instructional editing;
 :class:`ReplicaGroup` puts one engine on each of several devices.
 
 Determinism contract: a request's initial noise comes from its ``seed``
@@ -768,18 +769,46 @@ class InferenceEngine(_BatchingEngine):
     ):
         self.padded_max_steps = padded_max_steps
         self.pipeline = pipeline
-        if mesh is not None:
-            shard_module_by_rules(mesh, pipeline.unet, UNET_TP_RULES)
-        # the engine runs a fixed set of batch shapes, so the first batch of
-        # each (program, shape) captures the UNet's graph and the rest replay
-        if unet_graphs_allowed(pipeline.unet, pipeline.device):
-            pipeline.unet.cuda_graphs.enabled = True
+        self._adopt(pipeline, mesh)
         self.latent_size = int(latent_size)
         self.max_length = int(max_length if max_length is not None
                               else pipeline.text_encoder.cfg.max_position_embeddings)
         self._programs: dict = {}
         super().__init__(batch_size, flush_ms, max_queue, max_wait_s, batch_sizes=batch_sizes,
                          adaptive_flush=adaptive_flush, device=pipeline.device, mesh=mesh)
+
+    # the solver whose program may be the padded one
+    LEARNABLE_SOLVER = "consistencysolver"
+    # the fields a /v1/generate body may leave out, over GenerationRequest's
+    # own defaults (SD-1.5's), and /v1/refine's over those (the teacher
+    # signature, 40-step multistep DPM-Solver); None: no refine signature
+    GENERATE_DEFAULTS: dict = {}
+    REFINE_DEFAULTS: Optional[dict] = {"num_inference_steps": 40, "solver": "multistep-dpm"}
+
+    @classmethod
+    def request(cls, refine: bool = False, **fields) -> GenerationRequest:
+        """A request of this engine's family: ``fields`` over its defaults
+        (``refine``: the refine signature's).  Raises ValueError where the
+        family has no refine signature."""
+        if refine and cls.REFINE_DEFAULTS is None:
+            raise ValueError(f"{cls.__name__} has no refine signature; ask /v1/generate "
+                             "for the steps and solver you want")
+        return GenerationRequest(**{**cls.GENERATE_DEFAULTS,
+                                    **(cls.REFINE_DEFAULTS if refine else {}), **fields})
+
+    def _adopt(self, pipeline, mesh) -> None:
+        """Split the UNet over the mesh's model axis, and turn its CUDA
+        graphs on: the engine runs a fixed set of batch shapes, so the first
+        batch of each (program, shape) captures the UNet's graph and the
+        rest replay."""
+        if mesh is not None:
+            shard_module_by_rules(mesh, pipeline.unet, UNET_TP_RULES)
+        if unet_graphs_allowed(pipeline.unet, pipeline.device):
+            pipeline.unet.cuda_graphs.enabled = True
+
+    @staticmethod
+    def _latent_channels(pipe) -> int:
+        return pipe.unet.cfg.in_channels
 
     def _serve_program(self, program_key):
         """The batch's whole hot path for one program key: per-seed noise ->
@@ -789,11 +818,11 @@ class InferenceEngine(_BatchingEngine):
         if program_key not in self._programs:
             steps, cfg_scale, solver, deterministic = program_key
             padded = (self.padded_max_steps
-                      if solver == "consistencysolver" and self.padded_max_steps is not None
+                      if solver == self.LEARNABLE_SOLVER and self.padded_max_steps is not None
                       and steps <= self.padded_max_steps else None)
 
             def run(pipe, generator, seeds, ids):
-                shape = (self.latent_size, self.latent_size, pipe.unet.cfg.in_channels)
+                shape = (self.latent_size, self.latent_size, self._latent_channels(pipe))
                 noise = profiling.to_device(seed_noise(seeds, shape), pipe.device)
                 images, _ = pipe(generator, ids, noise, num_inference_steps=steps,
                                  guidance_scale=cfg_scale, solver=solver,
@@ -817,6 +846,41 @@ class InferenceEngine(_BatchingEngine):
         (seeds, ids), generator = self._rows(msg, ("seeds", "ids"))
         program = self._serve_program(msg["key"])
         return self._gathered(program(self.pipeline, generator, seeds.tolist(), ids))
+
+
+class SD3InferenceEngine(InferenceEngine):
+    """Text-to-image serving of the SD3 family
+    (:class:`~consolver_torch.pipelines.sd3.SD3Pipeline`) on the same
+    requests, batching, fetch and HTTP path as :class:`InferenceEngine`.
+    Its learnable solver is ``fmppo``; ``latent_size`` is 128 for 1024²;
+    the prompt goes to the pipeline's three tokenizers.  One card: no mesh
+    (``--replicas`` puts an engine on each card), and no CUDA graphs (an
+    MMDiT step is some 60 TFLOP against about 1,200 launches)."""
+
+    LEARNABLE_SOLVER = "fmppo"
+    # the model card's guidance and the learnable FM solver; no refine
+    # signature (a full render is /v1/generate with euler at 28 steps)
+    GENERATE_DEFAULTS = {"guidance_scale": 3.5, "solver": "fmppo"}
+    REFINE_DEFAULTS = None
+
+    def __init__(self, pipeline, batch_size: int = 1, latent_size: int = 128, **kwargs):
+        super().__init__(pipeline, batch_size=batch_size, latent_size=latent_size,
+                         max_length=pipeline.t5_max_length, **kwargs)
+
+    def _adopt(self, pipeline, mesh) -> None:
+        if mesh is not None:
+            raise ValueError("the SD3 engine serves on one card; put an engine on each card "
+                             "(make_replicas) instead of a mesh")
+
+    @staticmethod
+    def _latent_channels(pipe) -> int:
+        return pipe.latent_channels
+
+    def _message(self, requests) -> dict:
+        prompts = self._pad([r.prompt for r in requests], requests)
+        seeds = self._pad([int(r.seed) for r in requests], requests)
+        return {"key": requests[0].program_key, "seeds": np.asarray(seeds),
+                "ids": self.pipeline.tokenize(prompts)}
 
 
 class EditInferenceEngine(_BatchingEngine):
@@ -911,6 +975,7 @@ class EditInferenceEngine(_BatchingEngine):
 # ---------------------------------------------------------------- replicas
 _REPLICA_MODULES = {
     "t2i": ("unet", "text_encoder", "vae", "factor_net"),
+    "sd3": ("transformer", "clip_l", "clip_g", "t5", "vae", "factor_net"),
     "edit": ("transformer", "t5", "clip", "vae", "factor_net"),
 }
 
@@ -971,6 +1036,10 @@ class ReplicaGroup:
     def generate(self, request, timeout: Optional[float] = None,
                  request_id: Optional[int] = None) -> np.ndarray:
         return self.submit(request, request_id).result(timeout)
+
+    def request(self, refine: bool = False, **fields):
+        """A request of the replicas' family (``InferenceEngine.request``)."""
+        return self.engines[0].request(refine=refine, **fields)
 
     def prewarm(self, *requests, timeout: Optional[float] = None) -> int:
         """Warm EVERY replica."""
@@ -1035,7 +1104,8 @@ def make_replicas(pipeline, engine_cls, n_replicas: int, devices=None,
         devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     if n_replicas > len(devices):
         raise ValueError(f"{n_replicas} replicas > {len(devices)} visible devices")
-    family = "edit" if issubclass(engine_cls, EditInferenceEngine) else "t2i"
+    family = ("edit" if issubclass(engine_cls, EditInferenceEngine)
+              else "sd3" if issubclass(engine_cls, SD3InferenceEngine) else "t2i")
     engines = [engine_cls(_pin_to_device(pipeline, devices[i], _REPLICA_MODULES[family]),
                           **engine_kwargs)
                for i in range(n_replicas)]

@@ -11,7 +11,9 @@ Endpoints
                           the engine started (below)
 ``POST /v1/generate``     ``{"prompt", "seed", "num_inference_steps",
                           "guidance_scale", "solver", "deterministic"}`` ->
-                          JSON with a base64 PNG (``image_png_b64``) + timing.
+                          JSON with a base64 PNG (``image_png_b64``) + timing;
+                          an omitted field takes the engine family's default
+                          (SD-1.5: consistencysolver at 3.0; SD3: fmppo at 3.5).
 ``POST /v1/edit``         ``{"instruction", "image_png_b64", "seed",
                           "num_inference_steps", "guidance_scale", "solver",
                           "deterministic"}`` -> the edited image as base64
@@ -21,6 +23,7 @@ Endpoints
                           preview -> refine product loop.  A request's noise
                           comes from its ``seed`` alone, so refining with the
                           preview's seed starts from the preview's noise.
+                          400 on an SD3 server, which has no refine signature.
 ``POST /v1/edit/refine``  the edit twin: the body of ``/v1/edit``, defaulting
                           to the full-quality Kontext signature (28-step
                           Euler at guidance 2.5); same seed contract.
@@ -72,7 +75,6 @@ import numpy as np
 from consolver_torch.serve.engine import (
     EditInferenceEngine,
     EditRequest,
-    GenerationRequest,
     InferenceEngine,
     RequestExpired,
 )
@@ -84,9 +86,10 @@ MAX_BODY_BYTES = 64 * 1024 * 1024
 # checked from the PNG header, before the pixels are decoded
 MAX_EDIT_PIXELS = 16 * 1024 * 1024
 
-# /v1/refine: the teacher signature (40-step multistep DPM-Solver); clients
-# override per field
-REFINE_DEFAULTS = {"num_inference_steps": 40, "solver": "multistep-dpm"}
+# /v1/refine on SD-1.5: the teacher signature (40-step multistep
+# DPM-Solver); clients override per field.  Each engine holds its family's
+# (``InferenceEngine.request``).
+REFINE_DEFAULTS = InferenceEngine.REFINE_DEFAULTS
 
 # /v1/edit/refine: the edit family's full-quality signature (28-step Euler
 # FM at guidance 2.5)
@@ -196,10 +199,8 @@ class ServeHandler(BaseHTTPRequestHandler):
                 return
             try:
                 kwargs = self._parse(_GENERATE_FIELDS, payload, "prompt")
-                if self.path == "/v1/refine":
-                    for name, val in REFINE_DEFAULTS.items():
-                        kwargs.setdefault(name, val)
-                request = GenerationRequest(**kwargs)
+                # the omitted fields take the engine's family's defaults
+                request = engine.request(refine=self.path == "/v1/refine", **kwargs)
             except (ValueError, TypeError) as exc:
                 self._reply(400, {"error": str(exc)})
                 return
