@@ -10,8 +10,8 @@ non-zero, printing nothing on stdout, without them.  Phases:
    ``nvcc`` each, both at once); print the card's name and power limit
    (``nvidia-smi``).
 2. Report what kernel #1's tensor-core kernels compiled to, for every
-   instantiation (design A or B, padded head dim, cp.async or element
-   staging): registers and spills from ptxas, the HMMA / HGMMA count in
+   instantiation (design A, B or H, padded head dim, cp.async, TMA or
+   element staging): registers and spills from ptxas, the HMMA / HGMMA count in
    ``cuobjdump -sass``, dynamic shared memory and blocks per SM.  Then hold
    kernel #1 (flash attention) against its plain PyTorch version at
    every attention shape of the SD-1.5 preview path (batch 8, so 16 rows
@@ -19,11 +19,15 @@ non-zero, printing nothing on stdout, without them.  Phases:
    VAE's 16384-token mid attention) and of the reward / eval backbones
    (head dim 64: DINOv2-base, CLIP-L/14, Depth-Anything-V2-S's 1370 tokens,
    SegFormer-b4's four stages with keys reduced to 256), plus Sq != Sk, a
-   ragged length and large scores, in bf16 (route "mma") and f32 (route
-   "fma"); print the build report's width-64 instantiation; time the
+   ragged length and large scores, in bf16 (route "mma", the design the
+   call takes checked against ``launches_by_design``) and f32 (route
+   "fma"); print the build report's width-64 instantiations; time the
    kernel, its plain version and ``scaled_dot_product_attention`` (as a
    yardstick only), beside the least time the card could take, with the
-   TFLOP/s of the function and the time over SDPA's and over the bound.
+   TFLOP/s of the function and the time over SDPA's and over the bound;
+   at the widths design H can take, the device time of designs H and A
+   (CUDA graphs of 10 calls) per case and, per width, A over H at each
+   main-path shape: the measurement behind ``mma_design``'s rule.
 3. Report what the tensor-core kernels of #2 / #4 (``bf16_mma_kernel``)
    and of #3 (``int8_mma_kernel``) compiled to (registers and spills from
    ptxas, their HMMA / HGMMA and IMMA / IGMMA counts in ``cuobjdump
@@ -41,17 +45,18 @@ non-zero, printing nothing on stdout, without them.  Phases:
 5. Drive SD-1.5 at full width through ``TextToImagePipeline``: random-normal
    x0.02 bf16 weights from a seeded generator, 8 prompts, 512x512, 8 steps,
    CFG 3.  Check the images and that kernel #1 ran exactly 8 x 32 + 1 = 257
-   times, all on the "mma" route; print img/s, peak memory and the
-   kernel's share of device time.
+   times, all on the "mma" route (120 design H, 136 A, 1 B); print img/s, peak
+   memory and the kernel's share of device time.
 6. The tiny SD stack in f32 on the card and on the CPU, TF32 off: latents,
    images and actions, for the per-count and the padded programs.
 7. Drive the FLUX-Kontext edit at full width through
    ``FluxKontextPipeline``: the 11.9 B DiT, T5-XXL, CLIP-L and the 16-channel
    VAE in bf16 (random-normal x0.02), one 1024^2 edit, 5 steps, guidance
    2.5.  Check the image and that kernel #1 ran exactly 5 x 57 + 2 = 287
-   times, all on the "mma" route; print s/edit, peak memory, the kernel's
-   share of device time and the idle share; keep one DiT forward and one
-   deterministic engine edit (512 T5 tokens) as phase 21's references.
+   times, all on the "mma" route (285 design H, 2 B); print s/edit, peak
+   memory, the kernel's share of device time and the idle share; keep one
+   DiT forward and one deterministic engine edit (512 T5 tokens) as phase
+   21's references.
 8. The tiny FLUX stack in f32 on the card and on the CPU, TF32 off, as in 6.
 9. The int8 and int4 layers of ``kernels/quant.py`` at main-path shapes (the
    UNet's level-1 and level-2 3x3 convolutions, the level-1 downsample and a
@@ -283,6 +288,25 @@ SD35_CASES = [
 ]
 LAUNCHES_PER_SD35_PREVIEW = sum(c[3] for c in SD35_CASES)
 
+
+def launches_by_design(fa, cases):
+    """Kernel #1's tensor-core launches per design that ``cases`` imply (the
+    model's operands arrive aligned): SD-1.5 H at levels 0 (self) and 1, A
+    at level 0's cross-attention and levels 2 and mid, B in the VAE; FLUX
+    and SD3.5 H but the VAE's B."""
+    want = {"A": 0, "B": 0, "H": 0}
+    for _, (_, sq, _, d), sk, n in cases:
+        want[fa.mma_design(d, True, sq, sk)] += n
+    return want
+
+
+def _check_designs(fa, cases, what):
+    got = dict(fa.flash_attention.launches_by_design)
+    want = launches_by_design(fa, cases)
+    if got != want:
+        raise AssertionError(f"{what}: kernel #1 launches by design {got}, want {want}")
+    return got
+
 # Shapes the serving path adds, gated with 0 counted launches: a lone SD-1.5
 # request under CFG (UNet batch 2) and the edit engine's 128 T5 tokens
 # (4096 + 4096 + 128 joint tokens).
@@ -412,6 +436,43 @@ def _time_ms(fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, calls=10, reps=5):
+    """Device ms of one ``fn()`` call: the median replay of a CUDA graph of
+    ``calls`` calls, so that host time between launches does not count."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return sorted(times)[reps // 2]
+
+
+def _design_ms(fa, q, k, v):
+    """Device ms of designs H and A at a bf16 call whose padded width H can
+    take (``H_WIDTHS``) with aligned rows: the measurement behind the rule
+    in ``mma_design``."""
+    import torch
+
+    out = torch.empty_like(q)
+    return {design: _graph_ms(lambda: fa.launch(q, k, v, out, design)) for design in ("H", "A")}
+
+
 def _library_ms(q, k, v, iters):
     """Yardstick: one PyTorch call computing the same attention, in its own
     [B, H, S, D] layout (transposed outside the timed region)."""
@@ -464,9 +525,12 @@ def phase_kernel(fa):
                 k = torch.randn((b, sk, h, d), device="cuda", generator=gen).to(dtype)
             v = torch.randn((b, sk, h, d), device="cuda", generator=gen).to(dtype)
             before = dict(fa.flash_attention.launches_by_route)
+            before_design = dict(fa.flash_attention.launches_by_design)
             out = fa.flash_attention(q, k, v)
             torch.cuda.synchronize()
             route = [r for r, n in fa.flash_attention.launches_by_route.items() if n != before[r]]
+            design = [x for x, n in fa.flash_attention.launches_by_design.items()
+                      if n != before_design[x]]
             ref = fa.flash_attention_reference(q.float(), k.float(), v.float())
             diff = (out.float() - ref).abs()
             err = diff.max().item()
@@ -480,7 +544,7 @@ def phase_kernel(fa):
                 "case": name, "dtype": str(dtype).replace("torch.", ""), "q": list(q_shape),
                 "sk": sk, "path": _case_path(name),
                 "route": route[0] if len(route) == 1 else route,
-                "design": fa.mma_design(d) if want_route == "mma" else None,
+                "design": design[0] if len(design) == 1 else design or None,
                 "padded_d": fa.padded_width(d, want_route),
                 "per_generation": per_gen, "max_abs_err": err, "max_abs_ref": ref_max,
                 "rtol": rtol, "atol": atol, "err_over_limit": over_limit,
@@ -490,6 +554,11 @@ def phase_kernel(fa):
             }
             row["bound_ms"], row["bound_by"] = _bound(q_shape, sk, dtype)
             row["tflops"] = 4.0 * b * h * sq * sk * d / (row["ms"] * 1e9)
+            if (want_route == "mma" and fa.padded_width(d, "mma") in fa.H_WIDTHS
+                    and fa.rows_aligned(q, k, v)):
+                device_ms = _design_ms(fa, q, k, v)
+                row["device_ms_h"], row["device_ms_a"] = device_ms["H"], device_ms["A"]
+                row["a_over_h"] = device_ms["A"] / device_ms["H"]
             row["ms_over_library"] = row["ms"] / row["library_ms"]
             row["ms_over_bound"] = row["ms"] / row["bound_ms"]
             print(json.dumps({"phase": "kernel", **row}), flush=True)
@@ -500,9 +569,23 @@ def phase_kernel(fa):
             if row["route"] != want_route:
                 raise AssertionError(
                     f"flash_attention {name} {dtype} took {route}, want {want_route}")
+            want_design = (fa.mma_design(d, fa.rows_aligned(q, k, v), sq, sk)
+                           if want_route == "mma" else None)
+            if row["design"] != want_design:
+                raise AssertionError(
+                    f"flash_attention {name} {dtype} ran design {design}, want {want_design}")
             rows.append(row)
             del q, k, v, out
     torch.cuda.empty_cache()
+    # per padded width H can take: A's device time over H's at each main-path
+    # shape (the extra cases left out), against the design the rule picks
+    by_width = {}
+    for row in rows:
+        if "a_over_h" in row and row["case"] not in {c[0] for c in EXTRA_CASES}:
+            by_width.setdefault(fa.padded_width(row["q"][3], "mma"), []).append(
+                {"case": row["case"], "sk": row["sk"], "design": row["design"],
+                 "a_over_h": row["a_over_h"]})
+    print(json.dumps({"phase": "kernel1_h_widths", "by_width": by_width}), flush=True)
     return rows
 
 
@@ -615,6 +698,7 @@ def phase_main_path(fa):
     if launches != LAUNCHES_PER_GENERATION or by_route["mma"] != LAUNCHES_PER_GENERATION:
         raise AssertionError(f"flash_attention launched {launches} times ({by_route}), want "
                              f"{LAUNCHES_PER_GENERATION} on mma")
+    by_design = _check_designs(fa, MAIN_PATH_CASES, "SD-1.5 generation")
 
     generate(SEED + 3)  # warm-up after the first (autotuning) run
     torch.cuda.synchronize()
@@ -640,7 +724,8 @@ def phase_main_path(fa):
     _, profiled = _device_profile(lambda: generate(SEED + 10))
     result = {
         "phase": "main_path", "batch": BATCH, "steps": STEPS, "cfg": CFG, "resolution": 512,
-        "launches": launches, "launches_by_route": by_route, "img_per_s": BATCH * runs / elapsed,
+        "launches": launches, "launches_by_route": by_route, "launches_by_design": by_design,
+        "img_per_s": BATCH * runs / elapsed,
         "s_per_generation": elapsed / runs, "run_s": run_s, "peak_mem_gib": peak_gib,
         "deterministic_run_s": det_run_s,
         "deterministic_s_per_generation": sum(det_run_s) / runs,
@@ -941,7 +1026,8 @@ def phase_imma_kernel(fv):
 
 KERNEL1_SYMBOL = "flash_fwd"  # in the name of every kernel #1 kernel, FMA and tensor-core
 KERNEL1_MMA = re.compile(r"flash_fwd_mma_([ab])_kernelILi(\d+)ELb([01])E")  # design, width, vec
-MIN_BLOCKS_PER_SM = {"A": 2, "B": 1}
+KERNEL1_WGMMA = re.compile(r"flash_fwd_(wgmma)_kernelILi(\d+)E")  # design H: width, TMA loads
+MIN_BLOCKS_PER_SM = {"A": 2, "B": 1, "H": 1}
 
 
 def phase_kernel1_build(fa):
@@ -950,7 +1036,7 @@ def phase_kernel1_build(fa):
     HGMMA instructions (SASS), threads, dynamic shared memory and resident
     blocks per SM (occupancy API).  Hard failures: an instantiation missing,
     no tensor-core instruction, fewer than 2 blocks per SM in design A or 1
-    in design B."""
+    in designs B and H."""
     from consolver_torch.kernels import _nvcc
 
     library = _nvcc.library_path(fa._SOURCE)
@@ -958,14 +1044,17 @@ def phase_kernel1_build(fa):
     sass = _sass_mma_counts(library)
     instances = {}
     for symbol in sorted(set(ptxas) | set(sass)):
-        found = KERNEL1_MMA.search(symbol)
+        found = KERNEL1_MMA.search(symbol) or KERNEL1_WGMMA.search(symbol)
         if not found:
             continue
-        width, vec = int(found.group(2)), found.group(3) == "1"
-        occ = fa.mma_occupancy(width, vec)
-        if occ["design"] != found.group(1).upper() or occ["width"] != width:
+        design = "H" if found.group(1) == "wgmma" else found.group(1).upper()
+        width = int(found.group(2))
+        vec = design == "H" or found.group(3) == "1"
+        occ = fa.mma_occupancy(width, vec, design)
+        if occ["design"] != design or occ["width"] != width:
             raise AssertionError(f"{symbol}: the launcher picks {occ} for d = {width}")
-        key = f"{occ['design']}/d{width}/{'cp.async' if vec else 'elementwise'}"
+        staging = "tma" if design == "H" else "cp.async" if vec else "elementwise"
+        key = f"{occ['design']}/d{width}/{staging}"
         instances[key] = {**ptxas.get(symbol, {}),
                           **sass.get(symbol, dict.fromkeys(SASS_MMA_OPS, 0)),
                           **occ}
@@ -973,8 +1062,8 @@ def phase_kernel1_build(fa):
     print(json.dumps(result), flush=True)
     # the reward / eval backbones' head dim (BACKBONE_CASES)
     print(json.dumps({"phase": "kernel1_build_d64", "instances": {
-        key: row for key, row in instances.items() if key.startswith("A/d64/")}}), flush=True)
-    want = 2 * len(fa.MMA_WIDTHS)
+        key: row for key, row in instances.items() if "/d64/" in key}}), flush=True)
+    want = 2 * len(fa.MMA_WIDTHS) + len(fa.WGMMA_WIDTHS)
     if len(instances) != want:
         raise AssertionError(f"expected {want} tensor-core instantiations of kernel #1: "
                              f"{sorted(instances)}")
@@ -1085,6 +1174,7 @@ def phase_flux(fa):
     if launches != LAUNCHES_PER_EDIT or by_route["mma"] != LAUNCHES_PER_EDIT:
         raise AssertionError(f"flash_attention launched {launches} times ({by_route}), want "
                              f"{LAUNCHES_PER_EDIT} on mma")
+    by_design = _check_designs(fa, FLUX_CASES, "FLUX-Kontext edit")
 
     run_s = []
     for i in range(2):
@@ -1098,6 +1188,7 @@ def phase_flux(fa):
     result = {
         "phase": "flux_edit", "resolution": 1024, "steps": FLUX_STEPS, "guidance": FLUX_GUIDANCE,
         "joint_tokens": 8704, "launches": launches, "launches_by_route": by_route,
+        "launches_by_design": by_design,
         "models_build_s": build_s,
         "first_edit_s": first_s, "run_s": run_s, "s_per_edit": sum(run_s) / len(run_s),
         "peak_mem_gib": peak_gib, "image_min": lo, "image_max": hi, **profiled,
@@ -1170,6 +1261,7 @@ def phase_sd35(fa):
     if launches != LAUNCHES_PER_SD35_PREVIEW or by_route["mma"] != LAUNCHES_PER_SD35_PREVIEW:
         raise AssertionError(f"flash_attention launched {launches} times ({by_route}), want "
                              f"{LAUNCHES_PER_SD35_PREVIEW} on mma")
+    by_design = _check_designs(fa, SD35_CASES, "SD3.5 preview")
     run_s = []
     for i in range(2):
         t0 = time.perf_counter()
@@ -1179,7 +1271,8 @@ def phase_sd35(fa):
     result = {
         "phase": "sd35_preview", "resolution": 1024, "steps": SD35_STEPS,
         "guidance": SD35_GUIDANCE, "joint_tokens": SD35_JOINT, "launches": launches,
-        "launches_by_route": by_route, "models_build_s": build_s, "first_preview_s": first_s,
+        "launches_by_route": by_route, "launches_by_design": by_design,
+        "models_build_s": build_s, "first_preview_s": first_s,
         "run_s": run_s, "s_per_preview": sum(run_s) / len(run_s),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "image_min": lo, "image_max": hi,
@@ -4518,6 +4611,7 @@ def _kernel1_entry(rows, runs_by_path):
         entry["bound_by"] = "operations" if ops_ms >= entry["bound_ms"] / 2 else "bytes"
         entry["launches"] = runs_by_path[path]["launches"]
         entry["launches_by_route"] = runs_by_path[path]["launches_by_route"]
+        entry["launches_by_design"] = runs_by_path[path]["launches_by_design"]
         entry["tflops"] = (sum(4.0 * r["q"][0] * r["q"][1] * r["q"][2] * r["q"][3] * r["sk"]
                                * r["per_generation"] for r in sel) / (entry["ms"] * 1e9))
         entry["ms_over_library"] = entry["ms"] / entry["library_ms"]

@@ -22,8 +22,9 @@
 // The function is the Pallas kernel's: scores and probabilities p in f32.
 // Two routes, chosen by the type of q/k/v:
 //
-// * "mma", bf16 q/k/v: tensor cores (mma.sync m16n8k16 bf16 x bf16 -> f32,
-//   fragments by ldmatrix, .trans for V). q.k^T of bf16 values is exact in
+// * "mma", bf16 q/k/v: tensor cores (wgmma in design H; mma.sync m16n8k16
+//   bf16 x bf16 -> f32, fragments by ldmatrix, .trans for V, in designs A
+//   and B). q.k^T of bf16 values is exact in
 //   its products and sums in f32, so it costs nothing against f32 math; the
 //   scores are then scaled by (1/sqrt(d)) log2(e) in f32 and go through
 //   exp2f, as on the FMA route. A bf16 p would not keep the function (about
@@ -35,10 +36,27 @@
 //   K/V tile: keys >= Sk are set to -1e30 before the max (zero-filled K rows
 //   would score 0), and V rows past Sk are zeros (0 x NaN is NaN). The
 //   padded head dim is a template parameter, so the MMA loops have no
-//   branch on d. Tiles arrive by cp.async 16-byte copies into a 2-stage
-//   K/V ring (one barrier per tile) when rows are 16-byte aligned and
-//   d % 8 == 0, else element by element (kVec = false). Two designs:
-//   - A, d <= 160 (FLUX 128, SD 40 / 80 / 160), flash_fwd_mma_a_kernel: 4
+//   branch on d. When rows are 16-byte aligned and d % 8 == 0, tiles arrive
+//   by copies: TMA in design H, cp.async 16-byte copies into a 2-stage K/V
+//   ring (one barrier per tile) in A and B; else element by element
+//   (kVec = false, A and B only). Three designs:
+//   - H, with copies, on kernels 64 and 128 columns wide: padded widths 64
+//     and 128 (the SD3.5 joint attention at d = 64, FLUX's at d = 128, the
+//     d = 64 backbones) and, where measured faster than A at every
+//     main-path shape, SD-1.5's width 80 (on the 128 kernel) and width 48
+//     with more than one key tile (its self-attention, on the 64 kernel);
+//     flash_fwd_wgmma_kernel: Hopper's own tensor-core path. mma.sync
+//     reaches under a third of the card's 989 TFLOP/s; wgmma, fed by TMA
+//     and overlapped by warp specialisation, is the way to the full rate.
+//     What bounds it: at d = 128 the MMAs (1.5x the function's work); at
+//     d = 64 the exponentials cost about as much as the MMAs (one exp2 a
+//     score on the SFU, 16 a clock per SM, against 64 x 2 x 1.5 MMA
+//     operations a score), so one consumer warpgroup's softmax runs while
+//     the other's MMAs do (below). 128 query rows, 128-key tiles, 1 block
+//     per SM; the notes at the kernel give the layout.
+//   - A, the other widths up to 160 (SD's 160, its 48-wide cross-attention
+//     over 77 keys) and every unaligned call up to 160,
+//     flash_fwd_mma_a_kernel: 4
 //     warps x 16 query rows, 64-key tiles, the head dim padded to a multiple
 //     of 16 (40 -> 48). Q passes once through the ring into A fragments held
 //     in registers; the f32 accumulator of a warp's 16 rows x all columns
@@ -64,10 +82,15 @@
 //
 // C interface (route: nvcc -> shared library -> ctypes):
 //   consolver_flash_attention_forward(...) returns cudaGetLastError() after
-//   the launch (0 = success), or -1 for a head dim / dtype / staging it does
-//   not take. consolver_flash_attention_mma_info(...) reports the tensor-core
-//   kernel a head dim takes: its design, width, threads, dynamic shared
-//   memory and resident blocks per SM.
+//   the launch (0 = success), -2 / -3 when design H's tensor maps cannot be
+//   made (cuTensorMapEncodeTiled not found / it refuses the operand's layout),
+//   or -1 for a head dim / dtype / staging / design it does not take; the
+//   wrapper picks the tensor-core design (flash_attention.py::mma_design).
+//   consolver_flash_attention_mma_info(...) reports the kernel a design
+//   runs at a head dim: its width, threads, dynamic shared memory and
+//   resident blocks per SM.
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 
 #include "flash_common.cuh"
 
@@ -629,11 +652,316 @@ __global__ void __launch_bounds__(kThreadsB, 1) flash_fwd_mma_b_kernel(Params p)
   }
 }
 
+// Design H (sm_90a), flash_fwd_wgmma_kernel<64 | 128>: head dims up to 64
+// and up to 128 with aligned rows (the wrapper's mma_design says which).
+// 3 warpgroups, 128 query rows a block: warpgroup 2 is the producer, whose
+// one thread keeps TMA loads of Q (once) and of the K and V tiles (a ring of
+// kStagesH stages, one full and one empty mbarrier per tile and stage) in
+// flight; warpgroups 0 and 1 each own 64 query rows. A consumer's tile j:
+// S_j = Q K_j^T by wgmma m64n128k16 from shared memory, then the output's
+// rescale by the previous tile's alpha and O += p_hi V_{j-1} + p_lo V_{j-1}
+// by wgmma m64nDPk16 with p in registers (the S accumulator repacked into
+// A fragments) and V read MN-major; the online softmax of S_j runs while
+// that p.v product is in flight. The two consumers take turns to issue
+// their products (named barriers 1 and 2), so one warpgroup's exponentials
+// overlap the other's MMAs. setmaxnreg gives the consumers 240 registers a
+// thread (S 64, O 32 / 64, p_hi and p_lo 64) and the producer 24. TMA's
+// zero fill covers the rows past Sq and Sk (4429 = 34 x 128 + 77) and the
+// columns past d; keys past Sk are masked before the max, as in A.
+
+// 2^x on the SFU with subnormal results flushed to 0: a p below 2^-126
+// adds nothing to an l of at least 1, and exp2f's subnormal handling costs
+// three more instructions a score.
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int kThreadsH = 384;
+constexpr int kRowsH = 128;  // 64 per consumer warpgroup
+constexpr int kKeysH = 128;
+constexpr int kStagesH = 2;
+constexpr int kConsumerRegsH = 240;
+constexpr int kProducerRegsH = 24;
+
+// Q, kStagesH x (K, V), 1 + 4 kStagesH mbarriers, and 1 KB to align the
+// tiles to the swizzle's 1024-byte atoms.
+constexpr int smem_h(int dp) {
+  return (kRowsH + 2 * kStagesH * kKeysH) * dp * 2 + 8 * (1 + 4 * kStagesH) + 1024;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreadsH, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const Params p) {
+  static_assert(DP == 64 || DP == 128, "design H widths");
+  constexpr int CB = DP / 64;                  // 64-column blocks of a tile (128-byte rows)
+  constexpr unsigned QBYTES = kRowsH * DP * 2;
+  constexpr unsigned TBYTES = kKeysH * DP * 2;  // one K or V tile
+  constexpr int NT = kKeysH / 8;                // 8-key n-tiles of S
+  static_assert(kRowsH == kKeysH, "Q and K tiles share their column-block offsets");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const unsigned qs = (smem_addr(smem_raw) + 1023) & ~1023u;  // [CB][128 rows][64]
+  const unsigned ks = qs + QBYTES;                            // stage s: [CB][128 keys][64]
+  const unsigned vs = ks + kStagesH * TBYTES;
+  const unsigned bars = vs + kStagesH * TBYTES;
+  const unsigned qfull = bars;
+  auto kfull = [&](int s) { return bars + 8 * (1 + s); };
+  auto vfull = [&](int s) { return bars + 8 * (1 + kStagesH + s); };
+  auto kempty = [&](int s) { return bars + 8 * (1 + 2 * kStagesH + s); };
+  auto vempty = [&](int s) { return bars + 8 * (1 + 3 * kStagesH + s); };
+
+  const int q0 = blockIdx.x * kRowsH;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int ntiles = (p.sk + kKeysH - 1) / kKeysH;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < kStagesH; ++s) {
+      mbar_init(kfull(s), 1);
+      mbar_init(vfull(s), 1);
+      mbar_init(kempty(s), 8);  // lane 0 of each consumer warp
+      mbar_init(vempty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    setmaxnreg_dec<kProducerRegsH>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qfull, QBYTES);
+      for (int c = 0; c < CB; ++c) tma_load_4d(qs + c * kRowsH * 128, &tq, qfull, 64 * c, h, q0, b);
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % kStagesH;
+        const unsigned free_parity = ((j / kStagesH) & 1) ^ 1;
+        mbar_wait(kempty(s), free_parity);
+        mbar_expect_tx(kfull(s), TBYTES);
+        for (int c = 0; c < CB; ++c)
+          tma_load_4d(ks + s * TBYTES + c * kKeysH * 128, &tk, kfull(s), 64 * c, h, j * kKeysH, b);
+        mbar_wait(vempty(s), free_parity);
+        mbar_expect_tx(vfull(s), TBYTES);
+        for (int c = 0; c < CB; ++c)
+          tma_load_4d(vs + s * TBYTES + c * kKeysH * 128, &tv, vfull(s), 64 * c, h, j * kKeysH, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegsH>();
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3;  // within the warpgroup
+    const int tcol = 2 * (lane & 3);
+    const unsigned qwg = qs + wg * 64 * 128;   // this warpgroup's 64 rows in each column block
+    const int turn = 1 + wg, next = 2 - wg;    // named barriers: whose turn to issue MMAs
+
+    float s[NT * 4];     // S of the tile, then its f32 p
+    float o[DP / 2];     // O, m64nDP
+    unsigned phi[kKeysH / 16][4], plo[kKeysH / 16][4];  // bf16(p), bf16(p - bf16(p)): A fragments
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+
+    auto issue_scores = [&](int stage) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const unsigned off = (kk / 4) * 128 * 128 + (kk % 4) * 32;  // 128 rows in both tiles
+        wgmma_ss_m64n128(s, sw128_desc(qwg + off, 16, 1024),
+                         sw128_desc(ks + stage * TBYTES + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    };
+    auto issue_pv = [&](int stage) {
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        o[4 * i] *= alpha[0];
+        o[4 * i + 1] *= alpha[0];
+        o[4 * i + 2] *= alpha[1];
+        o[4 * i + 3] *= alpha[1];
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeysH / 16; ++kk) {  // keys 16kk..16kk+15: 2 x 8 rows of 128 bytes
+        const unsigned long long dv =
+            sw128_desc(vs + stage * TBYTES + kk * 2048, kKeysH * 128, 1024);
+        if constexpr (DP == 64) {
+          wgmma_rs_m64n64(o, phi[kk], dv);
+          wgmma_rs_m64n64(o, plo[kk], dv);
+        } else {
+          wgmma_rs_m64n128(o, phi[kk], dv);
+          wgmma_rs_m64n128(o, plo[kk], dv);
+        }
+      }
+      wgmma_commit();
+    };
+    // Online softmax of the tile at key k0: raw scores -> f32 p in s; sets
+    // alpha, m and l (this thread's columns; the quad adds up at the end).
+    auto softmax = [&](int k0) {
+      if (k0 + kKeysH > p.sk) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + 8 * j + tcol + (e & 1) >= p.sk) s[4 * j + e] = kNegInf;
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float x = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        const float m_new = fmaxf(m[r], x * p.scale_log2);
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pr = ex2_ftz(fmaf(s[4 * j + e], p.scale_log2, -m[e >> 1]));
+          l[e >> 1] += pr;
+          s[4 * j + e] = pr;
+        }
+    };
+    // The C fragments of keys 16kk..16kk+15 are the A fragment of k-step kk.
+    auto split_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kKeysH / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1], phi[kk][i], plo[kk][i]);
+    };
+
+    if (wg == 1) named_arrive(1, 256);  // warpgroup 0 issues first
+    mbar_wait(qfull, 0);
+
+    mbar_wait(kfull(0), 0);
+    named_sync(turn, 256);
+    issue_scores(0);
+    if (wg == 0 || ntiles > 1) named_arrive(next, 256);
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(kempty(0));
+    softmax(0);
+    split_p();
+    for (int j = 1; j < ntiles; ++j) {
+      const int st = j % kStagesH, prev = (j - 1) % kStagesH;
+      mbar_wait(kfull(st), (j / kStagesH) & 1);
+      named_sync(turn, 256);
+      issue_scores(st);
+      mbar_wait(vfull(prev), ((j - 1) / kStagesH) & 1);
+      issue_pv(prev);
+      if (wg == 0 || j < ntiles - 1) named_arrive(next, 256);
+      wgmma_wait<1>();  // S_j; the p.v product of tile j - 1 is still in flight
+      fence_regs(s);
+      if (lane == 0) mbar_arrive(kempty(st));
+      softmax(j * kKeysH);
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(vempty(prev));
+      split_p();
+    }
+    const int last = (ntiles - 1) % kStagesH;
+    mbar_wait(vfull(last), ((ntiles - 1) / kStagesH) & 1);
+    issue_pv(last);
+    wgmma_wait<0>();
+    fence_regs(o);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * r;
+      if (row >= p.sq) continue;
+      const float inv = 1.f / l[r];
+      bf16* orow = og + row * p.o_ss;
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        const int col = 8 * i + tcol;
+        if (col >= p.d) break;
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link flag:
+// the library links only the runtime).
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of one [B, S, H, D] bf16 operand for tiles of `rows` rows x
+// 64 columns in the 128-byte swizzle; rows past S and columns past d read as
+// zeros. 0 on success.
+int bshd_tensor_map(CUtensorMap* map, const void* ptr, int batch, int seq, int heads, int d,
+                    long long sb, long long ss, long long sh, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return -2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : -3;
+}
+
+template <int DP>
+int launch_wgmma(const Params& p, int batch, int heads, int smem, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (int rc = bshd_tensor_map(&tq, p.q, batch, p.sq, heads, p.d, p.q_sb, p.q_ss, p.q_sh, kRowsH))
+    return rc;
+  if (int rc = bshd_tensor_map(&tk, p.k, batch, p.sk, heads, p.d, p.k_sb, p.k_ss, p.k_sh, kKeysH))
+    return rc;
+  if (int rc = bshd_tensor_map(&tv, p.v, batch, p.sk, heads, p.d, p.v_sb, p.v_ss, p.v_sh, kKeysH))
+    return rc;
+  const dim3 grid((p.sq + kRowsH - 1) / kRowsH, heads, batch);
+  flash_fwd_wgmma_kernel<DP><<<grid, kThreadsH, smem, stream>>>(tq, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The tensor-core kernel of one padded width and staging, with its launch
 // shape and its once-per-device shared-memory opt-in.
 struct MmaKernel {
-  void (*fn)(Params);
-  int design;  // 0 = A, 1 = B
+  const void* fn;
+  int design;  // 0 = A, 1 = B, 2 = H
   int width, threads, rows, smem;
   std::atomic<unsigned long long>* opted;
 };
@@ -642,12 +970,21 @@ template <int DP, bool kVec>
 MmaKernel mma_kernel_of() {
   static std::atomic<unsigned long long> opted{0};
   if constexpr (DP <= kMaxWidthA)
-    return {flash_fwd_mma_a_kernel<DP, kVec>, 0, DP, kThreadsA, kRowsA, smem_a(DP), &opted};
+    return {reinterpret_cast<const void*>(flash_fwd_mma_a_kernel<DP, kVec>), 0, DP, kThreadsA,
+            kRowsA, smem_a(DP), &opted};
   else
-    return {flash_fwd_mma_b_kernel<DP, kVec>, 1, DP, kThreadsB, kRowsB, smem_b(DP), &opted};
+    return {reinterpret_cast<const void*>(flash_fwd_mma_b_kernel<DP, kVec>), 1, DP, kThreadsB,
+            kRowsB, smem_b(DP), &opted};
 }
 
-// d in 1..512: design A pads to a multiple of 16 up to 160, design B to 256
+template <int DP>
+MmaKernel wgmma_kernel_of() {
+  static std::atomic<unsigned long long> opted{0};
+  return {reinterpret_cast<const void*>(flash_fwd_wgmma_kernel<DP>), 2, DP, kThreadsH, kRowsH,
+          smem_h(DP), &opted};
+}
+
+// d in 1..512: designs A and B pad to a multiple of 16 up to 160, then 256
 // or 512.
 template <bool kVec>
 MmaKernel mma_kernel(int d) {
@@ -666,16 +1003,31 @@ MmaKernel mma_kernel(int d) {
   }
 }
 
-MmaKernel mma_kernel(int d, bool vec) { return vec ? mma_kernel<true>(d) : mma_kernel<false>(d); }
+// The kernel of `design` (0 = A, 1 = B, 2 = H; the wrapper's mma_design
+// picks it) at head dim d and staging vec; fn is null where the design does
+// not take them: A up to d = 160, B above, H up to 128 with copies (the
+// head dim padded to 64 or 128). A stays built at the widths H takes: it is
+// chip_smoke.py's yardstick for the wrapper's rule.
+MmaKernel mma_kernel(int design, int d, bool vec) {
+  if (design == 2) {
+    if (!vec || d > 128) return {};
+    return d <= 64 ? wgmma_kernel_of<64>() : wgmma_kernel_of<128>();
+  }
+  if (design != (d <= kMaxWidthA ? 0 : 1)) return {};
+  return vec ? mma_kernel<true>(d) : mma_kernel<false>(d);
+}
 
-int launch_mma(const Params& p, bool vec, int batch, int heads, cudaStream_t stream) {
-  const MmaKernel k = mma_kernel(p.d, vec);
+int launch_mma(const Params& p, int design, bool vec, int batch, int heads, cudaStream_t stream) {
+  const MmaKernel k = mma_kernel(design, p.d, vec);
+  if (k.fn == nullptr) return -1;
   if (int rc = opt_in_smem(k.fn, k.smem, *k.opted)) return rc;
+  if (k.design == 2)
+    return k.width == 64 ? launch_wgmma<64>(p, batch, heads, k.smem, stream)
+                         : launch_wgmma<128>(p, batch, heads, k.smem, stream);
   const dim3 grid((p.sq + k.rows - 1) / k.rows, heads, batch);
   Params args = p;
   void* argv[] = {&args};
-  const cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(k.fn), grid,
-                                           dim3(k.threads), argv, k.smem, stream);
+  const cudaError_t err = cudaLaunchKernel(k.fn, grid, dim3(k.threads), argv, k.smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -683,13 +1035,14 @@ int launch_mma(const Params& p, bool vec, int batch, int heads, cudaStream_t str
 }  // namespace
 
 // dtype: 0 = float32, 1 = float16 (both on the FMA kernel), 2 = bfloat16
-// (the tensor-core kernels). vec = 1 stages bf16 tiles by cp.async and
-// needs d % 8 == 0 and 16-byte aligned rows; vec = 0 stages element by
-// element (and is the only staging of the FMA kernel). Strides are in
-// elements; the head dim must be contiguous (stride 1).
+// (the tensor-core kernels, of `design`: 0 = A, 1 = B, 2 = H; ignored on
+// the FMA kernel). vec = 1 stages bf16 tiles by copies (cp.async, or TMA
+// in design H) and needs d % 8 == 0 and 16-byte aligned rows; vec = 0
+// stages element by element (designs A and B, and the FMA kernel). Strides
+// are in elements; the head dim must be contiguous (stride 1).
 extern "C" int consolver_flash_attention_forward(
     int dtype, const void* q, const void* k, const void* v, void* o, int batch, int heads,
-    int sq, int sk, int d, int vec, long long q_sb, long long q_ss, long long q_sh,
+    int sq, int sk, int d, int vec, int design, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh, float scale, void* stream) {
   if (d < 1 || d > 512 || sk < 1 || sq < 1) return -1;
@@ -703,21 +1056,22 @@ extern "C" int consolver_flash_attention_forward(
   switch (dtype) {
     case 0: return launch_for_dim<float>(p, batch, heads, s);
     case 1: return launch_for_dim<__half>(p, batch, heads, s);
-    case 2: return launch_mma(p, vec != 0, batch, heads, s);
+    case 2: return launch_mma(p, design, vec != 0, batch, heads, s);
     default: return -1;
   }
 }
 
-// The tensor-core kernel a bf16 call with head dim d (1..512) and staging
-// vec launches: its design (0 = A, 1 = B), padded width, threads per block,
-// dynamic shared memory per block and resident blocks per SM.
-extern "C" int consolver_flash_attention_mma_info(int d, int vec, int* design, int* width,
+// The tensor-core kernel a bf16 call of `design` (0 = A, 1 = B, 2 = H) with
+// head dim d (1..512) and staging vec launches: its padded width, threads
+// per block, dynamic shared memory per block and resident blocks per SM;
+// -1 where the design does not take d and vec.
+extern "C" int consolver_flash_attention_mma_info(int design, int d, int vec, int* width,
                                                   int* threads, int* smem_bytes,
                                                   int* blocks_per_sm) {
   if (d < 1 || d > 512) return -1;
-  const MmaKernel k = mma_kernel(d, vec != 0);
+  const MmaKernel k = mma_kernel(design, d, vec != 0);
+  if (k.fn == nullptr) return -1;
   if (int rc = opt_in_smem(k.fn, k.smem, *k.opted)) return rc;
-  *design = k.design;
   *width = k.width;
   *threads = k.threads;
   *smem_bytes = k.smem;

@@ -3,18 +3,30 @@
 Port of ``consolver_tpu/kernels/attention.py``.  Layout: q ``[B, Sq, H, D]``,
 k/v ``[B, Sk, H, D]`` -> out ``[B, Sq, H, D]``.
 
-  ===========================  ======  =============================
+  ===========================  ======  =====================================
   call                         device  goes to
-  ===========================  ======  =============================
-  unmasked, non-causal         CUDA    the hand-written flash kernel
+  ===========================  ======  =====================================
+  unmasked, non-causal, bf16   CUDA    the flash kernel's tensor-core route:
+    padded width 64, 80 or 128         design H (wgmma + TMA)
+    (48 past 128 keys), rows
+    16-byte aligned
+    other widths up to 160,            design A (mma.sync)
+    or rows not aligned
+    head dim 161-512                   design B (mma.sync, split columns)
+  unmasked, non-causal, f32    CUDA    the flash kernel's FMA route
+  / f16
   unmasked, non-causal         CPU     its plain version
   causal or masked             any     :func:`xla_attention`
   additive bias (T5 position)  any     :func:`xla_attention` direct
-  ===========================  ======  =============================
+  ===========================  ======  =====================================
 
-The SD-1.5 UNet (head dims 40/80/160), both VAEs' mid attention (d = 512)
-and every FLUX joint attention (d = 128, 24 heads, 8704 tokens for a 1024^2
-edit) are unmasked and go to the kernel on the card.  CLIP's causal
+Every FLUX joint attention (d = 128, 24 heads, 8704 tokens for a 1024^2
+edit), SD3.5's joint attention (d = 64, 38 heads, 4429 tokens), the d = 64
+reward / eval backbones and the SD-1.5 UNet's level-0 self-attention and
+level-1 attention (head dims 40 and 80) take design H; the UNet's level-0
+cross-attention (77 keys) and its d = 160 levels design A; both VAEs' mid
+attention (d = 512) design B (``flash_attention.mma_design``).  All of
+them are unmasked and go to the kernel on the card.  CLIP's causal
 attention and T5's position-biased attention (which calls
 :func:`xla_attention` itself) take the plain path.  A CUDA call the kernel
 cannot take (head dim > 512, a dtype other than bf16/f16/f32) raises;

@@ -13,25 +13,41 @@ Routes (:func:`kernel_route`, by the type of q/k/v):
 * ``"mma"``: bf16 q/k/v, on tensor cores.  ``q k^T`` is a bf16 MMA (exact
   products, f32 sums), and ``p`` is split into ``bf16(p)`` and
   ``bf16(p - bf16(p))`` for two ``p v`` MMAs, which keeps the f32-``p``
-  function.  Head dims up to 160 take design A (:func:`mma_design`), one warp
-  per 16 query rows over all columns; 160 < d <= 512 take design B, whose
-  warps split the output columns.  :func:`padded_width` gives the head dim
-  the kernel runs on.  Rows that start 16-byte aligned with ``d % 8 == 0``
-  arrive by ``cp.async``; others are staged element by element by the same
-  kernel (:func:`staging`).
+  function.  :func:`padded_width` gives the head dim the kernel runs on and
+  :func:`mma_design` the design:
+
+  - H (Hopper's own path, ``wgmma`` + TMA, warp-specialised) on kernels 64
+    and 128 columns wide, for rows that arrive by copies: padded widths 64
+    and 128 (the SD3.5 joint attention at d = 64, FLUX's at d = 128, the
+    d = 64 backbones) and, by measurement, SD-1.5's widths 80 and 48 (the
+    latter past one 128-key tile: its self-attention).  A producer warp keeps
+    TMA loads of K and V tiles in flight; two consumer warpgroups of 64
+    query rows each run ``S = Q K^T`` and ``O += p_hi V + p_lo V`` as
+    ``wgmma`` and take turns, so that one's exponentials overlap the other's
+    MMAs.  At d = 64 the exponentials (one ``exp2`` a score on the SFU)
+    cost about as much as the MMAs; at d = 128 the MMAs bound it.
+  - A, ``mma.sync`` with one warp per 16 query rows over all columns: the
+    other widths up to 160 (SD-1.5's 160, its 77-key cross-attention at 48)
+    and every width whose rows are staged element by element.
+  - B, whose warps split the output columns: 160 < d <= 512.
+
+  Rows that start 16-byte aligned with ``d % 8 == 0`` arrive by copies
+  (``cp.async`` in A and B, TMA in H); others are staged element by element
+  by design A or B (:func:`staging`).
 * ``"fma"``: f32 / f16 q/k/v, which a bf16 MMA would round: plain f32 FMAs.
 
 Layout: q ``[B, Sq, H, D]``, k/v ``[B, Sk, H, D]`` -> out ``[B, Sq, H, D]``
 in q's dtype.  :func:`flash_attention` runs a kernel for a CUDA tensor and
 the plain version for a CPU tensor; it raises for a call the kernels cannot
-take.  ``flash_attention.launches`` counts kernel launches and
-``flash_attention.launches_by_route`` counts them per route.
+take.  ``flash_attention.launches`` counts kernel launches,
+``flash_attention.launches_by_route`` counts them per route and
+``flash_attention.launches_by_design`` the "mma" route's per design.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -41,7 +57,15 @@ _SOURCE = _nvcc.CSRC / "flash_attention.cu"
 _BUILD_DIR = _nvcc.BUILD_DIR
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 MAX_HEAD_DIM = 512
-MMA_A_MAX_DIM = 160  # design A up to here, design B above
+MMA_A_MAX_DIM = 160  # designs A and H up to here, design B above
+WGMMA_WIDTHS = (64, 128)  # design H's kernels: head dims up to 64, up to 128
+# Padded widths (of designs A and B) that design H takes with aligned rows,
+# and the least key length it takes there.  64 and 128 are its own; 80
+# (SD-1.5 level 1) and 48 (level 0) ran faster on H's wider kernels at every
+# main-path shape of theirs but level 0's 77-key cross-attention, which one
+# key tile leaves on A (PERF.md §5).
+H_WIDTHS = {48: 129, 64: 1, 80: 1, 128: 1}
+_DESIGN_CODES = {"A": 0, "B": 1, "H": 2}
 FMA_WIDTHS = (32, 48, 64, 80, 128, 160, 256, 512)
 MMA_WIDTHS = tuple(range(16, MMA_A_MAX_DIM + 1, 16)) + (256, 512)
 _MAX_GRID_YZ = 65535
@@ -59,12 +83,12 @@ def build() -> ctypes.CDLL:
     fn = lib.consolver_flash_attention_forward
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
         + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p]
     )
     info = lib.consolver_flash_attention_mma_info
     info.restype = ctypes.c_int
-    info.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 5
+    info.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 4
     _library = lib
     return lib
 
@@ -112,12 +136,25 @@ def kernel_route(dtype: torch.dtype) -> str:
     return "mma" if dtype == torch.bfloat16 else "fma"
 
 
-def mma_design(d: int) -> str:
-    """The tensor-core design a head dim takes: ``"A"`` (one warp owns 16
-    query rows and every output column) up to ``MMA_A_MAX_DIM``, ``"B"`` (the
-    warps split the output columns) above."""
+def mma_design(d: int, aligned: bool = True, sq: int = 1, sk: int = 1) -> str:
+    """The tensor-core design a bf16 call takes, from its head dim ``d``,
+    whether its rows are 16-byte aligned (:func:`rows_aligned`) and its
+    query and key lengths: ``"H"`` (wgmma + TMA) at the padded widths of
+    ``H_WIDTHS`` when the rows arrive by copies (:func:`staging`) and ``sk``
+    reaches the width's least key length, ``"A"`` (one warp owns 16 query
+    rows and every output column) at the other widths up to
+    ``MMA_A_MAX_DIM``, ``"B"`` (the warps split the output columns) above.
+    ``sq`` does not move the choice; the defaults are a call of one query
+    and one key."""
     _check_head_dim(d)
-    return "A" if d <= MMA_A_MAX_DIM else "B"
+    if sq < 1 or sk < 1:
+        raise ValueError(f"sequence lengths must be positive, got {sq}, {sk}")
+    if d > MMA_A_MAX_DIM:
+        return "B"
+    least_sk = H_WIDTHS.get(padded_width(d, "mma"))
+    if least_sk is not None and staging("mma", d, aligned) == "cp.async" and sk >= least_sk:
+        return "H"
+    return "A"
 
 
 def padded_width(d: int, route: str) -> int:
@@ -144,25 +181,29 @@ def rows_aligned(*tensors: torch.Tensor) -> bool:
 
 def staging(route: str, d: int, aligned: bool) -> str:
     """How a kernel brings tiles into shared memory: ``"cp.async"`` 16-byte
-    copies (bf16 tensor-core route "mma" with ``d % 8 == 0`` and aligned
-    rows; always on the int8 route "imma", whose operands the wrapper pads
-    to 16-byte rows), else ``"elementwise"``."""
+    copies, or TMA tile loads in design H (bf16 tensor-core route "mma" with
+    ``d % 8 == 0`` and aligned rows; always on the int8 route "imma", whose
+    operands the wrapper pads to 16-byte rows), else ``"elementwise"``."""
     if route == "imma":
         return "cp.async"
     return "cp.async" if route == "mma" and d % 8 == 0 and aligned else "elementwise"
 
 
-def mma_occupancy(d: int, vec: bool = True) -> Dict[str, int]:
-    """The tensor-core kernel a bf16 call with head dim ``d`` launches on the
-    current card: its design, padded width, threads, dynamic shared memory
-    per block (bytes) and resident blocks per SM."""
+def mma_occupancy(d: int, vec: bool = True, design: Optional[str] = None) -> Dict[str, int]:
+    """The tensor-core kernel that a bf16 call with head dim ``d`` and
+    staging ``vec`` (copies) launches on the current card in ``design``
+    ("A", "B" or "H"; by default :func:`mma_design` of ``d`` and ``vec``):
+    its design, the width it runs on, threads, dynamic shared memory per
+    block (bytes) and resident blocks per SM."""
+    design = design or mma_design(d, vec)
     lib = build()
-    out = [ctypes.c_int(0) for _ in range(5)]
-    rc = lib.consolver_flash_attention_mma_info(d, int(vec), *map(ctypes.byref, out))
+    out = [ctypes.c_int(0) for _ in range(4)]
+    rc = lib.consolver_flash_attention_mma_info(_DESIGN_CODES[design], d, int(vec),
+                                                *map(ctypes.byref, out))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed (code {rc})")
-    design, width, threads, smem, blocks = (x.value for x in out)
-    return {"design": "AB"[design], "width": width, "threads": threads,
+    width, threads, smem, blocks = (x.value for x in out)
+    return {"design": design, "width": width, "threads": threads,
             "dynamic_smem_bytes": smem, "blocks_per_sm": blocks}
 
 
@@ -175,24 +216,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise RuntimeError(f"flash_attention runs on cuda or cpu, not {q.device}")
     check_qkv(q, k, v)
     route = kernel_route(q.dtype)
-    lib = build()
     b, sq, h, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    vec = staging(route, d, rows_aligned(q, k, v, out)) == "cp.async"
-    _nvcc.call(
-        lib.consolver_flash_attention_forward, "flash_attention", q.device,
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, sq, k.shape[1], d, int(vec), *_nvcc.bshd_strides(q, k, v, out), 1.0 / (d**0.5),
-    )
+    aligned = rows_aligned(q, k, v, out)
+    design = mma_design(d, aligned, sq, k.shape[1]) if route == "mma" else None
+    launch(q, k, v, out, design)
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
+    if design is not None:
+        flash_attention.launches_by_design[design] += 1
     return out
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+           design: Optional[str]) -> None:
+    """Launches kernel #1 into ``out`` on checked CUDA operands: the FMA
+    kernel for f32 / f16 (``design`` None), else the tensor-core ``design``.
+    :func:`flash_attention` passes :func:`mma_design`'s choice;
+    ``chip_smoke.py`` times design A beside it at the widths H takes, the
+    measurement behind ``H_WIDTHS``.  Raises where the design does not take
+    the call.  Counts nothing."""
+    b, sq, h, d = q.shape
+    aligned = rows_aligned(q, k, v, out)
+    vec = staging(kernel_route(q.dtype), d, aligned) == "cp.async"
+    _nvcc.call(
+        build().consolver_flash_attention_forward, "flash_attention", q.device,
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, h, sq, k.shape[1], d, int(vec), _DESIGN_CODES.get(design, 0),
+        *_nvcc.bshd_strides(q, k, v, out), 1.0 / (d**0.5),
+    )
 
 
 def reset_counts() -> None:
     """Sets the wrapper's launch counts to 0."""
     flash_attention.launches = 0
     flash_attention.launches_by_route = {"mma": 0, "fma": 0}
+    flash_attention.launches_by_design = {"A": 0, "B": 0, "H": 0}
 
 
 reset_counts()

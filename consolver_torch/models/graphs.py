@@ -22,10 +22,10 @@ storage as it was at capture: ``load_state_dict`` copies in place and is
 seen by the next replay, while a model that replaces its parameters
 (``.to()``, ``.half()``) drops its graphs (:meth:`clear`).
 
-Kernel launch counters (kernel #1's ``flash_attention.launches`` and
-``launches_by_route``, the int8 GEMM's ``int_mm.launches``) stay true: the
-capture's wrapper calls launch nothing and are taken back out, and each
-replay adds the launches its graph holds.
+Kernel launch counters (kernel #1's ``flash_attention.launches``,
+``launches_by_route`` and ``launches_by_design``, the int8 GEMM's
+``int_mm.launches``) stay true: the capture's wrapper calls launch nothing
+and are taken back out, and each replay adds the launches its graph holds.
 
 Spans (:mod:`consolver_torch.utils.profiling`), named after the model's
 call span (``model.unet``): ``<name>.capture`` per captured signature (its
@@ -51,6 +51,8 @@ def launch_counts() -> Dict[str, int]:
     fa = _fa.flash_attention
     counts = {"flash_attention": fa.launches, "int_mm": _quant.int_mm.launches}
     counts.update({f"flash_attention.{route}": n for route, n in fa.launches_by_route.items()})
+    counts.update({f"flash_attention.design.{design}": n
+                   for design, n in fa.launches_by_design.items()})
     return counts
 
 
@@ -60,6 +62,8 @@ def set_launch_counts(counts: Dict[str, int]) -> None:
     _quant.int_mm.launches = counts["int_mm"]
     for route in fa.launches_by_route:
         fa.launches_by_route[route] = counts[f"flash_attention.{route}"]
+    for design in fa.launches_by_design:
+        fa.launches_by_design[design] = counts[f"flash_attention.design.{design}"]
 
 
 def _add_launches(launched: Dict[str, int]) -> None:

@@ -42,16 +42,22 @@ past one ulp and 1e-5 differing at all.  The copies:
   dropped, so scores meet the wrong k scales and V rows).
 
 ``--target kernel1`` times :func:`flash_attention` on bf16 inputs (the
-"mma" route) at the FLUX joint shape and SD-1.5's L0 self-attention; each
-copy is held to the f32 plain version with ``chip_smoke.py``'s kernel #1
-limit, one bf16 ulp + 1e-5 at every element.  The copies:
+"mma" route) at the FLUX and SD3.5 joint shapes and SD-1.5's level-0
+self-attention (design H) and its level-2 self-attention (design A); each
+copy is held to the f32 plain version with
+``chip_smoke.py``'s kernel #1 limit, one bf16 ulp + 1e-5 at every element.
+The copies:
 
-* undo one design choice (``design``): every width held to 2 blocks per SM
-  (more registers, fewer warps);
+* undo one design choice (``design``): every width of design A held to 2
+  blocks per SM (more registers, fewer warps); design H's consumer
+  warpgroups issuing their MMAs without taking turns (no ping-pong); its
+  exponentials by ``exp2f`` (subnormal results kept) in place of
+  ``ex2.approx.ftz``; a 3-stage K / V ring in place of 2;
 * drop one part of the work (``cost``, wrong on purpose): the ``p_lo`` MMAs
-  of design A, so ``p`` enters ``p v`` as one bf16 value: what the split
-  costs, and the gate it must fail;
-* plant one fault (``mutant``): ``alpha`` left off design A's accumulator.
+  of design A, and of design H, so ``p`` enters ``p v`` as one bf16 value:
+  what the split costs, and the gate it must fail;
+* plant one fault (``mutant``): ``alpha`` left off design A's accumulator,
+  and off design H's.
 
 Every edit is a literal replacement in the current source and must apply
 exactly once (:func:`altered_sources`), so the ablations cannot drift.
@@ -75,7 +81,8 @@ from consolver_torch.kernels import flash_variants as fv
 
 SHAPES = {"serve": (1, 8704, 24, 128), "train": (8, 2560, 24, 128)}
 BLOCK_K = 512
-KERNEL1_SHAPES = {"flux_joint": (1, 8704, 24, 128), "sd_l0_self": (16, 4096, 8, 40)}
+KERNEL1_SHAPES = {"flux_joint": (1, 8704, 24, 128), "sd35_joint": (2, 4429, 38, 64),
+                  "sd_l0_self": (16, 4096, 8, 40), "sd_l2_self": (16, 256, 8, 160)}
 
 _ONE_BARRIER = """    cp_async_wait<0>();
     __syncthreads();  // this tile has arrived; every warp is done with the other stage
@@ -138,6 +145,15 @@ _ACC_ALPHA_A = """    for (int j = 0; j < DP / 8; ++j) {
     }
 """
 
+_O_ALPHA_H = """#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        o[4 * i] *= alpha[0];
+        o[4 * i + 1] *= alpha[0];
+        o[4 * i + 2] *= alpha[1];
+        o[4 * i + 3] *= alpha[1];
+      }
+"""
+
 KERNEL1_ABLATIONS = {
     "min_blocks_2": ("design", [
         ("return dp <= 48 ? 4 : dp <= 128 ? 3 : 2;", "return 2;"),
@@ -147,6 +163,20 @@ KERNEL1_ABLATIONS = {
          "        mma_bf16(acc[2 * jp + 1], plo, bv[2], bv[3]);\n", ""),
     ]),
     "no_alpha_on_acc": ("mutant", [(_ACC_ALPHA_A, "")]),
+    "h_no_pingpong": ("design", [
+        ("    if (wg == 1) named_arrive(1, 256);  // warpgroup 0 issues first\n", ""),
+        ("    named_sync(turn, 256);\n    issue_scores(0);\n", "    issue_scores(0);\n"),
+        ("    if (wg == 0 || ntiles > 1) named_arrive(next, 256);\n", ""),
+        ("      named_sync(turn, 256);\n      issue_scores(st);\n", "      issue_scores(st);\n"),
+        ("      if (wg == 0 || j < ntiles - 1) named_arrive(next, 256);\n", ""),
+    ]),
+    "h_exp2f": ("design", [("const float pr = ex2_ftz(fmaf(", "const float pr = exp2f(fmaf(")]),
+    "h_3_stages": ("design", [("constexpr int kStagesH = 2;", "constexpr int kStagesH = 3;")]),
+    "h_no_p_lo": ("cost", [
+        ("          wgmma_rs_m64n64(o, plo[kk], dv);\n", ""),
+        ("          wgmma_rs_m64n128(o, plo[kk], dv);\n", ""),
+    ]),
+    "h_no_alpha_on_o": ("mutant", [(_O_ALPHA_H, "")]),
 }
 
 _I8_EXP = "const float pr = expf(__fsub_rn(s[j][e], m[e >> 1]));"

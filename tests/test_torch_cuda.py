@@ -9,11 +9,14 @@ on the same inputs: |out - ref| <= rtol * |ref| + atol.  The kernel computes
 in f32 and rounds once to the output type, so rtol is one ulp of that type
 (twice the rounding error: 2^-7 for bf16, 2^-10 for f16, 0 for f32); atol
 covers the f32 summation order (1e-4 in f32, where it is the whole limit).
-Kernel #1's bf16 cases take its tensor-core route ("mma": design A up to
-d = 160, design B above), its f32 and f16 cases the FMA route; the
-``kernel1_*`` tests assert the route from ``launches_by_route`` and cover
-every main-path head dim, ragged keys, packed views aligned and not, and
-large scores.  The variants (kernels #2-#4) add one rounding flip of the
+Kernel #1's bf16 cases take its tensor-core route ("mma": design H at
+padded widths 64, 80 and 128, and 48 past one key tile, with aligned rows;
+design A at the other widths up to d = 160 and for unaligned rows; design
+B above), its f32 and f16 cases
+the FMA route; the ``kernel1_*`` tests assert the route from
+``launches_by_route`` (and the design from ``launches_by_design``) and
+cover every main-path head dim, ragged keys, packed views aligned and not,
+and large scores.  The variants (kernels #2-#4) add one rounding flip of the
 heaviest probability and bound the share of elements past one ulp.  Their
 bf16 cases take the tensor-core route ("mma": ragged Sk and Sq, d = 80 / 72
 / 40 on cp.async copies, d = 76 and unaligned packed views staged element
@@ -307,6 +310,68 @@ def _kernel1_route(q, k, v, ref_rows=None):
         del ref
     assert over <= 1.0, over
     return taken[0]
+
+
+def _kernel1_design(q, k, v, ref_rows=None):
+    """As :func:`_kernel1_route` on the "mma" route, and the tensor-core
+    design that ran, from ``launches_by_design`` (exactly one launch)."""
+    before = dict(fa.flash_attention.launches_by_design)
+    assert _kernel1_route(q, k, v, ref_rows=ref_rows) == "mma"
+    taken = {d: n - before[d] for d, n in fa.flash_attention.launches_by_design.items()
+             if n != before[d]}
+    assert len(taken) == 1 and list(taken.values()) == [1], taken
+    return next(iter(taken))
+
+
+@pytest.mark.parametrize("shape,sk,ref_rows", [
+    ((2, 4429, 38, 64), 4429, 1),  # SD3.5 joint: 69 x 64 + 13 queries, 34 x 128 + 77 keys
+    ((1, 8320, 24, 128), 8320, 1),  # the edit engine's FLUX joint (128 T5 tokens)
+    ((1, 8704, 12, 128), 8704, 1),  # FLUX joint at TP 2
+    ((2, 100, 3, 64), 77, None),  # Sk below one 128-key tile
+    ((1, 130, 3, 128), 1, None),  # one key
+    ((2, 200, 2, 56), 300, None),  # widths padded to 64 and 128: columns past d read as zeros
+    ((1, 257, 2, 120), 257, None),
+    ((2, 1024, 8, 40), 1024, None),  # SD-1.5 widths 48 and 80, on the 64 and 128 kernels
+    ((2, 256, 8, 80), 77, None),
+], ids=["sd35_joint", "flux_joint_t5_128", "flux_joint_tp2", "ragged_below_tile", "one_key",
+        "d56", "d120", "sd_width48_self", "sd_width80_cross"])
+def test_kernel1_design_h(cuda, monkeypatch, shape, sk, ref_rows):
+    """Design H (wgmma + TMA) at the joint attentions, at SD-1.5's widths 48
+    and 80 and at ragged lengths, held to one bf16 ulp + 1e-5 at every
+    element."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _bf16_qkv(shape, sk, 40, cuda)
+    assert fa.mma_design(shape[-1], fa.rows_aligned(q, k, v), shape[1], sk) == "H"
+    assert _kernel1_design(q, k, v, ref_rows=ref_rows) == "H"
+
+
+@pytest.mark.parametrize("sk,want", [(77, "A"), (128, "A"), (129, "H")])
+def test_kernel1_width_48_by_key_length(cuda, monkeypatch, sk, want):
+    """At width 48 (SD-1.5's d = 40) one key tile stays on design A (the
+    77-key cross-attention ran faster there); more keys go to H."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _bf16_qkv((2, 512, 8, 40), sk, 42, cuda)
+    assert _kernel1_design(q, k, v) == want
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kernel1_design_by_staging(cuda, monkeypatch, d, offset):
+    """q/k/v as strided views of one packed [B, S, 3, H, D] tensor: aligned,
+    design H reads them through its tensor maps; offset by one element, no
+    row is 16-byte aligned and the call goes to design A (element
+    staging).  ``launches_by_design`` counts each."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=cuda).manual_seed(41)
+    flat = torch.randn(2 * 300 * 3 * 2 * d + offset, device=cuda, generator=g)
+    q, k, v = flat.to(torch.bfloat16)[offset:].view(2, 300, 3, 2, d).unbind(dim=2)
+    want = "H" if offset == 0 else "A"
+    assert fa.mma_design(d, fa.rows_aligned(q, k, v), 300, 300) == want
+    before = dict(fa.flash_attention.launches_by_design)
+    assert _kernel1_design(q, k, v) == want
+    assert _kernel1_design(q[:, :257], k, v) == want
+    after = fa.flash_attention.launches_by_design
+    assert {x: after[x] - before[x] for x in after} == {"A": 0, "B": 0, "H": 0, want: 2}
 
 
 @pytest.mark.parametrize("shape,sk,ref_rows", [
@@ -662,13 +727,13 @@ def test_slot_invariant_route_is_slot_invariant(cuda):
 ], ids=["dino_base", "clip_l14", "depth_anything_s", "segformer_s1", "segformer_s2",
         "segformer_s3", "segformer_s4"])
 def test_kernel1_at_the_backbone_shapes(cuda, monkeypatch, shape, sk, ref_rows):
-    """The reward and eval backbones' attention (head dim 64, design A at
+    """The reward and eval backbones' attention (head dim 64, design H at
     width 64): ragged 257 / 1370 keys, Sq != Sk up to 16384 queries, a batch
     of 80 x 6 heads, on the tensor cores."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     q, k, v = _bf16_qkv(shape, sk, 30, cuda)
-    assert fa.mma_design(64) == "A" and fa.padded_width(64, "mma") == 64
-    assert _kernel1_route(q, k, v, ref_rows=ref_rows) == "mma"
+    assert fa.mma_design(64) == "H" and fa.padded_width(64, "mma") == 64
+    assert _kernel1_design(q, k, v, ref_rows=ref_rows) == "H"
 
 
 def _tiny_backbones(seed):
