@@ -165,6 +165,25 @@ def _batch_kwargs(args, shards: int = 1) -> dict:
     return out
 
 
+def _engine(args, device, mesh, engine_cls, pipe, default_batch: int, name: str, tail: str,
+            **common):
+    """``engine_cls`` over ``pipe``: ``--replicas`` engines (one per card,
+    each with its own model copy), else one engine over ``mesh`` (or one
+    card); and its description."""
+    from consolver_torch.serve import make_replicas
+
+    replicas = _replica_count(args, device)
+    per = args.batch_size if args.batch_size is not None else default_batch
+    if replicas:
+        return make_replicas(pipe, engine_cls, replicas, _replica_devices(device, replicas),
+                             batch_size=per, **common, **_batch_kwargs(args)), (
+            f"{name} replicas={replicas} batch={per}/replica {tail}")
+    shards = _data_shards(mesh)
+    return engine_cls(pipe, batch_size=per * shards, mesh=mesh, **common,
+                      **_batch_kwargs(args, shards)), (
+        f"{name} batch={per * shards} {tail}" + (f" mesh={mesh.shape}" if mesh is not None else ""))
+
+
 def _policy(cfg, args, device):
     from consolver_torch.cli.train_sd15 import make_policy
     from consolver_torch.policy.factor_net import FactorNet
@@ -180,7 +199,7 @@ def _policy(cfg, args, device):
 
 def build_t2i_engine(args, device, mesh):
     from consolver_torch.cli.train_sd15 import build_pipeline
-    from consolver_torch.serve import InferenceEngine, make_replicas
+    from consolver_torch.serve import InferenceEngine
 
     if args.quantize and args.quantize_bits != 8:
         raise SystemExit("--quantize-bits 4 is an edit-family option (the SD UNet is "
@@ -193,19 +212,9 @@ def build_t2i_engine(args, device, mesh):
         print("serving the int8 W8A8 path (.quantize())", flush=True)
         pipe = pipe.quantize()
     latent = args.latent_size or (64 if args.pretrained else 8)
-    common = dict(latent_size=latent, flush_ms=args.flush_ms, max_wait_s=args.max_wait_s,
-                  padded_max_steps=args.padded_max_steps)
-    replicas = _replica_count(args, device)
-    per = args.batch_size if args.batch_size is not None else 8
-    if replicas:
-        return make_replicas(pipe, InferenceEngine, replicas, _replica_devices(device, replicas),
-                             batch_size=per, **common, **_batch_kwargs(args)), (
-            f"generate replicas={replicas} batch={per}/replica latent={latent}")
-    shards = _data_shards(mesh)
-    return InferenceEngine(pipe, batch_size=per * shards, mesh=mesh, **common,
-                           **_batch_kwargs(args, shards)), (
-        f"generate batch={per * shards} latent={latent}"
-        + (f" mesh={mesh.shape}" if mesh is not None else ""))
+    return _engine(args, device, mesh, InferenceEngine, pipe, 8, "generate", f"latent={latent}",
+                   latent_size=latent, flush_ms=args.flush_ms, max_wait_s=args.max_wait_s,
+                   padded_max_steps=args.padded_max_steps)
 
 
 def build_sd35_pipeline(pretrained: Optional[str], factor_net, dtype: torch.dtype, device,
@@ -262,7 +271,7 @@ def build_sd35_pipeline(pretrained: Optional[str], factor_net, dtype: torch.dtyp
 
 def build_sd35_engine(args, device):
     from consolver_torch.cli.train_sd15 import model_dtype
-    from consolver_torch.serve import SD3InferenceEngine, make_replicas
+    from consolver_torch.serve import SD3InferenceEngine
 
     if args.quantize:
         raise SystemExit("--quantize is not wired for --family sd35 (SD3Pipeline.quantize() "
@@ -272,22 +281,15 @@ def build_sd35_engine(args, device):
     pipe = build_sd35_pipeline(args.pretrained, _policy(cfg, args, device), model_dtype(cfg),
                                device, t5_max_length=t5_len)
     latent = args.latent_size or (128 if args.pretrained else 8)
-    common = dict(latent_size=latent, flush_ms=args.flush_ms, max_wait_s=args.max_wait_s,
-                  padded_max_steps=args.padded_max_steps, **_batch_kwargs(args))
-    replicas = _replica_count(args, device)
-    per = args.batch_size if args.batch_size is not None else 1
-    if replicas:
-        return make_replicas(pipe, SD3InferenceEngine, replicas,
-                             _replica_devices(device, replicas), batch_size=per, **common), (
-            f"sd35 replicas={replicas} batch={per}/replica latent={latent}")
-    return SD3InferenceEngine(pipe, batch_size=per, **common), (
-        f"sd35 batch={per} latent={latent}")
+    return _engine(args, device, None, SD3InferenceEngine, pipe, 1, "sd35", f"latent={latent}",
+                   latent_size=latent, flush_ms=args.flush_ms, max_wait_s=args.max_wait_s,
+                   padded_max_steps=args.padded_max_steps)
 
 
 def build_edit_engine(args, device, mesh):
     from consolver_torch.cli.train_flux import build_pipeline
     from consolver_torch.data.tokenizer import load_tokenizer
-    from consolver_torch.serve import EditInferenceEngine, make_replicas
+    from consolver_torch.serve import EditInferenceEngine
 
     cfg = ExperimentConfig.flux_ppo()
     if args.pretrained:
@@ -306,30 +308,18 @@ def build_edit_engine(args, device, mesh):
         os.path.join(args.pretrained, "tokenizer") if args.pretrained else None,
         kind="clip", max_length=77)
     resolution = args.resolution or (1024 if args.pretrained else 16)
-    common = dict(resolution=resolution, t5_tokenizer=t5_tok, clip_tokenizer=clip_tok,
-                  t5_max_length=t5_len,
-                  clip_max_length=77 if args.pretrained else 4, flush_ms=args.flush_ms,
-                  max_wait_s=args.max_wait_s, padded_max_steps=args.padded_max_steps)
-    replicas = _replica_count(args, device)
-    per = args.batch_size if args.batch_size is not None else 1
-    if replicas:
-        return make_replicas(pipe, EditInferenceEngine, replicas,
-                             _replica_devices(device, replicas), batch_size=per, **common,
-                             **_batch_kwargs(args)), (
-            f"edit replicas={replicas} batch={per}/replica resolution={resolution}")
-    shards = _data_shards(mesh)
-    return EditInferenceEngine(pipe, batch_size=per * shards, mesh=mesh, **common,
-                               **_batch_kwargs(args, shards)), (
-        f"edit batch={per * shards} resolution={resolution}"
-        + (f" mesh={mesh.shape}" if mesh is not None else ""))
+    return _engine(args, device, mesh, EditInferenceEngine, pipe, 1, "edit",
+                   f"resolution={resolution}", resolution=resolution, t5_tokenizer=t5_tok,
+                   clip_tokenizer=clip_tok, t5_max_length=t5_len,
+                   clip_max_length=77 if args.pretrained else 4, flush_ms=args.flush_ms,
+                   max_wait_s=args.max_wait_s, padded_max_steps=args.padded_max_steps)
 
 
 def _prewarm(args, t2i_engine, edit_engine) -> None:
     """Run each serving program once before the port is bound: the
     default signature of each engine (re-stepped to every ``--prewarm``
     count), and with ``--prewarm-refine`` the refine signatures."""
-    from consolver_torch.serve import EditRequest, ReplicaGroup
-    from consolver_torch.serve.http import EDIT_REFINE_DEFAULTS
+    from consolver_torch.serve import ReplicaGroup
 
     reqs = []  # (engine, request, re-stepped by --prewarm STEPS)
     if t2i_engine is not None:  # the engine's family's signatures
@@ -340,10 +330,10 @@ def _prewarm(args, t2i_engine, edit_engine) -> None:
         side = (edit_engine.engines[0] if isinstance(edit_engine, ReplicaGroup)
                 else edit_engine).resolution
         gray = np.full((side, side, 3), 127, np.uint8)
-        reqs.append((edit_engine, EditRequest(instruction="prewarm", image=gray), True))
+        reqs.append((edit_engine, edit_engine.request(instruction="prewarm", image=gray), True))
         if args.prewarm_refine:
-            reqs.append((edit_engine, EditRequest(instruction="prewarm", image=gray,
-                                                  **EDIT_REFINE_DEFAULTS), False))
+            reqs.append((edit_engine, edit_engine.request(instruction="prewarm", image=gray,
+                                                          refine=True), False))
     t0 = time.monotonic()
     n = 0
     for engine, request, expandable in reqs:

@@ -9,25 +9,28 @@ denoise (the learnable FMPPO solver or an FM baseline) and the VAE decode.
 
 from __future__ import annotations
 
-import copy
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
 from consolver_torch.core import schedules
-from consolver_torch.device import resolve_device
+from consolver_torch.dist.tp import FLUX_TP_RULES
 from consolver_torch.kernels.quant import quantize_like
 from consolver_torch.models import flux as flux_lib
-from consolver_torch.models.vae import AutoencoderKL, chunked_apply
+from consolver_torch.models.vae import AutoencoderKL
 from consolver_torch.pipelines import fm
 from consolver_torch.policy.factor_net import FactorNet
 from consolver_torch.utils import profiling
 
 
-class FluxKontextPipeline:
+class FluxKontextPipeline(fm.FlowMatchPipeline):
     """The FLUX transformer, T5 and CLIP encoders, 16-channel VAE and the
     policy of one editing deployment, with cached denoise functions."""
+
+    MODULES = ("transformer", "t5", "clip", "vae", "factor_net")
+    TENSOR_PARALLEL = ("transformer", FLUX_TP_RULES)
 
     def __init__(
         self,
@@ -41,7 +44,7 @@ class FluxKontextPipeline:
         vae_shift_factor: float = 0.1159,
         device=None,
     ):
-        self.device = resolve_device(device)
+        super().__init__(device)
         self.transformer = transformer
         self.t5 = t5
         self.clip = clip
@@ -50,7 +53,10 @@ class FluxKontextPipeline:
         self.factor_net = factor_net
         self.vae_scaling_factor = vae_scaling_factor
         self.vae_shift_factor = vae_shift_factor
-        self._denoise_cache = {}
+
+    @property
+    def latent_channels(self) -> int:
+        return self.vae.cfg.latent_channels
 
     def encode_prompt(self, t5_ids, clip_ids):
         """(T5 joint embeddings, CLIP pooled embedding)."""
@@ -63,13 +69,6 @@ class FluxKontextPipeline:
         with profiling.span("pipeline.vae_encode"):
             mean, _ = self.vae.encode(image)
             return (mean - self.vae_shift_factor) * self.vae_scaling_factor
-
-    def decode_latents(self, latents: torch.Tensor, chunk: Optional[int] = None) -> torch.Tensor:
-        """Latents -> images in [0, 1]; ``chunk`` micro-batches the decode."""
-        with profiling.span("pipeline.decode"):
-            x = latents / self.vae_scaling_factor + self.vae_shift_factor
-            img = chunked_apply(self.vae.decode, x, chunk)
-            return (img / 2 + 0.5).clamp(0.0, 1.0)
 
     def quantize(self, bits: int = 8) -> "FluxKontextPipeline":
         """A quantized copy of this pipeline.  ``bits=8``: W8A8 int8 DiT
@@ -85,12 +84,10 @@ class FluxKontextPipeline:
         qcfg = (dataclasses.replace(cfg, quant_int4=True) if bits == 4
                 else dataclasses.replace(cfg, quant_int8=True))
         vae_cfg = dataclasses.replace(self.vae.cfg, quant_int8=True)
-        quantized = copy.copy(self)
-        quantized.transformer = quantize_like(flux_lib.FluxTransformer(qcfg, device="meta"),
-                                              self.transformer)
-        quantized.vae = quantize_like(AutoencoderKL(vae_cfg, device="meta"), self.vae)
-        quantized._denoise_cache = {}
-        return quantized
+        return self.replace(
+            transformer=quantize_like(flux_lib.FluxTransformer(qcfg, device="meta"),
+                                      self.transformer),
+            vae=quantize_like(AutoencoderKL(vae_cfg, device="meta"), self.vae))
 
     def _ids(self, lh: int, lw: int, seq_txt: int):
         img_ids = torch.cat([
@@ -99,12 +96,15 @@ class FluxKontextPipeline:
         ], dim=0)
         return img_ids, torch.zeros((seq_txt, 3), device=self.device)
 
-    def _velocity_fn(self, seq_len_target, img_ids, txt_ids, guidance_scale, true_cfg_scale=None):
-        """The DiT as ``velocity(x, t, cond)``: appends the reference tokens,
+    def _velocity_fn(self, lh: int, lw: int, seq_txt: int, guidance_scale, true_cfg_scale=None):
+        """The DiT as ``velocity(x, t, cond)`` at ``lh x lw`` latents and
+        ``seq_txt`` text tokens: appends the reference tokens,
         runs the transformer and slices the target tokens back.  With
         ``true_cfg_scale`` the cond also carries negative-prompt embeddings
         and both branches run as one 2x batch:
         ``v = v_neg + s * (v_pos - v_neg)``."""
+        seq_len_target = (lh // 2) * (lw // 2)
+        img_ids, txt_ids = self._ids(lh, lw, seq_txt)
 
         def velocity(x, t, cond):
             if true_cfg_scale is None:
@@ -151,27 +151,10 @@ class FluxKontextPipeline:
     ):
         """The denoise function of one (latent size, steps, solver) program:
         ``(generator, noise, cond) -> (latents, Trajectory or None)``."""
-        if solver != "fmppo":
-            deterministic_policy = False  # no policy
-        key = (lh, lw, seq_txt, num_inference_steps, guidance_scale, solver, record,
-               true_cfg_scale, deterministic_policy)
-        if key in self._denoise_cache:
-            return self._denoise_cache[key]
-        velocity = self._velocity_fn((lh // 2) * (lw // 2), *self._ids(lh, lw, seq_txt),
-                                     guidance_scale, true_cfg_scale)
-        mu = self.mu_for(lh, lw)
-        if solver == "fmppo":
-            fn = fm.make_fm_denoise_fn(velocity, self.fm_config, self.factor_net,
-                                       num_inference_steps, mu=mu, record_trajectory=record,
-                                       deterministic_policy=deterministic_policy)
-        else:
-            base = fm.make_fm_baseline_denoise_fn(velocity, self.fm_config, solver,
-                                                  num_inference_steps, mu=mu)
-
-            def fn(generator, noise, cond):
-                return base(noise, cond), None
-        self._denoise_cache[key] = fn
-        return fn
+        return self._fm_program(
+            (lh, lw, seq_txt, guidance_scale, true_cfg_scale),
+            functools.partial(self._velocity_fn, lh, lw, seq_txt, guidance_scale, true_cfg_scale),
+            num_inference_steps, solver, record, deterministic_policy, mu=self.mu_for(lh, lw))
 
     def padded_denoise_fn(
         self,
@@ -188,16 +171,10 @@ class FluxKontextPipeline:
         """One function for every step count in ``[1, max_steps]``, fed a
         :func:`fm.padded_fm_ladder`; ``use_policy=False`` is the Euler
         baseline (order 1, coefficients [1])."""
-        key = ("padded", lh, lw, seq_txt, max_steps, guidance_scale, record, true_cfg_scale,
-               deterministic_policy, use_policy)
-        if key not in self._denoise_cache:
-            velocity = self._velocity_fn((lh // 2) * (lw // 2), *self._ids(lh, lw, seq_txt),
-                                         guidance_scale, true_cfg_scale)
-            self._denoise_cache[key] = fm.make_padded_fm_denoise_fn(
-                velocity, self.fm_config, self.factor_net if use_policy else None, max_steps,
-                record_trajectory=record, deterministic_policy=deterministic_policy,
-            )
-        return self._denoise_cache[key]
+        return self._fm_padded_program(
+            (lh, lw, seq_txt, guidance_scale, true_cfg_scale),
+            functools.partial(self._velocity_fn, lh, lw, seq_txt, guidance_scale, true_cfg_scale),
+            max_steps, record, deterministic_policy, use_policy)
 
     def __call__(self, *args, **kwargs):
         """Serving: :meth:`rollout` under ``torch.inference_mode()``."""
@@ -256,13 +233,13 @@ class FluxKontextPipeline:
 
         seq_txt = int(t5_ids.shape[1])
         if padded_max_steps is not None:
-            if solver not in ("fmppo", "euler"):
+            if not (self.is_learnable(solver) or solver == "euler"):
                 raise ValueError("padded_max_steps supports the learnable fmppo program "
                                  "and the degenerate euler baseline")
             denoise = self.padded_denoise_fn(
                 lh, lw, seq_txt, padded_max_steps, guidance_scale, record=record,
                 true_cfg_scale=cfg_scale, deterministic_policy=deterministic_policy,
-                use_policy=(solver == "fmppo"),
+                use_policy=self.is_learnable(solver),
             )
             ladder = fm.padded_fm_ladder(self.fm_config, num_inference_steps, padded_max_steps,
                                          mu=self.mu_for(lh, lw))

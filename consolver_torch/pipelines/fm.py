@@ -13,12 +13,14 @@ pad step of the padded program passes latents and history through, as in
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from consolver_torch.core import schedules, solver
+from consolver_torch.models.vae import chunked_apply
+from consolver_torch.pipelines.base import Pipeline
 from consolver_torch.pipelines.t2i import Trajectory, _solver_dims
 from consolver_torch.policy.factor_net import FactorNet
 from consolver_torch.utils import profiling
@@ -276,3 +278,55 @@ def make_fm_baseline_denoise_fn(
         return x
 
     return denoise
+
+
+class FlowMatchPipeline(Pipeline):
+    """A pipeline whose denoiser is a velocity model under the FM solvers:
+    the learnable ``fmppo`` or a baseline of :data:`FM_SOLVERS`.  A family
+    supplies ``velocity()``, which builds its velocity model, and its ``mu``;
+    it holds ``fm_config``, ``factor_net``, its 16-channel ``vae`` and that
+    VAE's ``vae_scaling_factor`` and ``vae_shift_factor``."""
+
+    LEARNABLE_SOLVER = "fmppo"
+
+    def decode_latents(self, latents: torch.Tensor, chunk: Optional[int] = None) -> torch.Tensor:
+        """Latents NHWC -> images in [0, 1]; ``chunk`` micro-batches the decode."""
+        with profiling.span("pipeline.decode"):
+            x = latents / self.vae_scaling_factor + self.vae_shift_factor
+            img = chunked_apply(self.vae.decode, x, chunk)
+            return (img / 2 + 0.5).clamp(0.0, 1.0)
+
+    def _fm_program(self, key: Tuple, velocity: Callable[[], VelocityFn],
+                    num_inference_steps: int, solver: str, record: bool,
+                    deterministic_policy: bool, mu: Optional[float] = None):
+        """The per-count program: ``(generator, noise, cond) -> (latents,
+        Trajectory or None)``."""
+
+        def baseline():
+            base = make_fm_baseline_denoise_fn(velocity(), self.fm_config, solver,
+                                               num_inference_steps, mu=mu)
+            return lambda generator, noise, cond: base(noise, cond)  # draws no noise
+
+        return self._program(
+            (*key, num_inference_steps), solver, record, deterministic_policy,
+            lambda det: make_fm_denoise_fn(velocity(), self.fm_config, self.factor_net,
+                                           num_inference_steps, mu=mu, record_trajectory=record,
+                                           deterministic_policy=det),
+            baseline)
+
+    def _fm_padded_program(self, key: Tuple, velocity: Callable[[], VelocityFn],
+                           max_steps: int, record: bool, deterministic_policy: bool,
+                           use_policy: bool = True):
+        """The pad-to-max program of ``max_steps``, fed a
+        :func:`padded_fm_ladder`; ``use_policy=False`` runs the same loop
+        without the policy, the Euler baseline (order 1, coefficients [1])."""
+        key = ("padded", *key, max_steps)
+
+        def padded(net, det):
+            return make_padded_fm_denoise_fn(velocity(), self.fm_config, net, max_steps,
+                                             record_trajectory=record, deterministic_policy=det)
+
+        if use_policy:
+            return self._program(key, self.LEARNABLE_SOLVER, record, deterministic_policy,
+                                 lambda det: padded(self.factor_net, det))
+        return self._cached((*key, "euler", record, False), lambda: padded(None, False))

@@ -27,8 +27,8 @@ call, ``fm.py``'s ``pipeline.step`` / ``pipeline.policy``, and
 
 from __future__ import annotations
 
-import copy
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,7 +37,6 @@ import torch.nn.functional as F
 
 from consolver_torch.core import schedules
 from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
-from consolver_torch.device import resolve_device
 from consolver_torch.kernels.quant import quantize_like
 from consolver_torch.models.mmdit import SD3Transformer
 from consolver_torch.models.vae import AutoencoderKL
@@ -55,11 +54,15 @@ def sd3_fm_config() -> schedules.FlowMatchConfig:
     return schedules.FlowMatchConfig(shift=3.0)
 
 
-class SD3Pipeline:
+class SD3Pipeline(fm.FlowMatchPipeline):
     """The MMDiT, CLIP-L, bigG, T5 and VAE of one SD3 deployment, its
     FactorNet (the FM family's) and tokenizers, with cached denoise
     functions per (steps, guidance, solver) program.  ``tokenizers``: the
-    CLIP-L, bigG and T5 tokenizers (real ones, else hashing ones)."""
+    CLIP-L, bigG and T5 tokenizers (real ones, else hashing ones).  No
+    tensor-parallel rule: it serves on one card per engine (an MMDiT step is
+    some 60 TFLOP against about 1,200 launches)."""
+
+    MODULES = ("transformer", "clip_l", "clip_g", "t5", "vae", "factor_net")
 
     def __init__(
         self,
@@ -76,7 +79,7 @@ class SD3Pipeline:
         tokenizers: Optional[Sequence] = None,
         device=None,
     ):
-        self.device = resolve_device(device)
+        super().__init__(device)
         self.transformer = transformer
         self.clip_l = clip_l
         self.clip_g = clip_g
@@ -92,16 +95,16 @@ class SD3Pipeline:
         self.tokenizers = tuple(tokenizers) if tokenizers is not None else (
             HashTokenizer(max_length=CLIP_MAX_LENGTH), HashTokenizer(max_length=CLIP_MAX_LENGTH),
             HashTokenizer(vocab_size=t5.cfg.vocab_size, max_length=self.t5_max_length))
-        self._denoise_cache = {}
 
     @property
     def latent_channels(self) -> int:
         return self.transformer.cfg.in_channels
 
     # ------------------------------------------------------------ prompts
-    def tokenize(self, prompts: Sequence[str]) -> PromptIds:
-        """The prompts' ids for the three towers."""
-        lengths = (CLIP_MAX_LENGTH, CLIP_MAX_LENGTH, self.t5_max_length)
+    def tokenize(self, prompts: Sequence[str], max_length: Optional[int] = None) -> PromptIds:
+        """The prompts' ids for the three towers; ``max_length``: T5's
+        (default ``t5_max_length``)."""
+        lengths = (CLIP_MAX_LENGTH, CLIP_MAX_LENGTH, max_length or self.t5_max_length)
         encoders = (self.clip_l, self.clip_g, self.t5)
         return tuple(tokenize_batch(tok, prompts, n, vocab_size=enc.cfg.vocab_size)
                      for tok, n, enc in zip(self.tokenizers, lengths, encoders))
@@ -121,13 +124,6 @@ class SD3Pipeline:
             clip = F.pad(clip, (0, t5_states.shape[-1] - clip.shape[-1]))
             return torch.cat([clip, t5_states], dim=1), torch.cat([pooled_l, pooled_g], dim=-1)
 
-    # ------------------------------------------------------------- decode
-    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
-        """Latents NHWC -> images NHWC in [0, 1]."""
-        with profiling.span("pipeline.decode"):
-            img = self.vae.decode(latents / self.vae_scaling_factor + self.vae_shift_factor)
-            return (img / 2 + 0.5).clamp(0.0, 1.0)
-
     def quantize(self) -> "SD3Pipeline":
         """A W8A8 int8 copy: the MMDiT blocks' projections and modulations
         (the shared ``make_dense``) and the VAE decoder, quantized from this
@@ -136,12 +132,9 @@ class SD3Pipeline:
         empty, and this pipeline is left as it was."""
         qcfg = dataclasses.replace(self.transformer.cfg, quant_int8=True)
         vae_cfg = dataclasses.replace(self.vae.cfg, quant_int8=True)
-        quantized = copy.copy(self)
-        quantized.transformer = quantize_like(SD3Transformer(qcfg, device="meta"),
-                                              self.transformer)
-        quantized.vae = quantize_like(AutoencoderKL(vae_cfg, device="meta"), self.vae)
-        quantized._denoise_cache = {}
-        return quantized
+        return self.replace(
+            transformer=quantize_like(SD3Transformer(qcfg, device="meta"), self.transformer),
+            vae=quantize_like(AutoencoderKL(vae_cfg, device="meta"), self.vae))
 
     # ------------------------------------------------------------ denoise
     def _velocity_fn(self, guidance_scale: float):
@@ -166,38 +159,22 @@ class SD3Pipeline:
         """``(generator, noise, cond) -> (latents, Trajectory or None)``:
         ``fmppo`` is the learnable solver, any name of :data:`fm.FM_SOLVERS`
         a training-free baseline (``None`` trajectory)."""
-        if solver != "fmppo":
-            deterministic_policy = False  # no policy: do not fork programs
-        key = (num_inference_steps, float(guidance_scale), solver, record, deterministic_policy)
-        if key not in self._denoise_cache:
-            velocity = self._velocity_fn(guidance_scale)
-            if solver == "fmppo":
-                fn = fm.make_fm_denoise_fn(velocity, self.fm_config, self.factor_net,
-                                           num_inference_steps, record_trajectory=record,
-                                           deterministic_policy=deterministic_policy)
-            else:
-                base = fm.make_fm_baseline_denoise_fn(velocity, self.fm_config, solver,
-                                                      num_inference_steps)
-
-                def fn(generator, noise, cond):
-                    return base(noise, cond), None
-            self._denoise_cache[key] = fn
-        return self._denoise_cache[key]
+        return self._fm_program((float(guidance_scale),),
+                                functools.partial(self._velocity_fn, guidance_scale),
+                                num_inference_steps, solver, record, deterministic_policy)
 
     def padded_denoise_fn(self, max_steps: int, guidance_scale: float, record: bool = True,
                           deterministic_policy: bool = False):
         """One fmppo function for every step count in ``[1, max_steps]``, fed
         a :func:`fm.padded_fm_ladder`."""
-        key = ("padded", max_steps, float(guidance_scale), record, deterministic_policy)
-        if key not in self._denoise_cache:
-            self._denoise_cache[key] = fm.make_padded_fm_denoise_fn(
-                self._velocity_fn(guidance_scale), self.fm_config, self.factor_net, max_steps,
-                record_trajectory=record, deterministic_policy=deterministic_policy)
-        return self._denoise_cache[key]
+        return self._fm_padded_program((float(guidance_scale),),
+                                       functools.partial(self._velocity_fn, guidance_scale),
+                                       max_steps, record, deterministic_policy)
 
-    def uncond_ids_for(self, batch_size: int) -> PromptIds:
-        """The empty negative prompt's ids, tiled to the batch."""
-        return tuple(np.tile(ids, (batch_size, 1)) for ids in self.tokenize([""]))
+    def uncond_ids_for(self, batch_size: int, max_length: Optional[int] = None) -> PromptIds:
+        """The empty negative prompt's ids, tiled to the batch (``max_length``:
+        T5's, as in :meth:`tokenize`)."""
+        return tuple(np.tile(ids, (batch_size, 1)) for ids in self.tokenize([""], max_length))
 
     @torch.inference_mode()
     def __call__(
@@ -224,12 +201,14 @@ class SD3Pipeline:
         noise = profiling.to_device(noise, self.device)
         batch = int(noise.shape[0])
         if guidance_scale > 1.0:
+            uncond = self.uncond_ids_for(batch, int(prompt_ids[2].shape[1]))
             prompt_ids = tuple(torch.cat([torch.as_tensor(n), torch.as_tensor(p)])
-                               for n, p in zip(self.uncond_ids_for(batch), prompt_ids))
+                               for n, p in zip(uncond, prompt_ids))
         cond = self.encode_prompt(prompt_ids)
         if padded_max_steps is not None:
-            if solver != "fmppo":
-                raise ValueError("padded_max_steps supports only the learnable fmppo program")
+            if not self.is_learnable(solver):
+                raise ValueError(f"padded_max_steps supports only the learnable "
+                                 f"{self.LEARNABLE_SOLVER} program")
             denoise = self.padded_denoise_fn(padded_max_steps, guidance_scale, record=record,
                                              deterministic_policy=deterministic_policy)
             ladder = fm.padded_fm_ladder(self.fm_config, num_inference_steps, padded_max_steps)

@@ -16,22 +16,22 @@ slot; sampled programs keep the batched convolutions.
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import functools
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from consolver_torch.core import schedules, solver
-from consolver_torch.data.tokenizer import HashTokenizer, uncond_input_ids
-from consolver_torch.device import resolve_device
+from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
+from consolver_torch.dist.tp import UNET_TP_RULES
 from consolver_torch.kernels.quant import quantize_like
 from consolver_torch.models.unet_2d import UNet2DCondition
 from consolver_torch.models.vae import AutoencoderKL
 from consolver_torch.models.vae import decode_latents as _decode_latents
 from consolver_torch.pipelines import solver_zoo
+from consolver_torch.pipelines.base import Pipeline
 from consolver_torch.policy.factor_net import FactorNet
 from consolver_torch.utils import profiling
 
@@ -233,9 +233,13 @@ def make_padded_denoise_fn(
     return denoise
 
 
-class TextToImagePipeline:
+class TextToImagePipeline(Pipeline):
     """The models, schedule and policy of one text-to-image deployment, with
-    cached denoise functions per (steps, cfg) program."""
+    cached denoise functions per (steps, cfg, solver) program."""
+
+    MODULES = ("unet", "text_encoder", "vae", "factor_net")
+    LEARNABLE_SOLVER = "consistencysolver"
+    TENSOR_PARALLEL = ("unet", UNET_TP_RULES)
 
     def __init__(
         self,
@@ -249,7 +253,7 @@ class TextToImagePipeline:
         tokenizer=None,
         device=None,
     ):
-        self.device = resolve_device(device)
+        super().__init__(device)
         self.unet = unet
         self.text_encoder = text_encoder
         self.vae = vae
@@ -258,7 +262,17 @@ class TextToImagePipeline:
         self.timestep_spacing = timestep_spacing
         self.steps_offset = steps_offset
         self.tokenizer = tokenizer
-        self._denoise_cache = {}
+
+    @property
+    def latent_channels(self) -> int:
+        return self.unet.cfg.in_channels
+
+    def tokenize(self, prompts: Sequence[str], max_length: Optional[int] = None) -> np.ndarray:
+        """``[B, max_length]`` int64 ids from the attached tokenizer (else a
+        hashing one); ``max_length`` defaults to the text encoder's context."""
+        n = int(max_length or self.text_encoder.cfg.max_position_embeddings)
+        tok = self.tokenizer or HashTokenizer(max_length=n)
+        return tokenize_batch(tok, prompts, n, vocab_size=self.text_encoder.cfg.vocab_size)
 
     def _encode(self, prompt_ids, uncond_ids):
         """(context, uncond_context) of the prompt and the empty prompt."""
@@ -273,12 +287,8 @@ class TextToImagePipeline:
     def uncond_ids_for(self, prompt_ids) -> torch.Tensor:
         """The empty prompt's ids for CFG, from the attached tokenizer (else
         the HashTokenizer's ``[BOS, EOS, pad...]``) - not all-zero ids."""
-        max_len = int(prompt_ids.shape[1])
-        tok = self.tokenizer or HashTokenizer(max_length=max_len)
-        ids = uncond_input_ids(
-            tok, int(prompt_ids.shape[0]), max_len, vocab_size=self.text_encoder.cfg.vocab_size
-        )
-        return profiling.to_device(ids, self.device)
+        ids = self.tokenize([""], int(prompt_ids.shape[1]))
+        return profiling.to_device(np.tile(ids, (int(prompt_ids.shape[0]), 1)), self.device)
 
     def quantize(self, skip_levels: Tuple[int, ...] = (0,)) -> "TextToImagePipeline":
         """A W8A8 int8 copy of this pipeline for serving and rollouts: the
@@ -293,11 +303,9 @@ class TextToImagePipeline:
         unet_cfg = dataclasses.replace(self.unet.cfg, quant_int8=True,
                                        quant_skip_levels=tuple(skip_levels))
         vae_cfg = dataclasses.replace(self.vae.cfg, quant_int8=True)
-        quantized = copy.copy(self)
-        quantized.unet = quantize_like(UNet2DCondition(unet_cfg, device="meta"), self.unet)
-        quantized.vae = quantize_like(AutoencoderKL(vae_cfg, device="meta"), self.vae)
-        quantized._denoise_cache = {}
-        return quantized
+        return self.replace(
+            unet=quantize_like(UNet2DCondition(unet_cfg, device="meta"), self.unet),
+            vae=quantize_like(AutoencoderKL(vae_cfg, device="meta"), self.vae))
 
     def _unet_apply(self, deterministic_policy: bool) -> UNetApply:
         """The UNet as the step loop calls it: slot-invariant for the
@@ -318,25 +326,14 @@ class TextToImagePipeline:
         without a factor net); any other name is a baseline zoo solver
         (:data:`solver_zoo.SOLVERS`), whose function returns ``(latents,
         None)`` and draws any per-step noise from the generator."""
-        if solver != "consistencysolver":
-            deterministic_policy = False  # no policy: do not fork programs
-        key = (num_inference_steps, float(guidance_scale), record, solver, deterministic_policy)
-        if key not in self._denoise_cache:
-            if solver == "consistencysolver":
-                fn = make_denoise_fn(
-                    self._unet_apply(deterministic_policy), self.schedule, self.factor_net,
-                    num_inference_steps,
-                    guidance_scale, self.timestep_spacing, self.steps_offset,
-                    record_trajectory=record, deterministic_policy=deterministic_policy,
-                )
-            else:
-                base = solver_zoo.make_baseline_denoise_fn(
-                    self.unet, self.schedule, solver, num_inference_steps, guidance_scale)
-
-                def fn(generator, noise, context, uncond_context):
-                    return base(generator, noise, context, uncond_context), None
-            self._denoise_cache[key] = fn
-        return self._denoise_cache[key]
+        return self._program(
+            (num_inference_steps, float(guidance_scale)), solver, record, deterministic_policy,
+            lambda det: make_denoise_fn(
+                self._unet_apply(det), self.schedule, self.factor_net, num_inference_steps,
+                guidance_scale, self.timestep_spacing, self.steps_offset,
+                record_trajectory=record, deterministic_policy=det),
+            lambda: solver_zoo.make_baseline_denoise_fn(
+                self.unet, self.schedule, solver, num_inference_steps, guidance_scale))
 
     def padded_denoise_fn(
         self,
@@ -345,14 +342,14 @@ class TextToImagePipeline:
         record: bool = True,
         deterministic_policy: bool = False,
     ):
-        key = ("padded", max_steps, float(guidance_scale), record, deterministic_policy)
-        if key not in self._denoise_cache:
-            self._denoise_cache[key] = make_padded_denoise_fn(
-                self._unet_apply(deterministic_policy), self.schedule, self.factor_net, max_steps,
-                guidance_scale, record_trajectory=record,
-                deterministic_policy=deterministic_policy,
-            )
-        return self._denoise_cache[key]
+        """The learnable solver's pad-to-max program of ``max_steps``, fed a
+        :func:`padded_ladder`."""
+        return self._program(
+            ("padded", max_steps, float(guidance_scale)), self.LEARNABLE_SOLVER, record,
+            deterministic_policy,
+            lambda det: make_padded_denoise_fn(
+                self._unet_apply(det), self.schedule, self.factor_net, max_steps, guidance_scale,
+                record_trajectory=record, deterministic_policy=det))
 
     @torch.inference_mode()
     def __call__(
@@ -383,10 +380,9 @@ class TextToImagePipeline:
         uncond_ids = profiling.to_device(uncond_ids, self.device)
         context, uncond_context = self._encode(prompt_ids, uncond_ids)
         if padded_max_steps is not None:
-            if solver != "consistencysolver":
-                raise ValueError(
-                    "padded_max_steps supports only the learnable consistencysolver program"
-                )
+            if not self.is_learnable(solver):
+                raise ValueError(f"padded_max_steps supports only the learnable "
+                                 f"{self.LEARNABLE_SOLVER} program")
             denoise = self.padded_denoise_fn(
                 padded_max_steps, guidance_scale, record=record,
                 deterministic_policy=deterministic_policy,

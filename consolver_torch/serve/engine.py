@@ -9,10 +9,11 @@ second thread fetches finished batches to the host and resolves the
 requests' futures, so batch N's readback overlaps batch N+1's dispatch (at
 most 2 batches in flight).
 
-:class:`InferenceEngine` serves text-to-image (SD family),
-:class:`SD3InferenceEngine` its SD3 sibling (MMDiT, three text towers, flow
-matching) and :class:`EditInferenceEngine` FLUX-Kontext instructional editing;
-:class:`ReplicaGroup` puts one engine on each of several devices.
+:class:`InferenceEngine` serves text-to-image (SD-1.5, and SD3 through
+:class:`SD3InferenceEngine`'s request defaults), :class:`EditInferenceEngine`
+FLUX-Kontext editing; :class:`ReplicaGroup` puts one engine on each of
+several devices.  What differs between families is read from the pipeline
+(:mod:`consolver_torch.pipelines.base`).
 
 Determinism contract: a request's initial noise comes from its ``seed``
 alone (drawn on the CPU, so the same on every device), and every model op is
@@ -24,7 +25,7 @@ stochastic exceptions remain when sampling is on:
   its batch slot.  ``deterministic=True`` takes mode actions instead, and
   the output is then a pure function of (prompt, seed, program key), served
   always at the largest batch shape (see :meth:`_BatchingEngine._pick_size`)
-  through a program whose UNet convolutions do not depend on the batch slot
+  through a program whose model calls do not depend on the batch slot
   either (``TextToImagePipeline.denoise_fn``: on an H100, cuDNN's batched
   bf16 3x3 convolutions reduce some slots in another order than others);
 - the ``sde-*`` solvers draw their per-step noise from that generator too.
@@ -39,9 +40,9 @@ they changed since the last batch), every data rank runs its contiguous
 slice of the batch, drawing the global batch's policy samples and keeping
 its rows, and rank 0 all_gathers the uint8 images.  The other ranks run a
 follower loop from construction until rank 0 shuts its engine down.  On a
-2-D mesh each model group splits the UNet (:data:`~consolver_torch.dist.tp.
-UNET_TP_RULES`) or the DiT (:data:`~consolver_torch.dist.tp.FLUX_TP_RULES`)
-in place.  Every batch shape must divide by the data ranks.
+2-D mesh each model group splits the module that the pipeline's
+``TENSOR_PARALLEL`` names in place; a pipeline without one serves on one
+card.  Every batch shape must divide by the data ranks.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ import torch
 from consolver_torch.data.edit_prep import center_crop_resize
 from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
 from consolver_torch.dist.mesh import gather_batch, shard_slice
-from consolver_torch.dist.tp import FLUX_TP_RULES, UNET_TP_RULES, is_sharded, shard_module_by_rules
+from consolver_torch.dist.tp import is_sharded, shard_module_by_rules
 from consolver_torch.policy import io as policy_io
 from consolver_torch.policy.factor_net import ShardedGenerator
 from consolver_torch.utils import profiling
@@ -74,17 +75,8 @@ from consolver_torch.utils import profiling
 LEARNABLE_SOLVERS = frozenset({"consistencysolver", "fmppo"})
 
 
-@dataclasses.dataclass(frozen=True)
-class GenerationRequest:
-    """One text-to-image request.  The engine batches only requests with
-    equal ``program_key``; ``deterministic`` takes mode policy actions."""
-
-    prompt: str
-    seed: int = 0
-    num_inference_steps: int = 8
-    guidance_scale: float = 3.0
-    solver: str = "consistencysolver"
-    deterministic: bool = False
+class _Keyed:
+    """The engine batches only requests with equal ``program_key``."""
 
     @property
     def program_key(self) -> Tuple:
@@ -96,8 +88,21 @@ class GenerationRequest:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class GenerationRequest(_Keyed):
+    """One text-to-image request; ``deterministic`` takes mode policy
+    actions."""
+
+    prompt: str
+    seed: int = 0
+    num_inference_steps: int = 8
+    guidance_scale: float = 3.0
+    solver: str = "consistencysolver"
+    deterministic: bool = False
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
-class EditRequest:
+class EditRequest(_Keyed):
     """One instructional-edit request (FLUX-Kontext family).  ``image`` is
     the reference as ``[H, W, 3]`` uint8 RGB; the engine center-crop-resizes
     it to its resolution."""
@@ -109,15 +114,6 @@ class EditRequest:
     guidance_scale: float = 2.5
     solver: str = "fmppo"
     deterministic: bool = False
-
-    @property
-    def program_key(self) -> Tuple:
-        return (
-            int(self.num_inference_steps),
-            float(self.guidance_scale),
-            str(self.solver),
-            bool(self.deterministic) and self.solver in LEARNABLE_SOLVERS,
-        )
 
 
 class EngineShutDown(RuntimeError):
@@ -135,11 +131,12 @@ def _uint8_in_program(images: torch.Tensor) -> torch.Tensor:
     return torch.round(images.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
 
 
-def unet_graphs_allowed(unet, device) -> bool:
-    """Whether an engine replays ``unet`` from CUDA graphs
-    (``unet.cuda_graphs``): on a CUDA device, for a UNet that is not
-    tensor-parallel (its all_reduces cannot be captured)."""
-    return torch.device(device).type == "cuda" and not is_sharded(unet)
+def unet_graphs_allowed(module, device) -> bool:
+    """Whether an engine replays a model that offers CUDA graphs
+    (``module.cuda_graphs``: the UNet's) from them: on a CUDA device, for a
+    module that is not tensor-parallel (its all_reduces cannot be
+    captured)."""
+    return torch.device(device).type == "cuda" and not is_sharded(module)
 
 
 def seed_noise(seeds: Sequence[int], shape: Tuple[int, ...]) -> torch.Tensor:
@@ -150,13 +147,16 @@ def seed_noise(seeds: Sequence[int], shape: Tuple[int, ...]) -> torch.Tensor:
 
 
 class _BatchingEngine:
-    """Resident worker thread that coalesces requests into padded batches.
+    """Resident worker thread that coalesces requests into padded batches
+    and serves them through ``pipeline``.
 
     Subclasses implement :meth:`_message` (list of requests -> the padded
-    batch's program key and host arrays) and :meth:`_execute` (message ->
-    on-device uint8 image batch; on a mesh, this data rank's rows, gathered).
-    Partial batches are padded by repeating the last row (pad rows are
-    computed and discarded).
+    batch's host arrays, :meth:`_batch`) and set ``latent_size``.  Partial
+    batches are padded by repeating the last row (pad rows are computed and
+    discarded).  On a CUDA device the engine turns on the CUDA graphs of
+    the pipeline's models that offer them and are not tensor-parallel (the
+    UNet's, :mod:`consolver_torch.models.graphs`): the first batch of each
+    (program, batch shape) captures the forward, later batches replay it.
 
     The worker dispatches a batch (the host launches its kernels; it may
     block where the pipeline synchronises), records a CUDA event after it
@@ -175,6 +175,9 @@ class _BatchingEngine:
 
     Parameters
     ----------
+    pipeline : Pipeline
+        Served on its device; never mutated but for the tensor-parallel
+        split on a mesh.
     batch_size : int
         The largest batch shape.
     flush_ms : float
@@ -199,22 +202,46 @@ class _BatchingEngine:
         collecting while the fetch queue is full.
     """
 
-    def __init__(self, batch_size: int = 8, flush_ms: float = 30.0,
+    # request type of the engine's family, the fields a request body may
+    # leave out over the type's own defaults, and /v1/refine's (or
+    # /v1/edit/refine's) over those; None: no refine signature
+    REQUEST: type = GenerationRequest
+    GENERATE_DEFAULTS: dict = {}
+    REFINE_DEFAULTS: Optional[dict] = None
+    # set by a subclass: latent H = W, and the pad-to-max program's length
+    latent_size: int
+    padded_max_steps: Optional[int] = None
+
+    def __init__(self, pipeline, batch_size: int = 8, flush_ms: float = 30.0,
                  max_queue: int = 256, max_wait_s: Optional[float] = None,
                  batch_sizes: Optional[Tuple[int, ...]] = None,
-                 adaptive_flush: bool = False, device=None, mesh=None):
+                 adaptive_flush: bool = False, mesh=None):
         sizes = sorted({int(s) for s in (batch_sizes or (batch_size,))})
         if sizes[0] < 1:
             raise ValueError(f"batch sizes must be >= 1, got {sizes}")
-        if mesh is not None and any(size % mesh.dp for size in sizes):
-            raise ValueError(f"batch sizes {sizes} must divide by the mesh's data axis ({mesh.dp})")
+        if mesh is not None:
+            if pipeline.TENSOR_PARALLEL is None:
+                raise ValueError(f"{type(pipeline).__name__} serves on one card; put an engine "
+                                 "on each card (make_replicas) instead of a mesh")
+            if any(size % mesh.dp for size in sizes):
+                raise ValueError(f"batch sizes {sizes} must divide by the mesh's data axis "
+                                 f"({mesh.dp})")
+            name, rules = pipeline.TENSOR_PARALLEL
+            shard_module_by_rules(mesh, getattr(pipeline, name), rules)
+        for name in pipeline.MODULES:
+            module = getattr(pipeline, name, None)
+            graphs = getattr(module, "cuda_graphs", None)
+            if graphs is not None and unet_graphs_allowed(module, pipeline.device):
+                graphs.enabled = True
+        self.pipeline = pipeline
+        self._programs: dict = {}
         self.mesh = mesh
         self._mesh_lock = threading.Lock()  # one batch's collectives at a time
         self._sent_net = None  # the policy whose parameters the followers hold
         self._mesh_closed = False
         self.batch_sizes = tuple(sizes)
         self.batch_size = sizes[-1]
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = torch.device(pipeline.device)
         self._adaptive = bool(adaptive_flush)
         self._ema_gap_s: Optional[float] = None
         self._last_submit: Optional[float] = None
@@ -597,27 +624,64 @@ class _BatchingEngine:
             self.mesh.broadcast_object(msg)
             return self._execute(msg)
 
+    @classmethod
+    def request(cls, refine: bool = False, **fields):
+        """A request of this engine's family: ``fields`` over its defaults
+        (``refine``: the refine signature's).  Raises ValueError where the
+        family has no refine signature."""
+        if refine and cls.REFINE_DEFAULTS is None:
+            raise ValueError(f"{cls.__name__} has no refine signature; ask /v1/generate "
+                             "for the steps and solver you want")
+        return cls.REQUEST(**{**cls.GENERATE_DEFAULTS,
+                              **(cls.REFINE_DEFAULTS if refine else {}), **fields})
+
     def _message(self, requests) -> dict:
-        """The padded batch: ``{"key": program key, ...host arrays}``."""
+        """The padded batch's host arrays (:meth:`_batch`)."""
         raise NotImplementedError
+
+    def _batch(self, requests, *inputs) -> dict:
+        """The message of a batch: its program key, its padded seeds and
+        ``inputs``, the padded host arrays that the pipeline's call takes
+        before the noise."""
+        seeds = self._pad([int(r.seed) for r in requests], requests)
+        return {"key": requests[0].program_key, "seeds": np.asarray(seeds), "inputs": inputs}
+
+    def _serve_program(self, program_key):
+        """The batch's whole hot path for one program key: per-seed noise ->
+        the pipeline's call (encode, denoise, decode) -> uint8, on the
+        pipeline it is given (read once per batch, so that a hot reload
+        applies from the next batch).  ``padded_max_steps`` serves the
+        learnable solver's step counts up to it from one pad-to-max
+        program."""
+        if program_key not in self._programs:
+            steps, cfg_scale, solver, deterministic = program_key
+            padded = (self.padded_max_steps
+                      if self.padded_max_steps is not None and steps <= self.padded_max_steps
+                      and self.pipeline.is_learnable(solver) else None)
+
+            def run(pipe, generator, seeds, inputs):
+                shape = (self.latent_size, self.latent_size, pipe.latent_channels)
+                noise = profiling.to_device(seed_noise(seeds, shape), pipe.device)
+                images, _ = pipe(generator, *inputs, noise, num_inference_steps=steps,
+                                 guidance_scale=cfg_scale, solver=solver,
+                                 deterministic_policy=deterministic, padded_max_steps=padded,
+                                 record=False)  # serving discards the RL trajectory
+                return _uint8_in_program(images)
+
+            self._programs[program_key] = run
+        return self._programs[program_key]
 
     def _execute(self, msg: dict):
-        """Run a batch message: the on-device uint8 images."""
-        raise NotImplementedError
-
-    def _rows(self, msg: dict, names: Sequence[str]):
-        """(this data rank's rows of ``msg[name]`` for each name, the batch
-        generator seeded from the batch's first seed: on a mesh it draws for
-        the whole batch and keeps this rank's rows)."""
-        seeds = msg["seeds"]
+        """Run a batch message: the on-device uint8 images.  On a mesh this
+        data rank runs its rows, its generator drawing for the whole batch
+        and keeping its rows, and the images are gathered."""
+        seeds, inputs = msg["seeds"], msg["inputs"]
         generator = torch.Generator(self.pipeline.device).manual_seed(int(seeds[0]))
-        if self.mesh is None:
-            return [msg[n] for n in names], generator
-        rows = shard_slice(self.mesh, len(seeds))
-        return ([msg[n][rows] for n in names],
-                ShardedGenerator(generator, rows.start, len(seeds)))
-
-    def _gathered(self, images: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            rows = shard_slice(self.mesh, len(seeds))
+            generator = ShardedGenerator(generator, rows.start, len(seeds))
+            seeds, inputs = seeds[rows], [x[rows] for x in inputs]
+        images = self._serve_program(msg["key"])(self.pipeline, generator, seeds.tolist(), inputs)
         return images if self.mesh is None else gather_batch(self.mesh, images)
 
     # ------------------------------------------------------------ helpers
@@ -688,11 +752,11 @@ class _BatchingEngine:
     def update_factor_params(self, state) -> None:
         """Swap the resident policy for one with the parameters ``state``.
 
-        The pipeline's cached denoise functions hold the FactorNet they were
-        built with, and a batch in flight reads the resident net, so the new
-        parameters go into a NEW net (a copy of the resident one), which
-        replaces the pipeline by a shallow copy with an empty denoise cache:
-        one attribute assignment, atomic for the worker thread.  Batches
+        The pipeline's cached programs hold the FactorNet they were built
+        with, and a batch in flight reads the resident net, so the new
+        parameters go into a NEW net (a copy of the resident one) in a copy
+        of the pipeline with an empty program cache (``replace``): one
+        attribute assignment, atomic for the worker thread.  Batches
         already dispatched finish on the old policy."""
         old = getattr(self.pipeline, "factor_net", None)
         if old is None:
@@ -707,10 +771,7 @@ class _BatchingEngine:
         net = copy.deepcopy(old)
         with torch.no_grad():
             net.load_state_dict(state)
-        p2 = copy.copy(self.pipeline)
-        p2.factor_net = net
-        p2._denoise_cache = {}
-        self.pipeline = p2
+        self.pipeline = self.pipeline.replace(factor_net=net)
 
     def load_factor_ckpt(self, path: str) -> dict:
         """Hot-reload the policy from a trainer ``checkpoint-{step}`` or a
@@ -736,21 +797,15 @@ class _BatchingEngine:
 
 
 class InferenceEngine(_BatchingEngine):
-    """Text-to-image serving engine (SD family).
+    """Text-to-image serving engine over a pipeline whose call takes the
+    prompt's ids (``pipeline.tokenize``): SD-1.5's, or any family's.
 
-    ``pipeline``: a :class:`TextToImagePipeline` (never mutated).
     ``latent_size``: latent H = W (images come out 8x larger for SD-1.5).
+    ``max_length``: the prompt's token count (default: the pipeline's own).
     ``padded_max_steps``: serve every ``num_inference_steps`` in ``[1,
     padded_max_steps]`` of the learnable solver from one pad-to-max
     program (zoo solvers keep per-count programs).
-    ``mesh``: serve over its ranks (module docstring); with a model axis
-    the UNet's transformer blocks are split in place.
-
-    On a CUDA device the engine turns on its UNet's CUDA graphs
-    (:mod:`consolver_torch.models.graphs`) unless the UNet is
-    tensor-parallel: the first batch of each program and batch shape
-    (:meth:`prewarm`, or the first request) captures the UNet's forward,
-    and later batches replay it, one launch per UNet call.
+    ``mesh``: serve over its ranks (module docstring).
     """
 
     def __init__(
@@ -768,96 +823,28 @@ class InferenceEngine(_BatchingEngine):
         adaptive_flush: bool = False,
     ):
         self.padded_max_steps = padded_max_steps
-        self.pipeline = pipeline
-        self._adopt(pipeline, mesh)
         self.latent_size = int(latent_size)
-        self.max_length = int(max_length if max_length is not None
-                              else pipeline.text_encoder.cfg.max_position_embeddings)
-        self._programs: dict = {}
-        super().__init__(batch_size, flush_ms, max_queue, max_wait_s, batch_sizes=batch_sizes,
-                         adaptive_flush=adaptive_flush, device=pipeline.device, mesh=mesh)
+        self.max_length = max_length
+        super().__init__(pipeline, batch_size, flush_ms, max_queue, max_wait_s,
+                         batch_sizes=batch_sizes, adaptive_flush=adaptive_flush, mesh=mesh)
 
-    # the solver whose program may be the padded one
-    LEARNABLE_SOLVER = "consistencysolver"
-    # the fields a /v1/generate body may leave out, over GenerationRequest's
-    # own defaults (SD-1.5's), and /v1/refine's over those (the teacher
-    # signature, 40-step multistep DPM-Solver); None: no refine signature
-    GENERATE_DEFAULTS: dict = {}
-    REFINE_DEFAULTS: Optional[dict] = {"num_inference_steps": 40, "solver": "multistep-dpm"}
-
-    @classmethod
-    def request(cls, refine: bool = False, **fields) -> GenerationRequest:
-        """A request of this engine's family: ``fields`` over its defaults
-        (``refine``: the refine signature's).  Raises ValueError where the
-        family has no refine signature."""
-        if refine and cls.REFINE_DEFAULTS is None:
-            raise ValueError(f"{cls.__name__} has no refine signature; ask /v1/generate "
-                             "for the steps and solver you want")
-        return GenerationRequest(**{**cls.GENERATE_DEFAULTS,
-                                    **(cls.REFINE_DEFAULTS if refine else {}), **fields})
-
-    def _adopt(self, pipeline, mesh) -> None:
-        """Split the UNet over the mesh's model axis, and turn its CUDA
-        graphs on: the engine runs a fixed set of batch shapes, so the first
-        batch of each (program, shape) captures the UNet's graph and the
-        rest replay."""
-        if mesh is not None:
-            shard_module_by_rules(mesh, pipeline.unet, UNET_TP_RULES)
-        if unet_graphs_allowed(pipeline.unet, pipeline.device):
-            pipeline.unet.cuda_graphs.enabled = True
-
-    @staticmethod
-    def _latent_channels(pipe) -> int:
-        return pipe.unet.cfg.in_channels
-
-    def _serve_program(self, program_key):
-        """The batch's whole hot path for one program key: per-seed noise ->
-        text encode -> denoise -> VAE decode -> uint8, on the pipeline it is
-        given (read once per batch, so that a hot reload applies from the
-        next batch)."""
-        if program_key not in self._programs:
-            steps, cfg_scale, solver, deterministic = program_key
-            padded = (self.padded_max_steps
-                      if solver == self.LEARNABLE_SOLVER and self.padded_max_steps is not None
-                      and steps <= self.padded_max_steps else None)
-
-            def run(pipe, generator, seeds, ids):
-                shape = (self.latent_size, self.latent_size, self._latent_channels(pipe))
-                noise = profiling.to_device(seed_noise(seeds, shape), pipe.device)
-                images, _ = pipe(generator, ids, noise, num_inference_steps=steps,
-                                 guidance_scale=cfg_scale, solver=solver,
-                                 deterministic_policy=deterministic, padded_max_steps=padded,
-                                 record=False)  # serving discards the RL trajectory
-                return _uint8_in_program(images)
-
-            self._programs[program_key] = run
-        return self._programs[program_key]
+    # SD-1.5's: GenerationRequest's own defaults, and the teacher signature
+    # (40-step multistep DPM-Solver) on /v1/refine
+    REFINE_DEFAULTS = {"num_inference_steps": 40, "solver": "multistep-dpm"}
 
     def _message(self, requests) -> dict:
-        pipe = self.pipeline
         prompts = self._pad([r.prompt for r in requests], requests)
-        tok = pipe.tokenizer or HashTokenizer(max_length=self.max_length)
-        ids = tokenize_batch(tok, prompts, self.max_length,
-                             vocab_size=pipe.text_encoder.cfg.vocab_size)
-        seeds = self._pad([int(r.seed) for r in requests], requests)
-        return {"key": requests[0].program_key, "seeds": np.asarray(seeds), "ids": ids}
-
-    def _execute(self, msg: dict):
-        (seeds, ids), generator = self._rows(msg, ("seeds", "ids"))
-        program = self._serve_program(msg["key"])
-        return self._gathered(program(self.pipeline, generator, seeds.tolist(), ids))
+        return self._batch(requests, self.pipeline.tokenize(prompts, self.max_length))
 
 
 class SD3InferenceEngine(InferenceEngine):
     """Text-to-image serving of the SD3 family
     (:class:`~consolver_torch.pipelines.sd3.SD3Pipeline`) on the same
-    requests, batching, fetch and HTTP path as :class:`InferenceEngine`.
-    Its learnable solver is ``fmppo``; ``latent_size`` is 128 for 1024²;
-    the prompt goes to the pipeline's three tokenizers.  One card: no mesh
-    (``--replicas`` puts an engine on each card), and no CUDA graphs (an
-    MMDiT step is some 60 TFLOP against about 1,200 launches)."""
+    requests, batching, fetch and HTTP path as :class:`InferenceEngine`,
+    with the SD3 model card's request defaults; ``latent_size`` is 128 for
+    1024².  One card (the pipeline has no tensor-parallel rule:
+    ``--replicas`` puts an engine on each card)."""
 
-    LEARNABLE_SOLVER = "fmppo"
     # the model card's guidance and the learnable FM solver; no refine
     # signature (a full render is /v1/generate with euler at 28 steps)
     GENERATE_DEFAULTS = {"guidance_scale": 3.5, "solver": "fmppo"}
@@ -867,29 +854,18 @@ class SD3InferenceEngine(InferenceEngine):
         super().__init__(pipeline, batch_size=batch_size, latent_size=latent_size,
                          max_length=pipeline.t5_max_length, **kwargs)
 
-    def _adopt(self, pipeline, mesh) -> None:
-        if mesh is not None:
-            raise ValueError("the SD3 engine serves on one card; put an engine on each card "
-                             "(make_replicas) instead of a mesh")
-
-    @staticmethod
-    def _latent_channels(pipe) -> int:
-        return pipe.latent_channels
-
-    def _message(self, requests) -> dict:
-        prompts = self._pad([r.prompt for r in requests], requests)
-        seeds = self._pad([int(r.seed) for r in requests], requests)
-        return {"key": requests[0].program_key, "seeds": np.asarray(seeds),
-                "ids": self.pipeline.tokenize(prompts)}
-
 
 class EditInferenceEngine(_BatchingEngine):
     """FLUX-Kontext instructional-edit serving engine over a resident
     :class:`FluxKontextPipeline`.  The image resolution is pinned per
     engine; reference images are center-crop-resized on the host.
     ``t5_tokenizer`` / ``clip_tokenizer``: real tokenizers, else hashing.
-    ``mesh``: serve over its ranks (module docstring); with a model axis
-    the DiT is split in place."""
+    ``mesh``: serve over its ranks (module docstring)."""
+
+    REQUEST = EditRequest
+    # /v1/edit/refine: the full-quality Kontext signature (28-step Euler FM
+    # at guidance 2.5)
+    REFINE_DEFAULTS = {"num_inference_steps": 28, "solver": "euler", "guidance_scale": 2.5}
 
     def __init__(
         self,
@@ -909,9 +885,6 @@ class EditInferenceEngine(_BatchingEngine):
         adaptive_flush: bool = False,
     ):
         self.padded_max_steps = padded_max_steps
-        self.pipeline = pipeline
-        if mesh is not None:
-            shard_module_by_rules(mesh, pipeline.transformer, FLUX_TP_RULES)
         self.resolution = int(resolution)
         vae_factor = 2 ** (len(pipeline.vae.cfg.block_out_channels) - 1)
         if self.resolution % (2 * vae_factor):
@@ -922,31 +895,8 @@ class EditInferenceEngine(_BatchingEngine):
         self.clip_tokenizer = clip_tokenizer
         self.t5_max_length = int(t5_max_length)
         self.clip_max_length = int(clip_max_length)
-        self._programs: dict = {}
-        super().__init__(batch_size, flush_ms, max_queue, max_wait_s, batch_sizes=batch_sizes,
-                         adaptive_flush=adaptive_flush, device=pipeline.device, mesh=mesh)
-
-    def _serve_program(self, program_key):
-        """The edit's whole hot path for one program key: per-seed noise ->
-        T5 + CLIP encode -> VAE encode of the reference -> FM denoise -> VAE
-        decode -> uint8."""
-        if program_key not in self._programs:
-            steps, cfg_scale, solver, deterministic = program_key
-            padded = (self.padded_max_steps
-                      if solver == "fmppo" and self.padded_max_steps is not None
-                      and steps <= self.padded_max_steps else None)
-
-            def run(pipe, generator, seeds, t5_ids, clip_ids, ref):
-                shape = (self.latent_size, self.latent_size, pipe.vae.cfg.latent_channels)
-                noise = profiling.to_device(seed_noise(seeds, shape), pipe.device)
-                images, _ = pipe(generator, t5_ids, clip_ids, ref, noise,
-                                 num_inference_steps=steps, guidance_scale=cfg_scale,
-                                 solver=solver, deterministic_policy=deterministic,
-                                 record=False, padded_max_steps=padded)
-                return _uint8_in_program(images)
-
-            self._programs[program_key] = run
-        return self._programs[program_key]
+        super().__init__(pipeline, batch_size, flush_ms, max_queue, max_wait_s,
+                         batch_sizes=batch_sizes, adaptive_flush=adaptive_flush, mesh=mesh)
 
     def _message(self, requests) -> dict:
         pipe = self.pipeline
@@ -960,40 +910,10 @@ class EditInferenceEngine(_BatchingEngine):
                                 vocab_size=pipe.t5.cfg.vocab_size)
         clip_ids = tokenize_batch(clip_tok, instructions, self.clip_max_length,
                                   vocab_size=pipe.clip.cfg.vocab_size)
-        seeds = self._pad([int(r.seed) for r in requests], requests)
-        return {"key": requests[0].program_key, "seeds": np.asarray(seeds), "t5_ids": t5_ids,
-                "clip_ids": clip_ids, "ref": ref}
-
-    def _execute(self, msg: dict):
-        (seeds, t5_ids, clip_ids, ref), generator = self._rows(
-            msg, ("seeds", "t5_ids", "clip_ids", "ref"))
-        program = self._serve_program(msg["key"])
-        return self._gathered(program(self.pipeline, generator, seeds.tolist(), t5_ids,
-                                      clip_ids, ref))
+        return self._batch(requests, t5_ids, clip_ids, ref)
 
 
 # ---------------------------------------------------------------- replicas
-_REPLICA_MODULES = {
-    "t2i": ("unet", "text_encoder", "vae", "factor_net"),
-    "sd3": ("transformer", "clip_l", "clip_g", "t5", "vae", "factor_net"),
-    "edit": ("transformer", "t5", "clip", "vae", "factor_net"),
-}
-
-
-def _pin_to_device(pipeline, device, module_attrs: Tuple[str, ...]):
-    """A shallow copy of ``pipeline`` holding its own copy of every model on
-    ``device``, with an empty denoise cache (its functions would close over
-    the original models)."""
-    p2 = copy.copy(pipeline)
-    for attr in module_attrs:
-        module = getattr(pipeline, attr, None)
-        if module is not None:
-            setattr(p2, attr, copy.deepcopy(module).to(device))
-    p2.device = torch.device(device)
-    p2._denoise_cache = {}
-    return p2
-
-
 class ReplicaGroup:
     """One engine per device with least-loaded dispatch: each replica owns a
     full model copy and its own queue.  Quacks like an engine
@@ -1098,15 +1018,17 @@ class ReplicaGroup:
 
 def make_replicas(pipeline, engine_cls, n_replicas: int, devices=None,
                   **engine_kwargs) -> ReplicaGroup:
-    """One ``engine_cls`` per device, each with its own model copy.
-    ``devices`` defaults to ``cuda:0 .. cuda:{n-1}`` of the visible cards."""
+    """One ``engine_cls`` per device, each over a copy of ``pipeline``
+    holding its own copy of every model of ``pipeline.MODULES`` on that
+    device.  ``devices`` defaults to ``cuda:0 .. cuda:{n-1}`` of the visible cards."""
     if devices is None:
         devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     if n_replicas > len(devices):
         raise ValueError(f"{n_replicas} replicas > {len(devices)} visible devices")
-    family = ("edit" if issubclass(engine_cls, EditInferenceEngine)
-              else "sd3" if issubclass(engine_cls, SD3InferenceEngine) else "t2i")
-    engines = [engine_cls(_pin_to_device(pipeline, devices[i], _REPLICA_MODULES[family]),
-                          **engine_kwargs)
-               for i in range(n_replicas)]
+    engines = []
+    for device in devices[:n_replicas]:
+        models = {name: copy.deepcopy(module).to(device) for name in pipeline.MODULES
+                  if (module := getattr(pipeline, name, None)) is not None}
+        engines.append(engine_cls(pipeline.replace(device=torch.device(device), **models),
+                                  **engine_kwargs))
     return ReplicaGroup(engines)

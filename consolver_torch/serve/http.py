@@ -19,14 +19,16 @@ Endpoints
                           "deterministic"}`` -> the edited image as base64
                           PNG; 404 unless the server has an edit engine.
 ``POST /v1/refine``       the body of ``/v1/generate``, defaulting to the
-                          teacher signature (40-step multistep DPM): the
+                          engine's refine signature (SD-1.5: the teacher's,
+                          40-step multistep DPM): the
                           preview -> refine product loop.  A request's noise
                           comes from its ``seed`` alone, so refining with the
                           preview's seed starts from the preview's noise.
                           400 on an SD3 server, which has no refine signature.
 ``POST /v1/edit/refine``  the edit twin: the body of ``/v1/edit``, defaulting
-                          to the full-quality Kontext signature (28-step
-                          Euler at guidance 2.5); same seed contract.
+                          to the edit engine's refine signature (the
+                          full-quality Kontext one, 28-step Euler at guidance
+                          2.5); same seed contract.
 ``POST /v1/admin/reload_factor``  hot-reload the policy from a server-side
                           checkpoint: ``{"path": ..., "engine": "generate" |
                           "edit"}`` (``engine`` optional with one engine).
@@ -72,12 +74,7 @@ from typing import Optional
 
 import numpy as np
 
-from consolver_torch.serve.engine import (
-    EditInferenceEngine,
-    EditRequest,
-    InferenceEngine,
-    RequestExpired,
-)
+from consolver_torch.serve.engine import EditInferenceEngine, InferenceEngine, RequestExpired
 from consolver_torch.utils import profiling
 from consolver_torch.utils.png import decode_png, encode_png, png_size
 
@@ -85,15 +82,6 @@ from consolver_torch.utils.png import decode_png, encode_png, png_size
 MAX_BODY_BYTES = 64 * 1024 * 1024
 # checked from the PNG header, before the pixels are decoded
 MAX_EDIT_PIXELS = 16 * 1024 * 1024
-
-# /v1/refine on SD-1.5: the teacher signature (40-step multistep
-# DPM-Solver); clients override per field.  Each engine holds its family's
-# (``InferenceEngine.request``).
-REFINE_DEFAULTS = InferenceEngine.REFINE_DEFAULTS
-
-# /v1/edit/refine: the edit family's full-quality signature (28-step Euler
-# FM at guidance 2.5)
-EDIT_REFINE_DEFAULTS = {"num_inference_steps": 28, "solver": "euler", "guidance_scale": 2.5}
 
 
 def _json_bool(value) -> bool:
@@ -115,6 +103,8 @@ _GENERATE_FIELDS = {"prompt": str, **_COMMON_FIELDS}
 _GENERATE_PATHS = ("/v1/generate", "/v1/refine")
 _EDIT_PATHS = ("/v1/edit", "/v1/edit/refine")
 _EDIT_FIELDS = {"instruction": str, **_COMMON_FIELDS}
+# each takes the refine signature of its engine (``engine.request``)
+_REFINE_PATHS = ("/v1/refine", "/v1/edit/refine")
 
 
 def _png_b64(image: np.ndarray) -> str:
@@ -193,36 +183,26 @@ class ServeHandler(BaseHTTPRequestHandler):
         if self.path == "/v1/admin/reload_factor":
             self._admin_reload_factor(payload)
             return
-        if self.path in _GENERATE_PATHS:
-            if engine is None:
-                self._reply(404, {"error": "no text-to-image engine configured"})
-                return
-            try:
-                kwargs = self._parse(_GENERATE_FIELDS, payload, "prompt")
-                # the omitted fields take the engine's family's defaults
-                request = engine.request(refine=self.path == "/v1/refine", **kwargs)
-            except (ValueError, TypeError) as exc:
-                self._reply(400, {"error": str(exc)})
-                return
-        elif self.path in _EDIT_PATHS:
-            if engine is None:
-                self._reply(404, {"error": "no edit engine configured"})
-                return
-            try:
-                kwargs = self._parse(_EDIT_FIELDS, payload, "instruction")
-                if self.path == "/v1/edit/refine":
-                    for name, val in EDIT_REFINE_DEFAULTS.items():
-                        kwargs.setdefault(name, val)
+        edit = self.path in _EDIT_PATHS
+        if not (edit or self.path in _GENERATE_PATHS):
+            self._reply(404, {"error": f"unknown path {self.path}"})
+            return
+        if engine is None:
+            self._reply(404, {"error": f"no {'edit' if edit else 'text-to-image'} engine "
+                                       "configured"})
+            return
+        try:
+            kwargs = (self._parse(_EDIT_FIELDS, payload, "instruction") if edit
+                      else self._parse(_GENERATE_FIELDS, payload, "prompt"))
+            if edit:
                 if "image_png_b64" not in payload:
                     raise ValueError("missing required field 'image_png_b64'")
                 with profiling.span("serve.png_decode", rid):
                     kwargs["image"] = _decode_image_b64(payload["image_png_b64"])
-                request = EditRequest(**kwargs)
-            except (ValueError, TypeError, binascii.Error) as exc:
-                self._reply(400, {"error": str(exc)})
-                return
-        else:
-            self._reply(404, {"error": f"unknown path {self.path}"})
+            # the omitted fields take the engine's family's defaults
+            request = engine.request(refine=self.path in _REFINE_PATHS, **kwargs)
+        except (ValueError, TypeError, binascii.Error) as exc:
+            self._reply(400, {"error": str(exc)})
             return
 
         t0 = time.monotonic()

@@ -539,7 +539,7 @@ def test_t2i_quantize_matches_jax(stacks):  # noqa: F811
     float_before = {k: v.clone() for k, v in tpipe.unet.state_dict().items()}
     tpipe.denoise_fn(3, 3.0, deterministic_policy=True)  # a cached program
     qpipe = tpipe.quantize()
-    assert qpipe is not tpipe and qpipe._denoise_cache == {} and tpipe._denoise_cache
+    assert qpipe is not tpipe and not qpipe.programs and tpipe.programs
     for name in ("text_encoder", "factor_net", "schedule", "tokenizer", "timestep_spacing",
                  "steps_offset", "device"):
         assert getattr(qpipe, name) is getattr(tpipe, name), name
@@ -579,7 +579,7 @@ def test_edit_quantize_matches_jax(bits):
     for name in ("t5", "clip", "factor_net", "fm_config", "vae_scaling_factor",
                  "vae_shift_factor", "device"):
         assert getattr(qpipe, name) is getattr(tpipe, name), name
-    assert qpipe._denoise_cache == {} and qpipe.vae.cfg.quant_int8
+    assert not qpipe.programs and qpipe.vae.cfg.quant_int8
     assert qpipe.transformer.cfg.quant_mode == ("int4" if bits == 4 else True)
     assert not tpipe.transformer.cfg.quant_int8 and not tpipe.transformer.cfg.quant_int4
     kwargs = dict(num_inference_steps=2, solver="euler", decode=False)

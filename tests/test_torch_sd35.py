@@ -341,7 +341,7 @@ def test_quantized_copy_is_int8_and_close():
     q = pipe.quantize()
     assert isinstance(q.transformer.transformer_blocks[0].attn_to_q, Int8Linear)
     assert isinstance(pipe.transformer.transformer_blocks[0].attn_to_q, torch.nn.Linear)
-    assert q.clip_l is pipe.clip_l and q._denoise_cache == {}
+    assert q.clip_l is pipe.clip_l and not q.programs
     noise = seed_noise([3], (8, 8, 16))
     ids = pipe.tokenize(["a vase of sunflowers"])
     a, _ = pipe(torch.Generator().manual_seed(3), ids, noise, decode=False, record=False)
@@ -527,7 +527,6 @@ def test_engines_supply_their_family_defaults():
     SD3's are fmppo at the model card's guidance 3.5, SD-1.5's are
     ``GenerationRequest``'s own; only SD-1.5 has a refine signature."""
     from consolver_torch.serve import InferenceEngine
-    from consolver_torch.serve.http import REFINE_DEFAULTS
 
     req = SD3InferenceEngine.request(prompt="p", seed=3)
     assert (req.solver, req.guidance_scale, req.num_inference_steps) == ("fmppo", 3.5, 8)
@@ -536,7 +535,7 @@ def test_engines_supply_their_family_defaults():
         SD3InferenceEngine.request(prompt="p", refine=True)
     assert InferenceEngine.request(prompt="p") == GenerationRequest(prompt="p")
     assert (InferenceEngine.request(prompt="p", refine=True)
-            == GenerationRequest(prompt="p", **REFINE_DEFAULTS))
+            == GenerationRequest(prompt="p", **InferenceEngine.REFINE_DEFAULTS))
 
 
 def _post_json(host, port, path, body):

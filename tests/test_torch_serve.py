@@ -35,6 +35,7 @@ from consolver_torch.models.flux import FluxConfig, FluxTransformer
 from consolver_torch.models.t5 import T5Config, T5Encoder
 from consolver_torch.models.unet_2d import UNet2DCondition, UNetConfig
 from consolver_torch.models.vae import AutoencoderKL, VaeConfig
+from consolver_torch.pipelines.base import Pipeline
 from consolver_torch.pipelines.edit import FluxKontextPipeline
 from consolver_torch.pipelines.t2i import TextToImagePipeline
 from consolver_torch.policy import io as policy_io
@@ -46,18 +47,13 @@ from consolver_torch.serve import (
     GenerationRequest,
     InferenceEngine,
     RequestExpired,
+    SD3InferenceEngine,
     make_replicas,
     make_server,
 )
 from consolver_torch.dist.mesh import Mesh
 from consolver_torch.serve import engine as tengine
-from consolver_torch.serve.http import (
-    EDIT_REFINE_DEFAULTS,
-    MAX_BODY_BYTES,
-    MAX_EDIT_PIXELS,
-    REFINE_DEFAULTS,
-    _decode_image_b64,
-)
+from consolver_torch.serve.http import MAX_BODY_BYTES, MAX_EDIT_PIXELS, _decode_image_b64
 from consolver_tpu.serve import engine as jengine
 
 BATCH = 4
@@ -182,9 +178,9 @@ def test_prewarm_compiles_one_program_per_signature(engine):
     pipeline cache, so the first real request finds it."""
     n = engine.prewarm(_req(0), _req(1), _req(2, num_inference_steps=3), timeout=300)
     assert n == 2  # two distinct (steps, cfg, solver, det) signatures
-    cache_keys = set(engine.pipeline._denoise_cache)
-    assert (2, 3.0, False, "consistencysolver", False) in cache_keys
-    assert (3, 3.0, False, "consistencysolver", False) in cache_keys
+    cache_keys = set(engine.pipeline.programs)  # (steps, cfg, solver, record, deterministic)
+    assert (2, 3.0, "consistencysolver", False, False) in cache_keys
+    assert (3, 3.0, "consistencysolver", False, False) in cache_keys
     assert engine.stats()["prewarmed"] == 2
     before = engine.stats()["batches"]
     img = engine.generate(_req(5), timeout=300)
@@ -278,7 +274,7 @@ def test_padded_serving_one_program_many_step_counts(pipeline):
     try:
         img2 = eng.generate(_req(0, num_inference_steps=2), timeout=300)
         img3 = eng.generate(_req(0, num_inference_steps=3), timeout=300)
-        padded_keys = [k for k in eng.pipeline._denoise_cache if k[0] == "padded"]
+        padded_keys = [k for k in eng.pipeline.programs if k[0] == "padded"]
         assert len(padded_keys) == 1  # one program served both counts
         assert not np.array_equal(img2, img3)
     finally:
@@ -393,7 +389,7 @@ def test_edit_padded_serving_one_program(edit_pipe):
     try:
         a = eng.generate(_edit_req(20, num_inference_steps=2), timeout=300)
         b = eng.generate(_edit_req(20, num_inference_steps=3), timeout=300)
-        padded_keys = [k for k in eng.pipeline._denoise_cache if k[0] == "padded"]
+        padded_keys = [k for k in eng.pipeline.programs if k[0] == "padded"]
         assert len(padded_keys) == 1
         assert not np.array_equal(a, b)
     finally:
@@ -470,6 +466,147 @@ def test_edit_replicas_pin_transformer_params(edit_pipe):
         assert dits[0] is not dits[1] and edit_pipe.transformer not in dits
         got = group.generate(_edit_req(2, deterministic=True), timeout=300)
     np.testing.assert_array_equal(solo, got)
+
+
+def _sd3_pipe():
+    from tests.test_torch_sd35 import _pipeline, tiny_cfg
+
+    return _pipeline(tiny_cfg())[0]
+
+
+# family -> (pipeline, engine class, engine keywords, a request, a program)
+_FAMILIES = {
+    "sd": lambda: (_sd_pipeline(FactorNet(SD_POLICY, device="cpu")), InferenceEngine,
+                   dict(batch_size=2, latent_size=LATENT), _req(1, deterministic=True),
+                   lambda p: p.denoise_fn(2, 3.0)),
+    "edit": lambda: (_tiny_flux_pipeline(), EditInferenceEngine, dict(batch_size=2, **EDIT_KW),
+                     _edit_req(1, deterministic=True),
+                     lambda p: p.denoise_fn(4, 4, 4, 2, 2.5)),
+    "sd3": lambda: (_sd3_pipe(), SD3InferenceEngine, dict(latent_size=LATENT),
+                    SD3InferenceEngine.request(prompt="p", seed=3, num_inference_steps=2,
+                                               deterministic=True),
+                    lambda p: p.denoise_fn(2, 3.5)),
+}
+
+
+@pytest.mark.parametrize("family", sorted(_FAMILIES))
+def test_pipeline_copies_and_replicas(family):
+    """Each family's pipeline, through the base's one copy method: ``replace``
+    swaps only what it is given, starts an empty program cache and leaves
+    the original untouched; ``make_replicas`` copies exactly ``MODULES``
+    (every other attribute shared) and serves what one engine serves."""
+    pipe, engine_cls, kw, req, program = _FAMILIES[family]()
+    assert isinstance(pipe, Pipeline) and set(pipe.MODULES) <= set(vars(pipe))
+    program(pipe)
+    cache = dict(pipe.programs)
+    assert cache and all(callable(fn) for fn in cache.values())
+    state = {name: getattr(pipe, name) for name in vars(pipe)}
+
+    net = copy.deepcopy(pipe.factor_net)
+    swapped = pipe.replace(factor_net=net)
+    assert swapped.factor_net is net and not swapped.programs
+    assert all(getattr(swapped, n) is v for n, v in state.items() if n not in ("factor_net",
+                                                                              "_programs"))
+    with pytest.raises(AttributeError, match="no attribute"):
+        pipe.replace(not_a_model=None)
+
+    with engine_cls(pipe.replace(), flush_ms=1.0, **kw) as single:
+        solo = single.generate(req, timeout=300)
+    with make_replicas(pipe, engine_cls, 2, devices=["cpu", "cpu"], flush_ms=1.0,
+                       **kw) as group:
+        for eng in group.engines:
+            rep_pipe = eng.pipeline
+            assert type(rep_pipe) is type(pipe) and not rep_pipe.programs
+            for name, value in state.items():
+                if name in pipe.MODULES:
+                    assert value is not getattr(rep_pipe, name), name
+                    assert all(torch.equal(a, b) for a, b in zip(
+                        value.state_dict().values(), getattr(rep_pipe, name).state_dict().values()))
+                elif name == "device":
+                    assert rep_pipe.device == torch.device("cpu")
+                elif name != "_programs":
+                    assert getattr(rep_pipe, name) is value, name
+        a, b = (e.pipeline.factor_net for e in group.engines)
+        assert a is not b
+        np.testing.assert_array_equal(group.generate(req, timeout=300), solo)
+    # the original pipeline is untouched
+    assert {name: getattr(pipe, name) for name in vars(pipe)} == state
+    assert dict(pipe.programs) == cache
+
+
+class _StubPipeline(Pipeline):
+    """A model family the serving layer has never seen: a 1x1-conv
+    "denoiser" over 3 latent channels, prompt ids that are the prompts'
+    lengths, and programs from the base's cache.  Images are the sigmoid
+    of the final latents at the latents' size."""
+
+    MODULES = ("denoiser",)
+    LEARNABLE_SOLVER = "fmppo"
+
+    def __init__(self):
+        super().__init__("cpu")
+        self.denoiser = torch.nn.Conv2d(3, 3, 1)
+        self.calls = []
+
+    @property
+    def latent_channels(self) -> int:
+        return 3
+
+    def tokenize(self, prompts, max_length=None):
+        return np.array([[len(p)] for p in prompts], np.int64)
+
+    def _run(self, x, ids, scale):
+        y = self.denoiser(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return y * scale + torch.as_tensor(ids, dtype=torch.float32).view(-1, 1, 1, 1) * 0.01
+
+    def __call__(self, generator, ids, noise, num_inference_steps, guidance_scale, solver,
+                 deterministic_policy, padded_max_steps, record):
+        self.calls.append((num_inference_steps, solver, deterministic_policy, padded_max_steps))
+        with torch.inference_mode():
+            program = self._program(
+                (num_inference_steps, guidance_scale), solver, record, deterministic_policy,
+                lambda det: lambda g, x, i: (self._run(x, i, 0.5), "trajectory"),
+                lambda: lambda g, x, i: self._run(x, i, 0.25))
+            latents, _ = program(generator, noise, ids)
+        return torch.sigmoid(latents), None
+
+
+def _stub_image(pipe, prompt, seed, scale):
+    """The engine's image of a lone request: row 0 of its batch of 2."""
+    noise = tengine.seed_noise([seed, seed], (LATENT, LATENT, 3))
+    with torch.no_grad():
+        latents = pipe._run(noise, [[len(prompt)]] * 2, scale)
+    return tengine._uint8_in_program(torch.sigmoid(latents))[0]
+
+
+def test_a_new_family_serves_through_the_pipeline_seam():
+    """A pipeline that derives from the base, unknown to ``serve/``, is
+    served by ``InferenceEngine`` (tokenize, latent channels, its learnable
+    solver's pad-to-max routing, the deterministic knob, replicas, the
+    refusal of a mesh for a family without a tensor-parallel rule)."""
+    pipe = _StubPipeline()
+    with InferenceEngine(pipe, batch_size=2, latent_size=LATENT, flush_ms=1.0,
+                         padded_max_steps=4) as eng:
+        learned = eng.generate(GenerationRequest(prompt="abc", seed=5, solver="fmppo",
+                                                 num_inference_steps=3), timeout=300)
+        base = eng.generate(GenerationRequest(prompt="abcdef", seed=6, solver="euler",
+                                              num_inference_steps=3, deterministic=True),
+                            timeout=300)
+    np.testing.assert_array_equal(learned, _stub_image(pipe, "abc", 5, 0.5).numpy())
+    np.testing.assert_array_equal(base, _stub_image(pipe, "abcdef", 6, 0.25).numpy())
+    # the learnable solver routes through the pad-to-max program; a baseline
+    # keeps its per-count one, and its deterministic knob forks nothing
+    assert pipe.calls == [(3, "fmppo", False, 4), (3, "euler", False, None)]
+    assert set(pipe.programs) == {(3, 3.0, "fmppo", False, False), (3, 3.0, "euler", False, False)}
+    with make_replicas(pipe, InferenceEngine, 2, devices=["cpu", "cpu"], batch_size=2,
+                       latent_size=LATENT, flush_ms=1.0) as group:
+        assert [e.pipeline.denoiser is pipe.denoiser for e in group.engines] == [False, False]
+        np.testing.assert_array_equal(group.generate(GenerationRequest(
+            prompt="abc", seed=5, solver="fmppo", num_inference_steps=3), timeout=300), learned)
+    mesh = Mesh(rank=0, world=2, dp=2, tp=1, data_rank=0, model_rank=0, data_group=None,
+                model_group=None, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="one card"):
+        InferenceEngine(pipe, batch_size=2, latent_size=LATENT, mesh=mesh)
 
 
 # -------------------------------------------------------------- hardening
@@ -630,8 +767,8 @@ def test_http_serves_both_families(pipeline, edit_engine):
 # ------------------------------------------------------------- /v1/refine
 
 
-class _CapturePipe:
-    """A duck-typed text-to-image pipeline: records each batch's (steps,
+class _CapturePipe(TextToImagePipeline):
+    """A text-to-image pipeline whose call records each batch's (steps,
     solver) and returns an image that is an injective function of the
     initial noise (equal PNGs <=> equal noise)."""
 
@@ -668,12 +805,12 @@ def test_refine_applies_teacher_defaults_and_shares_noise(pipeline):
 
 
 def test_refine_prewarm_signature():
-    req = GenerationRequest(prompt="prewarm", **REFINE_DEFAULTS)
+    req = GenerationRequest(prompt="prewarm", **InferenceEngine.REFINE_DEFAULTS)
     assert req.num_inference_steps == 40 and req.solver == "multistep-dpm"
     assert req.program_key != GenerationRequest(prompt="prewarm").program_key
 
 
-class _EditCapturePipe:
+class _EditCapturePipe(FluxKontextPipeline):
     device = torch.device("cpu")
 
     def __init__(self, base, captured):
@@ -712,7 +849,7 @@ def test_edit_refine_applies_teacher_defaults_and_shares_noise(edit_pipe):
 
 def test_edit_refine_prewarm_signature():
     gray = np.full((16, 16, 3), 127, np.uint8)
-    req = EditRequest(instruction="prewarm", image=gray, **EDIT_REFINE_DEFAULTS)
+    req = EditRequest(instruction="prewarm", image=gray, **EditInferenceEngine.REFINE_DEFAULTS)
     assert (req.num_inference_steps, req.solver, req.guidance_scale) == (28, "euler", 2.5)
     assert req.program_key != EditRequest(instruction="prewarm", image=gray).program_key
 
@@ -1001,8 +1138,7 @@ def test_hot_reload_swaps_policy_without_retrace(policy_pipeline, tmp_path):
         # ... equal to a fresh engine built on the new net
         net2 = copy.deepcopy(fnet)
         net2.load_state_dict(new_state)
-        pipe2 = copy.copy(policy_pipeline)
-        pipe2.factor_net, pipe2._denoise_cache = net2, {}
+        pipe2 = policy_pipeline.replace(factor_net=net2)
         with InferenceEngine(pipe2, batch_size=2, latent_size=LATENT, flush_ms=1.0) as eng2:
             np.testing.assert_array_equal(after, eng2.generate(req, timeout=300))
         assert len(eng._programs) == 1  # one serving program across the reload
@@ -1020,16 +1156,16 @@ def test_hot_reload_does_not_reuse_the_old_denoise_cache(policy_pipeline):
         before = eng.generate(req, timeout=300)
         old_pipe, old_net = eng.pipeline, eng.pipeline.factor_net
         old_state = {k: v.clone() for k, v in old_net.state_dict().items()}
-        old_cache = dict(old_pipe._denoise_cache)
+        old_cache = dict(old_pipe.programs)
         assert old_cache
         eng.update_factor_params(_biased_state(old_net, hot=3))
         new_pipe = eng.pipeline
         assert new_pipe is not old_pipe and new_pipe.factor_net is not old_net
-        assert new_pipe._denoise_cache is not old_pipe._denoise_cache
-        assert not set(new_pipe._denoise_cache.values()) & set(old_cache.values())
+        assert not new_pipe.programs
         assert all(torch.equal(old_state[k], v) for k, v in old_net.state_dict().items())
         assert not np.array_equal(eng.generate(req, timeout=300), before)
-        assert not set(new_pipe._denoise_cache.values()) & set(old_cache.values())
+        assert not set(new_pipe.programs.values()) & set(old_cache.values())
+        assert dict(old_pipe.programs) == old_cache  # the old pipeline's cache is untouched
         assert policy_pipeline.factor_net is old_net  # the caller's pipeline is untouched
     finally:
         eng.shutdown()

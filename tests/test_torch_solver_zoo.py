@@ -190,7 +190,8 @@ def test_zoo_through_the_pipeline_matches_jax(stacks, name):  # noqa: F811
     np.testing.assert_allclose(t_img.numpy(), np.asarray(j_img), **TOL)
     # a zoo program ignores the determinism knob: one cache entry for both
     tpipe(None, ids, noise, deterministic_policy=True, **kwargs)
-    assert len([k for k in tpipe._denoise_cache if k[3] == name]) == 1
+    # keys end (solver, record, deterministic)
+    assert len([k for k in tpipe.programs if k[-3] == name]) == 1
 
 
 @pytest.mark.parametrize("name", ["sde-dpmsolver", "sde-dpmsolver++"])
