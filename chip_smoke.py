@@ -6,8 +6,8 @@
 Needs one CUDA card, ``nvcc`` and the repository around this file; it exits
 non-zero, printing nothing on stdout, without them.  Phases:
 
-1. Build the two kernel libraries from ``consolver_torch/csrc/`` (one
-   ``nvcc`` each, both at once); print the card's name and power limit
+1. Build the three kernel libraries from ``consolver_torch/csrc/`` (one
+   ``nvcc`` each, all at once); print the card's name and power limit
    (``nvidia-smi``).
 2. Report what kernel #1's tensor-core kernels compiled to, for every
    instantiation (design A, B or H, padded head dim, cp.async, TMA or
@@ -137,7 +137,8 @@ non-zero, printing nothing on stdout, without them.  Phases:
    direct ``TextToImagePipeline.__call__``, a hot reload (the image changes
    and equals the new net's direct call; other dims return 409), a
    ``PreviewSession``, and ``/v1/edit`` (fmppo, Euler) and
-   ``/v1/edit/refine`` from a 1024x768 PNG (57 x steps + 2 launches); peak
+   ``/v1/edit/refine`` from a 1024x768 PNG (57 x steps + 2 launches, one
+   reference resize on the card each, counts reset before each post); peak
    memory with both engines resident.  Then the int8 engines behind a
    second server (SD hybrid int8, FLUX int8 edits): 2 rounds of 8
    concurrent generates, the deterministic request bit-equal at every
@@ -184,6 +185,17 @@ non-zero, printing nothing on stdout, without them.  Phases:
    SD-1.5 UNet (peft and kohya keys of the same pairs) merged with
    ``merge_lora``: kohya bit-equal to peft, within one bf16 ulp of an f32
    ``addmm`` of ``W + (alpha / r) B A``; one generation of 8, 257 launches.
+28. The edit reference's crop-resize kernel (``kernels/resize.py``, built
+   in phase 1 beside the others) at the 17 Kontext-preferred source sizes
+   to 1024^2 (run after 22): bit-equal once per size to the host path
+   (``center_crop_resize * 2 - 1``); the kernel's device ms (CUDA graphs of
+   10 launches), the engine's upload and launch (host clock, synchronised)
+   and the host path's ms (host clock), beside the kernel's bound (its
+   bytes, source and tables in and float32 out, over 3.35 TB/s).  Its
+   launches on the main path are checked in 20: each ``/v1/edit`` (Euler,
+   refine, deterministic and int8 included) resizes its reference once, on
+   the card (``resize.launches_by_route == {"card": 1, "host": 0}``, in
+   ``by_path["serve_edit"]`` and the ``kernels`` line).
 5 also times the deterministic program (mode actions, slot-invariant UNet
 convolutions) beside the sampled one.
 
@@ -2662,6 +2674,73 @@ def phase_image_io():
     return out
 
 
+RESIZE_SIZE = 1024
+RESIZE_SOURCES = [(672, 1568), (688, 1504), (720, 1456), (752, 1392), (800, 1328), (832, 1248),
+                  (880, 1184), (944, 1104), (1024, 1024), (1104, 944), (1184, 880), (1248, 832),
+                  (1328, 800), (1392, 752), (1456, 720), (1504, 688), (1568, 672)]
+RESIZE_HOST_REPEATS = 2
+
+
+def _resize_bytes(rz, h, w, size):
+    """The kernel's bytes: the uint8 source and the window tables read once,
+    the float32 crop written once (the uint8 scratch between the passes is
+    the kernel's own and is not counted)."""
+    width, height, left, top = rz.crop_window(h, w, size)
+    tables = sum(t.nbytes for in_size, out_size, offset in ((w, width, left), (h, height, top))
+                 if out_size != in_size for t in rz.window_tables(in_size, out_size, offset, size))
+    return h * w * 3 + tables + size * size * 3 * 4
+
+
+def phase_resize(rz):
+    """The reference crop-resize kernel against the host path at every
+    Kontext-preferred source size: bit-equal once, then the kernel's device
+    time, the engine's upload-and-launch time and the host path's time."""
+    import numpy as np
+    import torch
+
+    from consolver_torch.data.edit_prep import center_crop_resize
+
+    t_phase = time.perf_counter()
+    rows = []
+    for h, w in RESIZE_SOURCES:
+        img = np.random.default_rng(h * 7 + w).integers(0, 256, (h, w, 3), np.uint8)
+        host_s = []
+        for _ in range(RESIZE_HOST_REPEATS):
+            t0 = time.perf_counter()
+            want = center_crop_resize(img, RESIZE_SIZE) * 2.0 - 1.0
+            host_s.append(time.perf_counter() - t0)
+        out = torch.empty((RESIZE_SIZE, RESIZE_SIZE, 3), dtype=torch.float32, device="cuda")
+        rz.reference_into(img, RESIZE_SIZE, out)
+        if not torch.equal(out.cpu(), torch.from_numpy(want)):
+            raise AssertionError(f"resize kernel at {h}x{w} differs from the host path: max "
+                                 f"{(out.cpu() - torch.from_numpy(want)).abs().max().item()}")
+        src = torch.from_numpy(img).cuda()
+        kernel_ms = _graph_ms(lambda: rz.center_crop_resize(src, RESIZE_SIZE, out=out))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            rz.reference_into(img, RESIZE_SIZE, out)
+        torch.cuda.synchronize()
+        call_ms = 1e3 * (time.perf_counter() - t0) / 5
+        nbytes = _resize_bytes(rz, h, w, RESIZE_SIZE)
+        bound_ms = nbytes / (HBM_TBPS * 1e12) * 1e3
+        width, height, left, top = rz.crop_window(h, w, RESIZE_SIZE)
+        rows.append({"source": [h, w], "resized": [height, width],
+                     "taps": [rz.window_tables(n, m, o, RESIZE_SIZE)[1].shape[1] if m != n else 0
+                              for n, m, o in ((w, width, left), (h, height, top))],
+                     "bit_equal": True, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "kernel_over_bound": kernel_ms / bound_ms,
+                     "upload_and_launch_ms": call_ms, "host_ms": 1e3 * min(host_s),
+                     "bytes": nbytes})
+    out = {"phase": "resize", "size": RESIZE_SIZE, "rows": rows,
+           "host_ms_mean": sum(r["host_ms"] for r in rows) / len(rows),
+           "upload_and_launch_ms_mean": sum(r["upload_and_launch_ms"] for r in rows) / len(rows),
+           "kernel_ms_mean": sum(r["kernel_ms"] for r in rows) / len(rows),
+           "s": time.perf_counter() - t_phase}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def learning_worker(check: str) -> int:
     """One learning check on the card in a process of its own (started by
     :func:`start_learning_checks`): the check's lines, then its result as
@@ -3600,6 +3679,14 @@ def _check_launches(fa, want, what):
     return launches, by_route
 
 
+def _check_resizes(rz, what):
+    """One reference resized, on the card: an edit's ``engine.prep``."""
+    if rz.launches_by_route != {"card": 1, "host": 0}:
+        raise AssertionError(f"{what}: the reference was resized {rz.launches_by_route}, "
+                             "want once on the card")
+    return dict(rz.launches_by_route)
+
+
 def _percentile(xs, q):
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(len(xs) * q))]
@@ -3625,6 +3712,7 @@ def phase_serve(fa, runs_by_path):
     from consolver_torch.core.schedules import DiffusionSchedule
     from consolver_torch.data.edit_prep import center_crop_resize
     from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
+    from consolver_torch.kernels import resize as rz
     from consolver_torch.pipelines.edit import FluxKontextPipeline
     from consolver_torch.pipelines.preview import PreviewSession
     from consolver_torch.pipelines.solver_zoo import SOLVERS, make_solver
@@ -3884,17 +3972,25 @@ def phase_serve(fa, runs_by_path):
                  FLUX_STEPS),
                 ("edit_refine", "/v1/edit/refine", edit_body(), EDIT_REFINE_STEPS)):
             fa.reset_counts()
+            rz.reset_counts()
             code, resp, sec = post(path, body)
             img = _image(_ok(code, resp, name))
             _check_image(img, 1024, name)
             torch.cuda.synchronize()
             launches = _check_launches(fa, DIT_LAUNCHES * steps + 2 * FLUX_VAE_LAUNCHES, name)
-            edits[name] = {"latency_s": sec, "steps": steps, "launches": launches[0]}
+            resizes = _check_resizes(rz, name)
+            edits[name] = {"latency_s": sec, "steps": steps, "launches": launches[0],
+                           "resize_launches_by_route": resizes}
             if name == "edit":
-                serve_edit = dict(zip(("launches", "launches_by_route"), launches))
-        det = [_image(_ok(*post("/v1/edit", edit_body(seed=7001, deterministic=True,
-                                                      num_inference_steps=FLUX_STEPS))[:2],
-                          "deterministic edit")) for _ in range(2)]
+                serve_edit = {**dict(zip(("launches", "launches_by_route"), launches)),
+                              "resize_launches_by_route": resizes}
+        det = []
+        for _ in range(2):
+            rz.reset_counts()
+            det.append(_image(_ok(*post("/v1/edit", edit_body(
+                seed=7001, deterministic=True, num_inference_steps=FLUX_STEPS))[:2],
+                "deterministic edit")))
+            _check_resizes(rz, "deterministic edit")
         if not np.array_equal(*det):
             raise AssertionError("a deterministic edit served twice differs")
         out_edit = {
@@ -3979,6 +4075,7 @@ def phase_serve_int8(fa, pipe, edit_pipe, policy_cfg, edit_body):
 
     from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
     from consolver_torch.kernels import quant as tq
+    from consolver_torch.kernels import resize as rz
     from consolver_torch.policy.factor_net import FactorNet
     from consolver_torch.serve import EditInferenceEngine, GenerationRequest, InferenceEngine, make_server
     from consolver_torch.serve.engine import _uint8_in_program, seed_noise
@@ -4069,6 +4166,7 @@ def phase_serve_int8(fa, pipe, edit_pipe, policy_cfg, edit_body):
 
         # one edit through the int8 edit engine
         fa.reset_counts()
+        rz.reset_counts()
         tq.int_mm.launches = 0
         code, resp, sec = post("/v1/edit", edit_body(num_inference_steps=FLUX_STEPS))
         img = _image(_ok(code, resp, "int8 edit"))
@@ -4077,7 +4175,8 @@ def phase_serve_int8(fa, pipe, edit_pipe, policy_cfg, edit_body):
         launches = _check_launches(fa, DIT_LAUNCHES * FLUX_STEPS + 2 * FLUX_VAE_LAUNCHES,
                                    "int8 edit")
         out["edit"] = {"latency_s": sec, "launches": launches[0],
-                       "int_mm_launches": tq.int_mm.launches}
+                       "int_mm_launches": tq.int_mm.launches,
+                       "resize_launches_by_route": _check_resizes(rz, "int8 edit")}
         if tq.int_mm.launches == 0:
             raise AssertionError("int8 edit: the int8 GEMM never ran")
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -4659,6 +4758,7 @@ def _kernel1_entry(rows, runs_by_path):
     run = serve["int8"]
     by_path["serve_int8"] = {"generate_rounds": run["throughput"]["launches"],
                              "edit": run["edit"]["launches"],
+                             "edit_resize_launches_by_route": run["edit"]["resize_launches_by_route"],
                              "per": f"2 batches of {BATCH} requests; one /v1/edit"}
     run = runs_by_path["dist"]
     by_path["dist"] = {
@@ -4741,6 +4841,24 @@ def _variant_entry(name, rows, launches, launches_by_route):
     return entry
 
 
+def _resize_entry(phase, serve):
+    """The reference crop-resize kernel's line: its device time and bound at
+    the 17 Kontext source sizes (the largest of each, from ``phase_resize``),
+    the host path's mean time, and its launches on the main path, one per
+    ``/v1/edit`` (``serve_edit``; the int8 edit's in ``by_path``)."""
+    rows = phase["rows"]
+    launches_by_route = serve["serve_edit"]["resize_launches_by_route"]
+    return {
+        "name": "lanczos_crop_resize", "route": "cuda", "source": "consolver_torch/csrc/resize.cu",
+        "replaces": None, "host_path": "consolver_torch/data/edit_prep.py::center_crop_resize",
+        "launches": launches_by_route["card"], "launches_by_route": launches_by_route,
+        "per": "one /v1/edit", "bit_equal": all(r["bit_equal"] for r in rows),
+        "ms": max(r["kernel_ms"] for r in rows), "bound_ms": max(r["bound_ms"] for r in rows),
+        "bound_by": "bytes", "ms_over_bound": max(r["kernel_over_bound"] for r in rows),
+        "host_ms": phase["host_ms_mean"], "at": f"{len(rows)} source sizes to {phase['size']}^2",
+    }
+
+
 def main() -> int:
     if not (ROOT / "consolver_torch" / "csrc" / "flash_attention.cu").exists():
         print("chip_smoke.py needs the repository around it (consolver_torch/)", file=sys.stderr)
@@ -4755,6 +4873,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from consolver_torch.kernels import flash_attention as fa
     from consolver_torch.kernels import flash_variants as fv
+    from consolver_torch.kernels import resize as rz
 
     torch.manual_seed(SEED)  # the policy's default-initialised hidden layers
 
@@ -4764,9 +4883,10 @@ def main() -> int:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, both at once
-        build_s = dict(zip(("flash_attention", "flash_variants"), pool.map(timed_build, (fa, fv))))
-    build_s["both"] = time.perf_counter() - t0
+    with ThreadPoolExecutor(max_workers=3) as pool:  # one nvcc per source, all at once
+        build_s = dict(zip(("flash_attention", "flash_variants", "resize"),
+                           pool.map(timed_build, (fa, fv, rz))))
+    build_s["all"] = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -4776,6 +4896,7 @@ def main() -> int:
                       "cuda": torch.version.cuda}), flush=True)
 
     phase_image_io()
+    resize_phase = phase_resize(rz)
     phase_kernel1_build(fa)
     with torch.inference_mode():
         rows = phase_kernel(fa)
@@ -4817,6 +4938,7 @@ def main() -> int:
     kernels = [_kernel1_entry(rows, runs_by_path)]
     kernels += [_variant_entry(k.__name__, variant_rows, probe["launches"][k.__name__],
                                probe["launches_by_route"][k.__name__]) for k in fv.KERNELS]
+    kernels.append(_resize_entry(resize_phase, runs_by_path["serve"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -62,10 +62,10 @@ from typing import Any, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from consolver_torch.data.edit_prep import center_crop_resize
 from consolver_torch.data.tokenizer import HashTokenizer, tokenize_batch
 from consolver_torch.dist.mesh import gather_batch, shard_slice
 from consolver_torch.dist.tp import is_sharded, shard_module_by_rules
+from consolver_torch.kernels import resize
 from consolver_torch.policy import io as policy_io
 from consolver_torch.policy.factor_net import ShardedGenerator
 from consolver_torch.utils import profiling
@@ -167,9 +167,10 @@ class _BatchingEngine:
     Spans (:mod:`consolver_torch.utils.profiling`) go to the engine's own
     totals (``spans``; :meth:`stats` reports them): ``engine.queue``
     (submit to dispatch, per request), ``engine.batch`` (the worker's
-    dispatch of one batch), ``engine.prep`` (:meth:`_message`) and
-    ``engine.fetch`` (the wait for the batch and its copy to the host),
-    plus the pipeline's spans inside each batch and the HTTP handler's.
+    dispatch of one batch), ``engine.prep`` (:meth:`_message`; an edit's
+    reference resize inside it is ``engine.resize``) and ``engine.fetch``
+    (the wait for the batch and its copy to the host), plus the pipeline's
+    spans inside each batch and the HTTP handler's.
     The rings ``_wait_ms`` and ``_dispatch_ms`` take the same stamps as
     ``engine.queue`` and ``engine.batch``.
 
@@ -680,9 +681,15 @@ class _BatchingEngine:
         if self.mesh is not None:
             rows = shard_slice(self.mesh, len(seeds))
             generator = ShardedGenerator(generator, rows.start, len(seeds))
-            seeds, inputs = seeds[rows], [x[rows] for x in inputs]
+            seeds, inputs = seeds[rows], self._rank_inputs([x[rows] for x in inputs])
         images = self._serve_program(msg["key"])(self.pipeline, generator, seeds.tolist(), inputs)
         return images if self.mesh is None else gather_batch(self.mesh, images)
+
+    def _rank_inputs(self, inputs: list) -> list:
+        """This rank's rows of a broadcast batch's inputs as the pipeline's
+        call takes them (host data that :meth:`_message` left to each rank
+        is made ready here)."""
+        return inputs
 
     # ------------------------------------------------------------ helpers
     def _flush_window(self) -> float:
@@ -855,12 +862,48 @@ class SD3InferenceEngine(InferenceEngine):
                          max_length=pipeline.t5_max_length, **kwargs)
 
 
+@dataclasses.dataclass
+class References:
+    """A batch's reference images as host data: the requests' uint8 sources
+    and, per row, the index of its source (pad rows repeat the last).
+    Slicing cuts the rows and keeps the sources, so that a mesh broadcasts
+    the sources and each rank resizes those of its rows."""
+
+    sources: list
+    rows: np.ndarray
+
+    def __getitem__(self, rows: slice) -> "References":
+        return References(self.sources, self.rows[rows])
+
+    def resize(self, size: int, device) -> torch.Tensor:
+        """``[rows, size, size, 3]`` float32 in [-1, 1] on ``device``: each
+        source its rows use is center-crop-resized once
+        (:func:`~consolver_torch.kernels.resize.reference_into`: the kernel
+        on a CUDA device, the host path on the CPU), and a row that repeats
+        a source copies its first row."""
+        with profiling.span("engine.resize"):
+            out = torch.empty((len(self.rows), size, size, 3), dtype=torch.float32,
+                              device=device)
+            first_row: dict = {}
+            for row, i in enumerate(self.rows.tolist()):
+                if i in first_row:
+                    out[row].copy_(out[first_row[i]])
+                else:
+                    resize.reference_into(self.sources[i], size, out[row])
+                    first_row[i] = row
+            return out
+
+
 class EditInferenceEngine(_BatchingEngine):
     """FLUX-Kontext instructional-edit serving engine over a resident
     :class:`FluxKontextPipeline`.  The image resolution is pinned per
-    engine; reference images are center-crop-resized on the host.
-    ``t5_tokenizer`` / ``clip_tokenizer``: real tokenizers, else hashing.
-    ``mesh``: serve over its ranks (module docstring)."""
+    engine.  Reference images are center-crop-resized in ``engine.prep``
+    (:class:`References`): by the CUDA kernel of
+    :mod:`consolver_torch.kernels.resize` on a CUDA pipeline, and on the
+    host on the CPU; on a mesh the batch carries the uint8 sources and each rank
+    resizes its rows.  ``t5_tokenizer`` / ``clip_tokenizer``: real
+    tokenizers, else hashing.  ``mesh``: serve over its ranks (module
+    docstring)."""
 
     REQUEST = EditRequest
     # /v1/edit/refine: the full-quality Kontext signature (28-step Euler FM
@@ -901,9 +944,10 @@ class EditInferenceEngine(_BatchingEngine):
     def _message(self, requests) -> dict:
         pipe = self.pipeline
         instructions = self._pad([r.instruction for r in requests], requests)
-        refs01 = self._pad([center_crop_resize(np.asarray(r.image), self.resolution)
-                            for r in requests], requests)
-        ref = torch.from_numpy(np.stack(refs01) * 2.0 - 1.0)
+        ref = References([r.image for r in requests],
+                         np.asarray(self._pad(list(range(len(requests))), requests)))
+        if self.mesh is None:
+            ref = ref.resize(self.resolution, self.device)
         t5_tok = self.t5_tokenizer or HashTokenizer(max_length=self.t5_max_length)
         clip_tok = self.clip_tokenizer or HashTokenizer(max_length=self.clip_max_length)
         t5_ids = tokenize_batch(t5_tok, instructions, self.t5_max_length,
@@ -911,6 +955,10 @@ class EditInferenceEngine(_BatchingEngine):
         clip_ids = tokenize_batch(clip_tok, instructions, self.clip_max_length,
                                   vocab_size=pipe.clip.cfg.vocab_size)
         return self._batch(requests, t5_ids, clip_ids, ref)
+
+    def _rank_inputs(self, inputs: list) -> list:
+        *text, ref = inputs
+        return [*text, ref.resize(self.resolution, self.device)]
 
 
 # ---------------------------------------------------------------- replicas

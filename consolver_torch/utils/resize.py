@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -153,18 +153,22 @@ def _bilinear(x: float) -> float:
 _FILTERS = {"lanczos": (_lanczos, 3.0), "bilinear": (_bilinear, 1.0)}
 
 
-def _coefficients(in_size: int, out_size: int, kind: str):
-    """Per output index: the first input index and the fixed-point weights
-    ``[out_size, taps]`` (zero past each output's own window)."""
+def _coefficients(in_size: int, out_size: int, kind: str, start: int = 0,
+                  stop: Optional[int] = None):
+    """Per output index ``start .. stop - 1`` (all by default): the first
+    input index and the fixed-point weights ``[outputs, taps]`` (zero past
+    each output's own window).  Each output's row depends on its index
+    alone, so a window's rows are those of the whole table."""
     kernel, base_support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = base_support * filterscale
     ss = 1.0 / filterscale
     taps = int(math.ceil(support)) * 2 + 1
-    first = np.zeros(out_size, np.int64)
-    weights = np.zeros((out_size, taps), np.int64)
-    for xx in range(out_size):
+    outputs = range(start, out_size if stop is None else stop)
+    first = np.zeros(len(outputs), np.int64)
+    weights = np.zeros((len(outputs), taps), np.int64)
+    for i, xx in enumerate(outputs):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
@@ -173,15 +177,18 @@ def _coefficients(in_size: int, out_size: int, kind: str):
         for x, wx in enumerate(w):
             wx = wx / total if total != 0.0 else wx
             # round half away from zero, as C's (int)(w * 2^22 +- 0.5)
-            weights[xx, x] = int(wx * (1 << _PRECISION_BITS) + (0.5 if wx >= 0 else -0.5))
-        first[xx] = xmin
+            weights[i, x] = int(wx * (1 << _PRECISION_BITS) + (0.5 if wx >= 0 else -0.5))
+        first[i] = xmin
     return first, weights
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int, kind: str) -> np.ndarray:
-    """One 8-bit resampling pass along ``axis`` (0 = rows, 1 = columns)."""
+def apply_taps(img: np.ndarray, first: np.ndarray, weights: np.ndarray, axis: int) -> np.ndarray:
+    """One 8-bit pass along ``axis`` (0 = rows, 1 = columns) with the tables
+    of :func:`_coefficients`: output ``j`` sums ``weights[j, k]`` times input
+    ``first[j] + k``, whose index is clamped to the last input (its weight
+    is 0 there), from ``2^21``, and keeps ``clip(sum >> 22, 0, 255)``."""
     in_size = img.shape[axis]
-    first, weights = _coefficients(in_size, out_size, kind)
+    out_size = len(first)
     # 32-bit sums, as the library's: 255 * (sum of the positive weights, at
     # most about 1.1 * 2^22) stays below 2^31
     acc = np.full(img.shape[:axis] + (out_size,) + img.shape[axis + 1:],
@@ -192,6 +199,11 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int, kind: str) -> np.n
         w = weights[:, k].astype(np.int32).reshape((-1,) + (1,) * (img.ndim - axis - 1))
         acc += np.take(src, idx, axis=axis) * w
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int, kind: str) -> np.ndarray:
+    """One 8-bit resampling pass along ``axis`` (0 = rows, 1 = columns)."""
+    return apply_taps(img, *_coefficients(img.shape[axis], out_size, kind), axis)
 
 
 def _pil_resize(image: np.ndarray, width: int, height: int, kind: str) -> np.ndarray:

@@ -491,8 +491,9 @@ def test_edit_round_trip_records_the_source_decode():
         server.server_close()
         eng.shutdown()
     for name in ("serve.request", "serve.png_decode", "serve.png_encode", "engine.prep",
-                 "pipeline.text", "pipeline.vae_encode", "pipeline.decode"):
+                 "engine.resize", "pipeline.text", "pipeline.vae_encode", "pipeline.decode"):
         assert spans[name]["count"] == 1, name
+    assert spans["engine.prep"]["self_ms"] < spans["engine.prep"]["total_ms"]  # the resize inside
     assert spans["pipeline.step"]["count"] == spans["model.dit"]["count"] == 2
     assert spans["pipeline.policy"]["count"] == 2
 
